@@ -8,12 +8,21 @@ pass):
 
 1. env — the card's name and power limit, and the kernels' build time
    (nvcc, from ``fmc_uia_tpu_torch/csrc``).
-2. kernels — each hand-written kernel against its plain PyTorch version on
-   the card, in f32 (TF32 off) and bf16, at the swin_b 512² stage shapes of
-   a batch of 8 (shifted and unshifted), a padded grid and a window-7 case;
-   max error against the stated tolerance (scaled to the branch, not to
-   the residual); CUDA-event medians of the kernel, the plain version and
-   the bound.
+2. kernels — each hand-written forward kernel (K1f, K2f) against its
+   plain PyTorch version on the card, in f32 (TF32 off) and bf16, at the
+   swin_b 512² stage shapes of a batch of 8 (shifted and unshifted), a
+   padded grid and a window-7 case; max error against the stated tolerance
+   (scaled to the branch, not to the residual); CUDA-event medians of the
+   kernel, the plain version and the bound.
+2b. backward kernels — K1b and K2b against their plain backward versions,
+   f32 and bf16, at the stage shapes of the B=24 train step (K1b at all
+   four stages, shifted and unshifted, a padded grid and a window-7 case;
+   K2b at stages 0/1): dx per element (one ulp of its own magnitude plus
+   1e-4 / 4 bf16 ulps of max|dx - dy|), every weight/bias grad within
+   1e-3 (f32) / 2e-2 (bf16) of its largest magnitude; kernel, plain and
+   bound ms. On the same inputs K1f and K2f are held against their plain
+   forward versions as in phase 2, since the train step runs them at
+   these shapes.
 3. model — the flagship 27-task swin_b 512² model (random weights from a
    seed) in bf16 through ``Predictor`` on batches of 8, one task of each
    type; held against the same weights in f32 on the card, and in f32 on
@@ -28,8 +37,21 @@ pass):
    and their median and spread over the runs. The launch counters are
    zeroed just before the first request and read just after the last:
    this is the main path's count.
+5. train — the flagship ``Trainer`` (bf16, B=24, random weights from a
+   seed) on one batch per task type made as bench.py makes them: a warm-up
+   step per type; a timed round-robin of at least 10 s (img/s, ms per step
+   per type from CUDA events, peak memory), the launch counters zeroed just
+   before it and required to rise by 24/24/4/4 (K1f/K1b/K2f/K2b) per step,
+   every loss finite; one profiled step per type (device-time shares by
+   kernel group, ``chiprun_out/profile_train_step.txt``); ten steps on one
+   fixed batch per type (a bright square to segment, detect or locate; a
+   bright or dark image to classify), whose last three losses must average
+   below the first; one step's grads in f32 on the card against f32 on the
+   CPU (B=1, 256², the same batches, augmentation and dropout off), every
+   leaf within 1e-3 of its largest magnitude.
 
-The line before the card's name is ``{"kernels": [...]}``; the last line is
+The line before the card's name is ``{"kernels": [...]}`` (K1f/K2f
+launches from phase 4, K1b/K2b from phase 5); the last line is
 ``{"ok": true, "device": {...}}``. Per-case numbers also go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -269,6 +291,154 @@ def check_kernels(dev, records):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: backward kernels
+# ---------------------------------------------------------------------------
+TRAIN_BATCH = 24     # the flagship train step's batch
+
+
+def bwd_attn_cases():
+    """(label, B, grid, C, heads, ws, shift) of K1b: the four swin_b 512²
+    stage shapes of the B=24 train step, unshifted and shifted, a padded
+    grid and a window-7 case."""
+    cases = [(label, TRAIN_BATCH, g, c, h, ws, shift)
+             for label, _, g, c, h, ws, shift in attn_cases()[:8]]
+    cases.append(("pad12_shift", 2, 12, 128, 4, 8, 4))
+    cases.append(("ws7_shift", 2, 56, 96, 3, 7, 3))
+    return cases
+
+
+def check_grads(names, got, ref, dtype, what):
+    """Each weight/bias grad within 1e-3 (f32: sums over up to 393,216
+    tokens in another order) or 2e-2 (bf16: an intermediate rounded to a
+    neighbouring bf16 value here and there) of its largest magnitude.
+    Returns {name: [err, tol]}."""
+    import torch
+
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-3
+    out = {}
+    for name, g, r in zip(names, got, ref):
+        err = float((g.float() - r.float()).abs().max())
+        tol = rel * float(r.float().abs().max())
+        if not err <= tol:
+            fail(f"{what} {name} {dtype}: err {err:.3e} > tol {tol:.3e}")
+        out[name] = [err, tol]
+    return out
+
+
+ATTN_GRADS = ("dln_scale", "dln_bias", "dwqkv", "dbqkv", "dwproj", "dbproj",
+              "dbias")
+MLP_GRADS = ("dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
+
+
+def check_bwd_kernels(dev, records):
+    """K1b and K2b against their plain backward versions on the card, and
+    K1f and K2f against their plain forward versions on the same inputs
+    (the train step runs the forward kernels at these shapes too)."""
+    import torch
+
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+
+    gen = torch.Generator().manual_seed(1)
+    summary = {"attention_branch_backward": [], "mlp_branch_backward": [],
+               "attention_branch_train": [], "mlp_branch_train": []}
+
+    def run_fwd(kname, label, dtype, x, fn, ref_fn, shape):
+        chk = check_branch(fn(), ref_fn(), x, dtype, f"{kname} train {label}")
+        rec = dict(kernel=kname, case=f"train_{label}",
+                   dtype=str(dtype).split(".")[-1], shape=shape, **chk)
+        records.append(rec)
+        if label.startswith("stage") and dtype == torch.bfloat16:
+            summary[f"{kname}_train"].append(rec)
+        log(f"  {'K1f' if kname.startswith('att') else 'K2f'} {label:12s} "
+            f"{rec['dtype']:8s} {shape} " + err_text(chk))
+
+    def run(kname, label, dtype, x, dy, fn, ref_fn, names, flops, nbytes,
+            timed, shape):
+        got = fn()
+        ref = ref_fn()
+        torch.cuda.synchronize()
+        # dx = round(dxf) + dy: held like a branch output, dy its residual
+        chk = check_branch(got[0], ref[0], dy, dtype, f"{kname} {label} dx")
+        err, excess, tol = chk["max_abs_err"], chk["excess_err"], chk["tol"]
+        grads = check_grads(names, got[1:], ref[1:], dtype,
+                            f"{kname} {label}")
+        del got, ref
+        rec = dict(kernel=kname, case=label, dtype=str(dtype).split(".")[-1],
+                   shape=shape, max_abs_err=err, excess_err=excess, tol=tol,
+                   grads=grads)
+        if timed:
+            peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+            rec["ms"] = cuda_ms(fn, reps=10, warmup=2)
+            rec["plain_ms"] = cuda_ms(ref_fn, reps=3, warmup=1)
+            rec["bound_ms"] = 1e3 * max(flops / peak, nbytes / HBM_BPS)
+            rec["bound_by"] = ("operations" if flops / peak
+                               >= nbytes / HBM_BPS else "bytes")
+            torch.cuda.empty_cache()
+        records.append(rec)
+        worst = max(v[0] / max(v[1], 1e-30) for v in grads.values())
+        log(f"  {'K1b' if kname.startswith('att') else 'K2b'} {label:12s} "
+            f"{rec['dtype']:8s} {shape} dx err {err:.3e} (beyond 1 ulp "
+            f"{excess:.3e} <= tol {tol:.3e}); grads worst err/tol "
+            f"{worst:.3f}"
+            + (f"  {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f}, bound "
+               f"{rec['bound_ms']:.4f})" if timed else ""))
+        return rec
+
+    for label, B, grid, C, H, ws, shift in bwd_attn_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, mask, dp, T, hp = attn_inputs(B, grid, C, H, ws, shift,
+                                                dtype, gen, dev)
+            dy = torch.randn(x.shape, generator=gen).to(dev, dtype)
+            args = (w["ln_scale"], w["ln_bias"], w["wqkv"], w["bqkv"],
+                    w["wproj"], w["bproj"], w["bias_hnn"], mask, H)
+            run_fwd("attention_branch", label, dtype, x,
+                    lambda: sb.attention_branch(x, *args, dp=dp),
+                    lambda: sb.attention_branch_reference(x, *args, dp=dp),
+                    [B, hp, hp, C])
+            N = ws * ws
+            esz = x.element_size()
+            # the pullback with its recompute: 22 C^2 + 12 N C per token
+            flops = T * (22 * C * C + 12 * N * C)
+            nbytes = (3 * T * C * esz + 2 * 4 * (4 * C * C + 6 * C)
+                      + 2 * 4 * H * N * N
+                      + (0 if mask is None else 4 * mask.numel()))
+            rec = run("attention_branch_backward", label, dtype, x, dy,
+                      lambda: sb.attention_branch_backward(x, *args, dy,
+                                                           dp=dp),
+                      lambda: sb.attention_branch_backward_reference(
+                          x, *args, dy, dp=dp),
+                      ATTN_GRADS, flops, nbytes, label.startswith("stage"),
+                      [B, hp, hp, C])
+            if label.startswith("stage") and dtype == torch.bfloat16:
+                summary["attention_branch_backward"].append(rec)
+            del x, dy, w, args
+    for s, (grid, C) in enumerate(((128, 128), (64, 256))):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dp = mlp_inputs(TRAIN_BATCH, grid, C, dtype, gen, dev)
+            dy = torch.randn(x.shape, generator=gen).to(dev, dtype)
+            args = (w["ln_scale"], w["ln_bias"], w["w1"], w["b1"], w["w2"],
+                    w["b2"])
+            run_fwd("mlp_branch", f"stage{s}", dtype, x,
+                    lambda: sb.mlp_branch(x, *args, dp=dp),
+                    lambda: sb.mlp_branch_reference(x, *args, dp=dp),
+                    [TRAIN_BATCH, grid, grid, C])
+            T = TRAIN_BATCH * grid * grid
+            esz = x.element_size()
+            flops = 40 * T * C * C  # fc1 recompute + 4 products of 8 C^2
+            nbytes = 3 * T * C * esz + 2 * 4 * (8 * C * C + 7 * C)
+            rec = run("mlp_branch_backward", f"stage{s}", dtype, x, dy,
+                      lambda: sb.mlp_branch_backward(x, *args, dy, dp=dp),
+                      lambda: sb.mlp_branch_backward_reference(
+                          x, *args, dy, dp=dp),
+                      MLP_GRADS, flops, nbytes, True,
+                      [TRAIN_BATCH, grid, grid, C])
+            if dtype == torch.bfloat16:
+                summary["mlp_branch_backward"].append(rec)
+            del x, dy, w, args
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 3/4: model and serving
 # ---------------------------------------------------------------------------
 def near_tie_ok(pred, ref_logits, err, ncls):
@@ -410,6 +580,287 @@ def profile_forward(pred, imgs, tid, out_dir, report) -> None:
         log("  " + line)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+TRAIN_S = 10.0       # the timed round-robin, at least this long
+FIXED_STEPS = 10     # steps on one fixed batch per type (the loss falls)
+GRAD_IMAGE = 256     # the card-vs-CPU gradient check: B=1 at this size
+KERNEL_GROUPS = (    # kernel-name fragments of the profile's shares
+    ("K1f", ("attn_window_head", "attn_proj_residual")),
+    ("K2f", ("mlp_fwd",)),
+    ("K1b+K2b", ("swin::gemm_", "attn_core_bwd", "swin::ln_rows",
+                 "swin::ln_bwd", "scale_rows", "colsum_partial",
+                 "reduce_slots")),
+    ("library gemm/conv", ("nvjet", "gemm", "conv", "cudnn", "cutlass",
+                           "xmma", "wgrad", "dgrad", "fprop", "sm90_")),
+)
+
+
+def train_batches(registry, B, S, seed):
+    """One batch per task type, as bench.py:144-163 makes them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for ttype, tid in (("segmentation", "T2A_fetal_abdomen"),
+                       ("classification", "T3A_breast_tumor"),
+                       ("detection", "T4A_fetal_brain"),
+                       ("Regression", "T5_fetal_femur")):
+        image = rng.randint(0, 255, (B, S, S, 3)).astype(np.uint8)
+        if ttype == "segmentation":
+            label = rng.randint(0, 2, (B, S, S)).astype(np.int32)
+        elif ttype == "classification":
+            label = rng.randint(0, 2, (B,)).astype(np.int32)
+        elif ttype == "detection":
+            x1 = rng.uniform(0.1, 0.5, (B, 1))
+            y1 = rng.uniform(0.1, 0.5, (B, 1))
+            label = np.concatenate([x1, y1, x1 + 0.3, y1 + 0.3],
+                                   axis=1).astype(np.float32)
+        else:
+            label = rng.rand(B, 8).astype(np.float32)
+        out[ttype] = {"image": image, "label": label, "task_id": tid,
+                      "task_index": registry[tid].global_index,
+                      "task_type": ttype}
+    return out
+
+
+def learnable_batches(registry, B, S, seed):
+    """One batch per task type with something to fit in ten steps: a
+    bright square on a dark noisy ground; the label is the square's mask
+    (seg), its box (det) and its corners (reg); for cls the class is
+    whether the whole image is bright. bench.py's random labels leave a
+    Dice loss at 0.5 and the CE of 24 random labels to the noise of
+    dropout, whatever the model does."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for ttype, tid in (("segmentation", "T2A_fetal_abdomen"),
+                       ("classification", "T3A_breast_tumor"),
+                       ("detection", "T4A_fetal_brain"),
+                       ("Regression", "T5_fetal_femur")):
+        image = rng.randint(20, 80, (B, S, S, 3)).astype(np.uint8)
+        mask = np.zeros((B, S, S), np.int32)
+        box = np.zeros((B, 4), np.float32)
+        present = np.arange(B) % 2
+        for i in range(B):
+            side = rng.randint(S // 4, S // 2)
+            y, x = rng.randint(0, S - side, 2)
+            box[i] = np.array([x, y, x + side, y + side]) / S
+            if ttype == "classification":  # apart under any augmentation
+                image[i] = image[i] // 2 + np.uint8(215 * present[i])
+            else:
+                image[i, y:y + side, x:x + side] += 140
+                mask[i, y:y + side, x:x + side] = 1
+        x1, y1, x2, y2 = box.T
+        label = {"segmentation": mask,
+                 "classification": present.astype(np.int32),
+                 "detection": box,
+                 "Regression": np.stack([x1, y1, x2, y1, x2, y2, x1, y2],
+                                        axis=1)}[ttype]
+        out[ttype] = {"image": image, "label": label, "task_id": tid,
+                      "task_index": registry[tid].global_index,
+                      "task_type": ttype}
+    return out
+
+
+def profile_train_round(trainer, batches, out_dir, report):
+    """torch.profiler over one step of each type: the device time by kernel
+    group, and the op table (chiprun_out/profile_train_step.txt)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches.values():
+            trainer.train_batch(b, 0)
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as f:
+        f.write(avg.table(sort_by="self_device_time_total", row_limit=60))
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total", 0.0)
+                     or getattr(e, "self_cuda_time_total", 0.0))
+
+    kern = [e for e in avg
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in kern)
+    shares = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    shares["elementwise/other"] = 0.0
+    for e in kern:
+        for g, frags in KERNEL_GROUPS:
+            if any(f in e.key for f in frags):
+                shares[g] += dev_us(e)
+                break
+        else:
+            shares["elementwise/other"] += dev_us(e)
+    report["train"]["profile"] = {
+        "device_ms_per_round": total / 1e3, "kernels": len(kern),
+        "share": {g: v / max(total, 1e-9) for g, v in shares.items()}}
+    log(f"[train] profile of one step per type: {total / 1e3:.1f} ms of "
+        f"device time; share " + ", ".join(
+            f"{g} {v / max(total, 1e-9):.3f}" for g, v in shares.items()))
+
+
+def train_phase(name, smi, report, out_dir):
+    """The flagship Trainer at B=24 in bf16: a warm-up step per type, a
+    timed round-robin, the launch counts, a falling loss on a fixed batch,
+    one profiled round, and f32 grads on the card against the CPU's.
+    Returns the timed run's launch counts."""
+    import numpy as np
+    import torch
+
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.flagship import flagship_config_dict
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+    from fmc_uia_tpu_torch.tasks import TaskRegistry
+    from fmc_uia_tpu_torch.train import Trainer
+
+    counters = (sb.attention_branch, sb.attention_branch_backward,
+                sb.mlp_branch, sb.mlp_branch_backward)
+    cfg = Config(config_dict=flagship_config_dict())
+    registry = TaskRegistry.from_config(cfg)
+    model = build_model(cfg, registry, dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(cfg, model, registry, device="cuda", seed=0)
+    batches = {t: trainer.put_batch(b) for t, b in train_batches(
+        registry, TRAIN_BATCH, IMAGE, seed=0).items()}
+    report["train"] = {"batch": TRAIN_BATCH, "image": IMAGE}
+
+    first = {}
+    for t, b in batches.items():  # warm-up: allocator, cuDNN heuristics
+        t0 = time.perf_counter()
+        float(trainer.train_batch(b, 0)["total_loss"])
+        first[t] = time.perf_counter() - t0
+    log(f"[train] first step per type (s, host clock, synced): "
+        f"{ {k: round(v, 2) for k, v in first.items()} }")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    timed, losses = [], []
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < TRAIN_S:
+        for t, b in batches.items():
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            losses.append(trainer.train_batch(b, 0)["total_loss"])
+            ev[1].record()
+            timed.append((t, ev))
+    float(losses[-1])  # a data read: the device has finished every step
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    steps = len(timed)
+    want = {"attention_branch": 24 * steps,
+            "attention_branch_backward": 24 * steps,
+            "mlp_branch": 4 * steps, "mlp_branch_backward": 4 * steps}
+    if launches != want:
+        fail(f"train launches {launches} != 24/24/4/4 x {steps} steps")
+    stacked = torch.stack(losses).float()
+    if not bool(torch.isfinite(stacked).all()):
+        fail(f"non-finite train losses: {stacked.tolist()}")
+    ms = {t: float(np.median([ev[0].elapsed_time(ev[1])
+                              for u, ev in timed if u == t]))
+          for t in batches}
+    peak = torch.cuda.max_memory_allocated()
+    img_s = steps * TRAIN_BATCH / wall
+    report["train"].update(
+        steps=steps, wall_s=wall, img_s=img_s, ms_per_step_by_type=ms,
+        peak_bytes=peak, launches=launches, first_step_s=first)
+    log(f"[train] {steps} steps (round-robin over 4 types) x B="
+        f"{TRAIN_BATCH} in {wall:.2f} s: {img_s:.2f} img/s; ms per step by "
+        f"type (CUDA events) { {k: round(v, 1) for k, v in ms.items()} }; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches {launches}; losses "
+        f"finite | {name} | {smi}")
+
+    profile_train_round(trainer, batches, out_dir, report)
+
+    falls = {}
+    fixed = learnable_batches(registry, TRAIN_BATCH, IMAGE, seed=2)
+    for t, b in fixed.items():  # the loss falls on a fixed batch
+        b = trainer.put_batch(b)
+        vals = [float(trainer.train_batch(b, 0)["total_loss"])
+                for _ in range(FIXED_STEPS)]
+        if not np.mean(vals[-3:]) < vals[0]:
+            fail(f"{t}: loss did not fall over {FIXED_STEPS} steps on one "
+                 f"batch: {vals}")
+        falls[t] = vals
+    report["train"]["fixed_batch_losses"] = falls
+    log(f"[train] {FIXED_STEPS} steps on one batch per type, first -> mean "
+        f"of last 3: " + ", ".join(
+            f"{t} {v[0]:.4f} -> {np.mean(v[-3:]):.4f}"
+            for t, v in falls.items()))
+    del trainer, model, batches
+    torch.cuda.empty_cache()
+    check_train_grads(report)
+    return launches
+
+
+def check_train_grads(report):
+    """One step's grads in f32 on the card against f32 on the CPU, B=1 at
+    256², the same weights and batch (``learnable_batches``),
+    augmentation, dropout and drop path off: every leaf within 1e-3 of its
+    largest magnitude (kernel sums in another order, cuDNN against CPU
+    convolutions, TF32 off)."""
+    import torch
+
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.flagship import flagship_config_dict
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.tasks import TaskRegistry
+    from fmc_uia_tpu_torch.train import Trainer
+
+    d = flagship_config_dict()
+    d["data"]["image_size"] = GRAD_IMAGE
+    d["data"]["augmentation"]["train"].update(
+        random_brightness_contrast=0.0, gauss_noise=0.0)
+    d["model"]["encoder"]["drop_path_rate"] = 0.0
+    d["model"]["decoder"]["dropout"] = 0.0
+    for h in ("classification", "regression"):
+        d["model"]["heads"][h]["dropout"] = 0.0
+    cfg = Config(config_dict=d)
+    registry = TaskRegistry.from_config(cfg)
+    gen = torch.Generator().manual_seed(1)
+    card = build_model(cfg, registry, dtype=torch.float32, device="cuda",
+                       generator=gen)
+    cpu = build_model(cfg, registry, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    tc = Trainer(cfg, card, registry, device="cuda")
+    tp = Trainer(cfg, cpu, registry, device="cpu")
+    worst = {}
+    # the learnable batches: with bench.py's random seg labels a seg grad
+    # summed over every pixel nearly cancels, and its f32 rounding in
+    # another order came to 8.7e-4 of its leaf's largest magnitude
+    for t, b in learnable_batches(registry, 1, GRAD_IMAGE, seed=1).items():
+        lc = tc.compute_grads(b)
+        lp = tp.compute_grads(b)
+        rel, leaf = 0.0, None
+        for (n, pc), (_, pp) in zip(card.named_parameters(),
+                                    cpu.named_parameters()):
+            err = float((pc.grad.cpu() - pp.grad).abs().max())
+            top = float(pp.grad.abs().max())
+            if not err <= 1e-3 * top:
+                fail(f"{t} grad {n}: card vs CPU err {err:.3e} > 1e-3 x "
+                     f"{top:.3e}")
+            if top > 0 and err / top > rel:
+                rel, leaf = err / top, n
+        worst[t] = {"worst_err_over_max": rel, "worst_leaf": leaf,
+                    "loss_card": float(lc["total_loss"]),
+                    "loss_cpu": float(lp["total_loss"])}
+    report["train"]["grads_card_vs_cpu"] = worst
+    log(f"[train] f32 grads card vs CPU, B=1 {GRAD_IMAGE}²: worst leaf "
+        f"err / leaf max by type " + ", ".join(
+            f"{t} {v['worst_err_over_max']:.2e} ({v['worst_leaf']})"
+            for t, v in worst.items()))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -458,9 +909,12 @@ def main() -> int:
                 log(f"  ptxas {k}: {line.strip()}")
 
     # -- 2. kernels ------------------------------------------------------------
-    log("[kernels] kernel vs plain version on the card")
     records = []
+    log("[kernels] kernel vs plain version on the card")
     summary = check_kernels(dev, records)
+    log(f"[kernels-bwd] backward kernel vs plain version on the card, "
+        f"train shapes B={TRAIN_BATCH}")
+    summary.update(check_bwd_kernels(dev, records))
     report["kernel_cases"] = records
 
     # -- 3. model --------------------------------------------------------------
@@ -496,7 +950,6 @@ def main() -> int:
         fail(f"launch counters {got} != {(24 * n, 4 * n)}")
     report["model"] = {"params_M": n_params / 1e6, "fwd_ms_b8":
                        1e3 * fwd_s, "launches": got}
-
     # same weights in f32 on the card, and in f32 on the CPU for one image
     model32 = build_model(cfg, registry, dtype=torch.float32, device="cuda")
     model32.load_state_dict(model.state_dict())
@@ -534,9 +987,7 @@ def main() -> int:
     report["model"]["compare"] = cmp
     del model32, model_cpu
     torch.cuda.empty_cache()
-
     profile_forward(pred, imgs, SERVING_TASKS[0], out_dir, report)
-
     # -- 4. serving ------------------------------------------------------------
     svc = StreamingPredictor(model, registry, mean, std, IMAGE,
                              max_batch=BATCH, max_delay_ms=5.0,
@@ -604,14 +1055,17 @@ def main() -> int:
     report["serving"] = {"runs": runs, "summary": summ,
                          "outstanding": OUTSTANDING, "launches": launches,
                          "max_batch": BATCH}
+    # -- 5. training -----------------------------------------------------------
+    train_launches = train_phase(name, smi, report, out_dir)
 
     # -- kernels line ----------------------------------------------------------
-    def entry(kname, source, replaces):
+    def entry(kname, source, replaces, count):
         recs = summary[kname]
-        # per flagship forward at B=8: stage shapes weighted by the blocks
-        # that run them (attention: 2/2/18/2 blocks, half shifted; MLP:
-        # stages 0 and 1, 2 blocks each)
-        if kname == "attention_branch":
+        # per flagship forward at B=8 (K1f, K2f) or per train step at B=24
+        # (K1b, K2b): stage shapes weighted by the blocks that run them
+        # (attention: 2/2/18/2 blocks, half shifted; MLP: stages 0 and 1,
+        # 2 blocks each)
+        if kname.startswith("attention_branch"):
             weights = {"stage0": 1, "stage0_shift": 1, "stage1": 1,
                        "stage1_shift": 1, "stage2": 9, "stage2_shift": 9,
                        "stage3": 1, "stage3_shift": 1}
@@ -620,19 +1074,32 @@ def main() -> int:
         tot = {k: sum(weights[r["case"]] * r[k] for r in recs)
                for k in ("ms", "plain_ms", "bound_ms")}
         by = {r["bound_by"] for r in recs}
+        # the forward kernels' error covers their B=24 train shapes too
+        checked = recs + summary.get(f"{kname}_train", [])
         return {"name": kname, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[kname],
-                "max_abs_err": max(r["max_abs_err"] for r in recs),
+                "replaces": replaces, "launches": count,
+                "max_abs_err": max(r["max_abs_err"] for r in checked),
                 "ms": tot["ms"], "plain_ms": tot["plain_ms"],
                 "bound_ms": tot["bound_ms"],
                 "bound_by": "operations" if "operations" in by else "bytes",
                 "library_ms": None}
 
+    # launches: K1f/K2f from the serving run (phase 4), K1b/K2b from the
+    # timed train run (phase 5), each zeroed just before its run
     kernels = [
         entry("attention_branch", "fmc_uia_tpu_torch/csrc/swin_attn_fwd.cu",
-              "fmc_uia_tpu/ops/swin_block_pallas.py:480"),
+              "fmc_uia_tpu/ops/swin_block_pallas.py:480",
+              launches["attention_branch"]),
         entry("mlp_branch", "fmc_uia_tpu_torch/csrc/swin_mlp_fwd.cu",
-              "fmc_uia_tpu/ops/swin_block_pallas.py:761"),
+              "fmc_uia_tpu/ops/swin_block_pallas.py:761",
+              launches["mlp_branch"]),
+        entry("attention_branch_backward",
+              "fmc_uia_tpu_torch/csrc/swin_attn_bwd.cu",
+              "fmc_uia_tpu/ops/swin_block_pallas.py:412",
+              train_launches["attention_branch_backward"]),
+        entry("mlp_branch_backward", "fmc_uia_tpu_torch/csrc/swin_mlp_bwd.cu",
+              "fmc_uia_tpu/ops/swin_block_pallas.py:716",
+              train_launches["mlp_branch_backward"]),
     ]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

@@ -8,11 +8,13 @@ Pallas TPU kernels on its path are CUDA C++ kernels written by hand for
 (``ops/build.py``). Entry points take ``device`` (default ``"cuda"``) and
 raise when CUDA is asked for and absent.
 
-Ported so far (serving path): config, tasks, the Swin encoder with the
-fused attention and MLP branches, the FPN decoders, TaskFiLM, the default
-seg / GAP cls / CenterNet det / MLP reg head banks, the multi-task model,
-the weight bridge from a JAX params tree, ``Predictor`` and
-``StreamingPredictor``.
+Ported so far: the serving path — config, tasks, the Swin encoder with
+the fused attention and MLP branches, the FPN decoders, TaskFiLM, the
+default seg / GAP cls / CenterNet det / MLP reg head banks, the multi-task
+model, the weight bridge from a JAX params tree, ``Predictor`` and
+``StreamingPredictor`` — and the train step: the branches' backward
+kernels, drop path and dropout, augmentation, CenterNet targets, the
+losses and ``train.Trainer`` with its grouped-LR AdamW.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,204 @@
+"""Losses of the train step (port of ``fmc_uia_tpu/losses.py``): Dice
+(smp multiclass semantics), cross entropy, CenterNet focal + masked L1,
+MSE with masked columns, and the Kendall-style adaptive weighting.
+
+Pure functions of (predictions, targets[, class/column counts]) returning
+f32 scalars. Banked heads pad logits to the type's largest class count;
+classes past a task's count are set to -1e30 before the softmax, and
+regression columns past ``2 * points`` are left out of the mean. The grid
+detection, L1, SmoothL1, focal and GIoU losses are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+_NOT_PORTED = ("{what} is not ported to fmc_uia_tpu_torch yet (ROADMAP.md, "
+               "port queue item 'Off-main-path heads and conditioning')")
+_NEG = -1e30
+
+
+def _valid_classes(C: int, num_valid_classes, device) -> torch.Tensor:
+    ids = torch.arange(C, device=device)
+    if num_valid_classes is None:
+        return torch.ones(C, dtype=torch.bool, device=device)
+    return ids < torch.as_tensor(num_valid_classes, device=device)
+
+
+def dice_loss_multiclass(logits: torch.Tensor, targets: torch.Tensor,
+                         num_valid_classes=None, smooth: float = 0.0,
+                         eps: float = 1e-7) -> torch.Tensor:
+    """Soft Dice over (batch, pixels) per class, classes absent from the
+    target contribute 0, mean over the valid classes. logits [B, H, W, C]
+    NHWC, targets [B, H, W] int."""
+    C = logits.shape[-1]
+    valid = _valid_classes(C, num_valid_classes, logits.device)
+    x = torch.where(valid, logits.float(), _NEG)
+    probs = torch.softmax(x, dim=-1)
+    onehot = F.one_hot(targets.long(), C).float()
+    dims = (0, 1, 2)
+    inter = (probs * onehot).sum(dims)
+    card = (probs + onehot).sum(dims)
+    dice = (2.0 * inter + smooth) / torch.clamp(card + smooth, min=eps)
+    loss = 1.0 - dice
+    keep = (onehot.sum(dims) > 0) & valid
+    loss = torch.where(keep, loss, torch.zeros_like(loss))
+    return loss.sum() / torch.clamp(valid.float().sum(), min=1.0)
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       num_valid_classes=None) -> torch.Tensor:
+    """Mean cross entropy over all elements ([B, C] or [B, H, W, C]
+    logits), padded classes set to -1e30 before the log-softmax."""
+    C = logits.shape[-1]
+    valid = _valid_classes(C, num_valid_classes, logits.device)
+    logp = torch.log_softmax(torch.where(valid, logits.float(), _NEG), -1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return nll.mean()
+
+
+def centernet_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                         alpha: float = 2.0, beta: float = 4.0
+                         ) -> torch.Tensor:
+    """CenterNet's modified focal loss, normalized by the positives (the
+    negatives' sum alone when there are none)."""
+    t = targets.float()
+    pred = torch.clamp(torch.sigmoid(logits.float()), 1e-6, 1.0 - 1e-6)
+    pos = (t == 1.0).float()
+    neg = (t < 1.0).float()
+    pos_loss = -torch.log(pred) * torch.pow(1.0 - pred, alpha) * pos
+    neg_loss = (-torch.log(1.0 - pred) * torch.pow(pred, alpha)
+                * torch.pow(1.0 - t, beta) * neg)
+    num_pos = pos.sum()
+    total = pos_loss.sum() + neg_loss.sum()
+    return torch.where(num_pos > 0, total / torch.clamp(num_pos, min=1.0),
+                       neg_loss.sum())
+
+
+def centernet_loss(predictions: Dict[str, torch.Tensor],
+                   targets: Dict[str, torch.Tensor],
+                   heatmap_alpha: float = 2.0, heatmap_gamma: float = 4.0,
+                   size_weight: float = 1.0, offset_weight: float = 1.0
+                   ) -> torch.Tensor:
+    """Heatmap focal + masked L1 of size and offset (0 when no center)."""
+    hm = centernet_focal_loss(predictions["heatmap"], targets["heatmap"],
+                              alpha=heatmap_alpha, beta=heatmap_gamma)
+    mask = targets["mask"].float()
+    msum = mask.sum()
+    denom = msum + 1e-6
+    zero = torch.zeros((), device=mask.device)
+
+    def masked_l1(key):
+        p, t = predictions[key].float(), targets[key].float()
+        l1 = (p * mask - t * mask).abs().sum() / denom
+        return torch.where(msum > 0, l1, zero)
+
+    return (hm + size_weight * masked_l1("size")
+            + offset_weight * masked_l1("offset"))
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor,
+             num_valid_cols=None) -> torch.Tensor:
+    """Mean squared error over the first ``num_valid_cols`` columns (all
+    when None): sum over those / (rows * max(num_valid_cols, 1))."""
+    d = pred.float() - target.float()
+    per = d * d
+    if num_valid_cols is None:
+        return per.mean()
+    D = per.shape[-1]
+    n = torch.as_tensor(num_valid_cols, device=per.device)
+    mask = (torch.arange(D, device=per.device) < n).float()
+    return (per * mask).sum() / (per.shape[0]
+                                 * torch.clamp(n.float(), min=1.0))
+
+
+# ---------------------------------------------------------------------------
+# adaptive uncertainty weighting (Kendall et al. 2018)
+# ---------------------------------------------------------------------------
+def stable_log_var(log_var: torch.Tensor) -> torch.Tensor:
+    """Smooth bound to [-3, 3]."""
+    return 3.0 * torch.tanh(log_var / 3.0)
+
+
+def adaptive_weighted_loss(log_vars: Dict[str, torch.Tensor],
+                           losses: Dict[str, torch.Tensor]):
+    """total = sum_t 0.5 e^{-lv_t} L_t + 0.5 lv_t (lv bounded); returns
+    (total, weighted, weights)."""
+    total = None
+    weighted, weights = {}, {}
+    for name, loss in losses.items():
+        loss = loss.float().mean()
+        if name in log_vars:
+            lv = stable_log_var(log_vars[name])
+            precision = torch.exp(-lv)
+            wl = 0.5 * precision * loss + 0.5 * lv
+            weights[name] = 0.5 * precision
+        else:
+            wl = loss
+            weights[name] = torch.ones((), device=loss.device)
+        weighted[name] = wl
+        total = wl if total is None else total + wl
+    return total, weighted, weights
+
+
+def adaptive_weights(log_vars: Dict[str, torch.Tensor]):
+    """The weight 0.5 e^{-lv} each task type's loss gets."""
+    return {t: 0.5 * torch.exp(-stable_log_var(v))
+            for t, v in log_vars.items()}
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+def build_loss_fn(task_name: str, loss_config: Dict):
+    """The loss of a task type, configured like the JAX package."""
+    loss_type = str(loss_config.get("type", ""))
+    if task_name == "segmentation":
+        if loss_type == "CrossEntropyLoss":
+            return cross_entropy_loss
+        return dice_loss_multiclass
+    if task_name == "classification":
+        return cross_entropy_loss
+    if task_name == "detection":
+        if loss_type.lower() not in ("centernet", ""):
+            raise NotImplementedError(_NOT_PORTED.format(
+                what=f"the grid detection loss ({loss_type!r})"))
+        kw = dict(heatmap_alpha=float(loss_config.get("heatmap_alpha", 2.0)),
+                  heatmap_gamma=float(loss_config.get("heatmap_gamma", 4.0)),
+                  size_weight=float(loss_config.get("size_weight", 1.0)),
+                  offset_weight=float(loss_config.get("offset_weight", 1.0)))
+
+        def det_loss(predictions, targets):
+            return centernet_loss(predictions, targets, **kw)
+
+        return det_loss
+    if task_name == "Regression":
+        if loss_type in ("L1Loss", "SmoothL1Loss"):
+            raise NotImplementedError(_NOT_PORTED.format(
+                what=f"the {loss_type} regression loss"))
+        return mse_loss
+    raise ValueError(f"Unknown task name: {task_name}")
+
+
+def build_all_losses(config, task_registry):
+    """(loss_fns by type, fixed loss weights or None, initial adaptive
+    log-vars by type or None)."""
+    types = task_registry.present_types()
+    loss_cfgs = config.get("training.loss_configs", {}) or {}
+    loss_fns = {t: build_loss_fn(t, loss_cfgs.get(t, {}) or {})
+                for t in types}
+    if config.get("training.adaptive_loss.enabled", False):
+        per_task = config.get(
+            "training.adaptive_loss.init_log_vars_per_task")
+        if per_task:
+            init = [float(per_task.get(t, 0.0)) for t in types]
+        else:
+            init = [float(config.get("training.adaptive_loss.init_log_vars",
+                                     0.0))] * len(types)
+        return loss_fns, None, dict(zip(types, init))
+    weights = {k: float(v) for k, v in (
+        config.get("training.loss_weights", {}) or {}).items()}
+    return loss_fns, weights, None

@@ -4,7 +4,9 @@ Lateral 1x1 convs, top-down nearest 2x upsample + add, per-level seg
 blocks (3x3 conv -> GroupNorm(eps 1e-6, output in the compute dtype) ->
 ReLU -> bilinear 2x) brought to stride 4, merged by concat or sum. The
 GroupNorms are named ``GroupNorm_0..6`` in call order (seg5 x3, seg4 x2,
-seg3, seg2), as flax names them. Channel dropout is a no-op at eval.
+seg3, seg2), as flax names them. In train mode the merged map gets
+channel (spatial) dropout: one keep draw per (sample, channel), broadcast
+over H and W.
 """
 
 from __future__ import annotations
@@ -15,7 +17,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fmc_uia_tpu_torch.models.layers import Conv, GroupNorm, gn_groups, upsample_2x
+from fmc_uia_tpu_torch.models.layers import (
+    Conv,
+    GroupNorm,
+    dropout,
+    gn_groups,
+    upsample_2x,
+)
 
 _SEG_LEVELS = (("seg5", 3), ("seg4", 2), ("seg3", 1), ("seg2", 0))
 
@@ -24,9 +32,10 @@ class FPNDecoder(nn.Module):
     def __init__(self, in_channels: Sequence[int],
                  pyramid_channels: int = 256,
                  segmentation_channels: int = 128, merge_policy: str = "cat",
-                 dtype=torch.float32):
+                 dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.merge_policy = merge_policy
+        self.dropout = float(dropout)
         self.segmentation_channels = segmentation_channels
         self.dtype = dtype
         for lvl, cin in zip((2, 3, 4, 5), in_channels):
@@ -50,7 +59,7 @@ class FPNDecoder(nn.Module):
             return self.segmentation_channels * 4
         return self.segmentation_channels
 
-    def forward(self, features):
+    def forward(self, features, train: bool = False, generator=None):
         c2, c3, c4, c5 = features
         p5 = self.lateral5(c5)
         p4 = upsample_2x(p5) + self.lateral4(c4)
@@ -68,8 +77,11 @@ class FPNDecoder(nn.Module):
                     x = upsample_2x(x, method="bilinear")
             outs.append(x)
         if self.merge_policy == "cat":
-            return torch.cat(outs, dim=-1)
-        return outs[0] + outs[1] + outs[2] + outs[3]
+            x = torch.cat(outs, dim=-1)
+        else:
+            x = outs[0] + outs[1] + outs[2] + outs[3]
+        return dropout(x, self.dropout, train, generator,
+                       broadcast_dims=(1, 2))
 
 
 def build_decoders(config, in_channels: Sequence[int], dtype=torch.float32
@@ -83,6 +95,7 @@ def build_decoders(config, in_channels: Sequence[int], dtype=torch.float32
         pyramid_channels=int(dec_cfg.get("pyramid_channels", 256)),
         segmentation_channels=int(dec_cfg.get("segmentation_channels", 128)),
         merge_policy=str(dec_cfg.get("merge_policy", "cat")),
+        dropout=float(dec_cfg.get("dropout", 0.0)),
         dtype=dtype,
     )
     modules: Dict[str, FPNDecoder] = {"fpn_seg": FPNDecoder(**kwargs)}

@@ -9,7 +9,11 @@ which is also the JAX tree's name for an unrolled block
 (``utils/convert.py`` unstacks the scanned stages onto it).
 
 The roll, the padding and the rel-pos table expansion stay outside the
-kernel, as on the TPU.
+kernel, as on the TPU; so the rel-pos table's gradient flows through the
+gather by autograd. In train mode each block applies stochastic depth at
+the rate ``linspace(0, drop_path_rate, blocks)[block]``: on the fused
+halves as the kernels' per-sample ``dp`` factor, on the unfused MLP half
+as a divide of the branch output, the two roundings of the JAX DropPath.
 """
 
 from __future__ import annotations
@@ -24,6 +28,10 @@ import torch.nn.functional as F
 from fmc_uia_tpu_torch.models.layers import (
     Conv,
     _param,
+    apply_drop_path,
+    drop_path_keep,
+    drop_path_scale,
+    keep_mask,
     layer_norm,
     lecun_normal_,
     trunc_normal_,
@@ -115,10 +123,12 @@ class _Attn(nn.Module):
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift: int, mlp_ratio: float = 4.0, ln_bf16: bool = False,
-                 fused_mlp: bool = True, dtype=torch.float32):
+                 fused_mlp: bool = True, drop_path: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         self.dim, self.num_heads, self.ws = dim, num_heads, window_size
         self.shift = shift
+        self.drop_path = float(drop_path)
         self.dtype = dtype
         self.ln_dtype = dtype if ln_bf16 else torch.float32
         self.fused_mlp = fused_mlp and dim <= FUSED_MLP_MAX_C
@@ -143,7 +153,20 @@ class SwinBlock(nn.Module):
                                 else torch.as_tensor(m, device=device))
         return self._masks[key]
 
-    def forward(self, x):
+    def _keep_mask(self, x, train, generator):
+        """Per-sample keep mask of stochastic depth, or None (eval, rate 0)."""
+        if not train or self.drop_path == 0.0:
+            return None
+        return keep_mask((x.shape[0],), float(drop_path_keep(self.drop_path)),
+                         generator, x.device)
+
+    def _dp(self, x, train, generator):
+        """The kernels' dp factor [B] (f32), rounded to x's dtype, or None."""
+        m = self._keep_mask(x, train, generator)
+        return None if m is None else drop_path_scale(m, self.drop_path,
+                                                      x.dtype)
+
+    def forward(self, x, train: bool = False, generator=None):
         B, H, W, C = x.shape
         ws, n = self.ws, self._n
         # one window covering the grid: no shift (timm parity, swin.py:282)
@@ -151,6 +174,7 @@ class SwinBlock(nn.Module):
         hp = -(-H // ws) * ws
         wp = -(-W // ws) * ws
         mask = self._mask(H, W, shift, x.device)
+        dp1 = self._dp(x, train, generator)
 
         y = x.to(self.dtype)
         if hp != H or wp != W:
@@ -163,7 +187,7 @@ class SwinBlock(nn.Module):
         y = attention_branch(y.contiguous(), self.norm1.scale,
                              self.norm1.bias, a.qkv.kernel, a.qkv.bias,
                              a.proj.kernel, a.proj.bias, bias, mask,
-                             self.num_heads)
+                             self.num_heads, dp=dp1)
         if shift > 0:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         if hp != H or wp != W:
@@ -174,14 +198,19 @@ class SwinBlock(nn.Module):
             return mlp_branch(x.to(self.dtype), self.norm2.scale,
                               self.norm2.bias, self.mlp_fc1.kernel,
                               self.mlp_fc1.bias, self.mlp_fc2.kernel,
-                              self.mlp_fc2.bias)
+                              self.mlp_fc2.bias,
+                              dp=self._dp(x, train, generator))
         dt = self.dtype
         y = layer_norm(x, self.norm2.scale, self.norm2.bias, 1e-6,
                        self.ln_dtype)
         y = F.linear(y.to(dt), self.mlp_fc1.kernel.to(dt))
         y = F.gelu(y + self.mlp_fc1.bias.to(dt), approximate="tanh")
         y = F.linear(y, self.mlp_fc2.kernel.to(dt))
-        return x + (y + self.mlp_fc2.bias.to(dt))
+        y = y + self.mlp_fc2.bias.to(dt)
+        keep = self._keep_mask(x, train, generator)
+        if keep is not None:
+            y = apply_drop_path(y, keep, self.drop_path)
+        return x + y
 
 
 class PatchMerging(nn.Module):
@@ -223,7 +252,8 @@ class SwinEncoder(nn.Module):
                  num_heads: Sequence[int] = (4, 8, 16, 32),
                  window_size: int = 7, mlp_ratio: float = 4.0,
                  patch_size: int = 4, ln_bf16: bool = False,
-                 fused_mlp: bool = True, dtype=torch.float32):
+                 fused_mlp: bool = True, drop_path_rate: float = 0.1,
+                 dtype=torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
         self.depths = tuple(depths)
@@ -232,6 +262,9 @@ class SwinEncoder(nn.Module):
         self.patch_embed = Conv(3, embed_dim, patch_size, stride=patch_size,
                                 dtype=dtype)
         self.patch_norm = _LN(embed_dim)
+        # per-block stochastic-depth rates (JAX swin.py:563)
+        dpr = np.linspace(0, drop_path_rate, sum(self.depths))
+        block_id = 0
         for s, depth in enumerate(self.depths):
             dim = embed_dim * 2 ** s
             if s > 0:
@@ -242,13 +275,16 @@ class SwinEncoder(nn.Module):
                     dim, num_heads[s], window_size,
                     shift=0 if b % 2 == 0 else window_size // 2,
                     mlp_ratio=mlp_ratio, ln_bf16=ln_bf16,
-                    fused_mlp=fused_mlp, dtype=dtype))
+                    fused_mlp=fused_mlp, drop_path=float(dpr[block_id]),
+                    dtype=dtype))
+                block_id += 1
 
     @property
     def out_channels(self):
         return tuple(self.embed_dim * 2 ** i for i in range(4))
 
-    def forward(self, x) -> List[torch.Tensor]:
+    def forward(self, x, train: bool = False,
+                generator=None) -> List[torch.Tensor]:
         x = self.patch_embed(x.to(self.dtype))
         x = layer_norm(x, self.patch_norm.scale, self.patch_norm.bias, 1e-6,
                        self.ln_dtype)
@@ -257,7 +293,7 @@ class SwinEncoder(nn.Module):
             if s > 0:
                 x = getattr(self, f"merge{s}")(x)
             for b in range(depth):
-                x = getattr(self, f"stage{s}_block{b}")(x)
+                x = getattr(self, f"stage{s}_block{b}")(x, train, generator)
             features.append(x)
         return features
 
@@ -279,15 +315,17 @@ _SWIN_VARIANTS = {
 
 
 def build_swin(name: str, config=None, dtype=torch.float32) -> SwinEncoder:
-    """The serving path's Swin: the attention half always runs the fused
-    branch; ``model.encoder.fused_mlp`` (default on) routes the C <= 256
-    MLP halves through the fused MLP branch."""
+    """The port's Swin: the attention half always runs the fused branch;
+    ``model.encoder.fused_mlp`` (default on) routes the C <= 256 MLP halves
+    through the fused MLP branch; ``model.encoder.drop_path_rate`` (default
+    0.1) sets the stochastic depth of train mode."""
     if name not in _SWIN_VARIANTS:
         raise ValueError(
             f"Unknown swin variant {name!r}; have {sorted(_SWIN_VARIANTS)}")
     kwargs = dict(_SWIN_VARIANTS[name])
-    window, ln_bf16, fused_mlp = 7, False, True
+    window, ln_bf16, fused_mlp, drop_path = 7, False, True, 0.1
     if config is not None:
+        drop_path = float(config.get("model.encoder.drop_path_rate", 0.1))
         window = int(config.get("model.encoder.window_size", 7))
         ln_bf16 = bool(config.get("model.encoder.ln_bf16", False))
         if config.get("model.encoder.fused_block", True) is False:
@@ -297,4 +335,5 @@ def build_swin(name: str, config=None, dtype=torch.float32) -> SwinEncoder:
                 "attention branch (ROADMAP: port queue)")
         fused_mlp = bool(config.get("model.encoder.fused_mlp", True))
     return SwinEncoder(window_size=window, ln_bf16=ln_bf16,
-                       fused_mlp=fused_mlp, dtype=dtype, **kwargs)
+                       fused_mlp=fused_mlp, drop_path_rate=drop_path,
+                       dtype=dtype, **kwargs)

@@ -5,7 +5,8 @@ axis and the forward selects one slice by the device-side local index.
 Ported families: ``SegHeadBank`` (default seg), ``ClsHeadBank`` (GAP),
 ``CenterNetHeadBank`` (dict output, heatmap bias -2.19) and
 ``RegHeadBank`` (GAP + MLP + (tanh+1)/2). The others raise and name their
-ROADMAP item.
+ROADMAP item. Every bank takes ``train`` and ``generator``; the cls and reg
+banks apply their dropout in train mode, the others have none.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from fmc_uia_tpu_torch.models.layers import (
     BankedDense,
     BankedGroupNorm,
     BankedMLP,
+    dropout,
     gn_groups,
     resize_to,
 )
@@ -60,7 +62,7 @@ class SegHeadBank(nn.Module):
         self.classifier = BankedConv(num_banks, mid if num_layers else cin,
                                      num_classes, 1, dtype=dtype)
 
-    def forward(self, x, idx):
+    def forward(self, x, idx, train: bool = False, generator=None):
         for i in range(self.num_layers):
             x = getattr(self, f"pre_{i}")(x, idx)
             x = F.silu(getattr(self, f"pre_gn_{i}")(x, idx))
@@ -72,20 +74,24 @@ class SegHeadBank(nn.Module):
 
 
 class ClsHeadBank(nn.Module):
-    """GAP (+ optional banked MLP) + banked linear."""
+    """GAP (+ optional banked MLP) + dropout + banked linear."""
 
     def __init__(self, num_banks: int, cin: int, num_classes: int,
-                 mlp_hidden_dim: Optional[int] = None, dtype=torch.float32):
+                 mlp_hidden_dim: Optional[int] = None, dropout: float = 0.2,
+                 dtype=torch.float32):
         super().__init__()
         self.pre_fc = (BankedDense(num_banks, cin, mlp_hidden_dim,
                                    dtype=dtype) if mlp_hidden_dim else None)
         self.fc = BankedDense(num_banks, mlp_hidden_dim or cin, num_classes,
                               dtype=dtype)
+        self.dropout = float(dropout)
 
-    def forward(self, x, idx):
+    def forward(self, x, idx, train: bool = False, generator=None):
         h = _gap(x)
         if self.pre_fc is not None:
             h = F.silu(self.pre_fc(h, idx))
+            h = dropout(h, self.dropout, train, generator)
+        h = dropout(h, self.dropout, train, generator)
         return self.fc(h, idx)
 
 
@@ -112,7 +118,7 @@ class CenterNetHeadBank(nn.Module):
         h = getattr(self, f"{name}_conv")(h, idx)
         return F.relu(getattr(self, f"{name}_gn")(h, idx))
 
-    def forward(self, x, idx):
+    def forward(self, x, idx, train: bool = False, generator=None):
         stem = self._branch(x, "stem", idx)
         heatmap = self.hm_out(self._branch(stem, "hm", idx), idx)
         size = F.relu(self.size_out(self._branch(stem, "size", idx), idx))
@@ -126,14 +132,15 @@ class RegHeadBank(nn.Module):
 
     def __init__(self, num_banks: int, cin: int, num_points: int,
                  hidden_dims: Sequence[int] = (256, 128),
-                 use_tanh: bool = True, dtype=torch.float32):
+                 dropout: float = 0.1, use_tanh: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.use_tanh = use_tanh
         self.mlp = BankedMLP(num_banks, cin, tuple(hidden_dims),
-                             num_points * 2, dtype=dtype)
+                             num_points * 2, dropout=dropout, dtype=dtype)
 
-    def forward(self, x, idx):
-        h = self.mlp(_gap(x), idx)
+    def forward(self, x, idx, train: bool = False, generator=None):
+        h = self.mlp(_gap(x), idx, train=train, generator=generator)
         if self.use_tanh:
             h = (torch.tanh(h) + 1.0) * 0.5
         return h
@@ -173,7 +180,8 @@ def build_head_banks(config, registry: TaskRegistry, in_channels,
             registry.num_of_type(CLASSIFICATION),
             in_channels[CLASSIFICATION],
             registry.max_classes(CLASSIFICATION),
-            mlp_hidden_dim=int(mlp) if mlp else None, dtype=dtype)
+            mlp_hidden_dim=int(mlp) if mlp else None,
+            dropout=float(cfg.get("dropout", 0.2)), dtype=dtype)
 
     if registry.num_of_type(DETECTION) > 0:
         cfg = heads_cfg.get("detection", {}) or {}
@@ -194,5 +202,6 @@ def build_head_banks(config, registry: TaskRegistry, in_channels,
             registry.num_of_type(REGRESSION), in_channels[REGRESSION],
             registry.max_classes(REGRESSION),
             hidden_dims=tuple(int(d) for d in hidden),
+            dropout=float(cfg.get("dropout", 0.1)),
             use_tanh=bool(cfg.get("use_tanh", True)), dtype=dtype)
     return banks

@@ -13,13 +13,18 @@ conv kernel ``[T, O, I, kh, kw]`` and a banked dense kernel ``[T, out, in]``.
 A bank selects one ``[T, ...]`` slice by a device-side local index, then
 calls ``F.conv2d``/``F.linear``: one module per task type serves every
 subtask, as in the JAX package.
+
+Train-mode randomness (dropout, drop path) draws its masks from an explicit
+``torch.Generator`` on the activations' device; the bits differ from JAX's,
+the distributions and the scaling do not.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -67,6 +72,65 @@ def take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     indexing with a 0-d tensor reads it on the host (``.item()``), which
     would stall the host until the GPU has caught up."""
     return t.index_select(0, idx.reshape(1))[0]
+
+
+def keep_mask(shape, keep: float, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """Bernoulli(keep) mask, as ``jax.random.bernoulli``: uniform < keep."""
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def _in_dtype(v: float, dtype) -> float:
+    """The Python float ``v`` rounded to ``dtype``, on the host (a device
+    scalar made from a host value would wait for the device)."""
+    return float(torch.tensor(v, dtype=torch.float64).to(dtype))
+
+
+def apply_dropout(x: torch.Tensor, mask: torch.Tensor, rate: float
+                  ) -> torch.Tensor:
+    """flax ``nn.Dropout`` with a given (broadcastable) keep mask:
+    ``select(mask, x / keep, 0)``, the Python-float keep taken in x's
+    dtype as JAX takes a weak-typed scalar."""
+    return torch.where(mask, x / _in_dtype(1.0 - rate, x.dtype), 0.0)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator],
+            broadcast_dims: Sequence[int] = ()) -> torch.Tensor:
+    """flax ``nn.Dropout(rate, broadcast_dims, deterministic=not train)``:
+    identity at eval or rate 0; the mask is drawn over x's shape with the
+    ``broadcast_dims`` set to 1."""
+    if not train or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    shape = list(x.shape)
+    for d in broadcast_dims:
+        shape[d] = 1
+    return apply_dropout(x, keep_mask(shape, 1.0 - rate, generator,
+                                      x.device), rate)
+
+
+def drop_path_keep(rate: float) -> np.float32:
+    """``1 - jnp.asarray(rate, float32)``, in f32 as the JAX DropPath."""
+    return np.float32(1.0) - np.float32(rate)
+
+
+def drop_path_scale(mask: torch.Tensor, rate: float, dtype) -> torch.Tensor:
+    """The per-sample stochastic-depth factor the fused kernels take as
+    ``dp`` (JAX ``DropPath(return_mask=True)``): ``where(mask, 1/keep, 0)``
+    with 1/keep in f32, rounded to ``dtype`` (the block input's), as f32."""
+    inv = _in_dtype(float(np.float32(1.0) / drop_path_keep(rate)), dtype)
+    return torch.where(mask, inv, 0.0).float()
+
+
+def apply_drop_path(y: torch.Tensor, mask: torch.Tensor, rate: float
+                    ) -> torch.Tensor:
+    """JAX ``DropPath`` applied to a branch output ``y`` [B, ...]:
+    ``where(mask, y / keep.astype(y.dtype), 0)`` — a divide in y's dtype."""
+    keep = _in_dtype(float(drop_path_keep(rate)), y.dtype)
+    m = mask.view(-1, *([1] * (y.dim() - 1)))
+    return torch.where(m, y / keep, 0.0)
 
 
 def _param(*shape) -> nn.Parameter:
@@ -229,23 +293,24 @@ class BankedGroupNorm(nn.Module):
 
 
 class BankedMLP(nn.Module):
-    """Per-task MLP bank: dense + SiLU chain ending in a plain dense
-    (dropout is a no-op at eval)."""
+    """Per-task MLP bank: dense + SiLU + dropout chain ending in a plain
+    dense (dropout acts in train mode only)."""
 
     def __init__(self, num_banks: int, cin: int, hidden_dims: Sequence[int],
-                 out_dim: int, dtype=torch.float32):
+                 out_dim: int, dropout: float = 0.1, dtype=torch.float32):
         super().__init__()
         dims = [cin, *hidden_dims, out_dim]
         for i in range(len(dims) - 1):
             self.add_module(f"dense_{i}", BankedDense(
                 num_banks, dims[i], dims[i + 1], dtype=dtype))
         self.n_layers = len(dims) - 1
+        self.dropout = float(dropout)
 
-    def forward(self, x, idx):
+    def forward(self, x, idx, train: bool = False, generator=None):
         for i in range(self.n_layers):
             x = getattr(self, f"dense_{i}")(x, idx)
             if i < self.n_layers - 1:
-                x = F.silu(x)
+                x = dropout(F.silu(x), self.dropout, train, generator)
         return x
 
 

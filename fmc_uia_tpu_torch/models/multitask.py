@@ -63,22 +63,27 @@ class MultiTaskModel(nn.Module):
                 or (task_type == CLASSIFICATION and self.use_fpn_for_cls)
                 or (task_type == REGRESSION and self.use_fpn_for_reg))
 
-    def forward(self, images, task_type: str, task_index):
+    def forward(self, images, task_type: str, task_index,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """images [B, H, W, 3] normalized (NHWC); task_type one of
-        TASK_TYPES; task_index the global task index (int or 0-d tensor)."""
+        TASK_TYPES; task_index the global task index (int or 0-d tensor).
+        ``train`` turns on drop path and dropout, their masks drawn from
+        ``generator`` (a generator on the model's device)."""
         if task_type not in TASK_TYPES:
             raise ValueError(f"Unknown task_type: {task_type}")
         task_index = torch.as_tensor(task_index, dtype=torch.long,
                                      device=self.local_index_table.device)
         local_idx = take(self.local_index_table, task_index)
-        features = self.encoder(images.to(self.dtype))
+        rand = dict(train=train, generator=generator)
+        features = self.encoder(images.to(self.dtype), **rand)
         head = getattr(self, f"head_banks_{task_type}")
         if self._needs_fpn(task_type):
-            x = getattr(self, self.decoder_alias[task_type])(features)
+            x = getattr(self, self.decoder_alias[task_type])(features, **rand)
             if self.film is not None:
                 x = self.film(x, task_index)
-            return head(x, local_idx)
-        return head(features[-1], local_idx)
+            return head(x, local_idx, **rand)
+        return head(features[-1], local_idx, **rand)
 
 
 def build_model(config, registry: Optional[TaskRegistry] = None,

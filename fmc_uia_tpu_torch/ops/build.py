@@ -23,15 +23,22 @@ from typing import Callable, Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "fmc_uia_tpu_torch"
-KERNELS = ("swin_attn_fwd", "swin_mlp_fwd")
+KERNELS = ("swin_attn_fwd", "swin_mlp_fwd", "swin_attn_bwd",
+           "swin_mlp_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-# C signature (argtypes) of each library's entry point; all return an int
-# CUDA error code
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signature (argtypes) of each exported function. A library's entry
+# point is named after it and returns an int CUDA error code; a
+# ``*_workspace`` function returns the bytes of scratch its entry point
+# needs.
 SIGNATURES = {
     "swin_attn_fwd": [_VP] * 12 + [ctypes.c_float] + [_I] * 7 + [_VP],
-    "swin_mlp_fwd": [_VP] * 9 + [ctypes.c_longlong] + [_I] * 4 + [_VP],
+    "swin_mlp_fwd": [_VP] * 9 + [_LL] + [_I] * 4 + [_VP],
+    "swin_attn_bwd": [_VP] * 20 + [ctypes.c_float] + [_I] * 7 + [_VP],
+    "swin_attn_bwd_workspace": [_I] * 7,
+    "swin_mlp_bwd": [_VP] * 17 + [_LL] + [_I] * 4 + [_VP],
+    "swin_mlp_bwd_workspace": [_LL] + [_I] * 3,
 }
 
 _libs: Dict[str, Callable[..., int]] = {}
@@ -94,14 +101,16 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return spent
 
 
-def load(name: str):
-    """The entry point ``name`` of its library, built on first use, with
-    its ctypes signature set."""
-    fn = _libs.get(name)
+def load(name: str, symbol: Optional[str] = None):
+    """The function ``symbol`` (default: the entry point ``name``) of the
+    library ``name``, built on first use, with its ctypes signature set."""
+    symbol = symbol or name
+    fn = _libs.get(symbol)
     if fn is None:
         build([name])
-        fn = getattr(ctypes.CDLL(str(lib_path(name))), name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = SIGNATURES[name]
-        _libs[name] = fn
+        fn = getattr(ctypes.CDLL(str(lib_path(name))), symbol)
+        fn.restype = (_LL if symbol.endswith("_workspace")
+                      else ctypes.c_int)
+        fn.argtypes = SIGNATURES[symbol]
+        _libs[symbol] = fn
     return fn

@@ -1,17 +1,23 @@
 """Fused Swin attention and MLP branches: CUDA kernels, wrappers and their
-plain PyTorch versions.
+plain PyTorch versions, forward and backward.
 
-Port of ``fmc_uia_tpu/ops/swin_block_pallas.py`` (forward only):
+Port of ``fmc_uia_tpu/ops/swin_block_pallas.py``:
 
   * ``attention_branch``: ``x + dp * proj(MHSA_window(LN1(x)))`` on the
-    rolled, padded ``x`` [B, Hp, Wp, C] — kernel ``csrc/swin_attn_fwd.cu``.
+    rolled, padded ``x`` [B, Hp, Wp, C] — forward kernel
+    ``csrc/swin_attn_fwd.cu``, backward kernel ``csrc/swin_attn_bwd.cu``
+    (the analytic pullback ``_branch_pullback``).
   * ``mlp_branch``: ``x + dp * fc2(gelu_tanh(fc1(LN2(x))))`` on ``x``
-    [B, H, W, C] — kernel ``csrc/swin_mlp_fwd.cu``.
+    [B, H, W, C] — forward ``csrc/swin_mlp_fwd.cu``, backward
+    ``csrc/swin_mlp_bwd.cu`` (``_mlp_pullback``).
 
-A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
-tensor it runs the plain version (``*_reference``), which computes in f32
-on values rounded to the compute dtype (``x.dtype``) at the same points as
-the JAX kernel. Each wrapper counts its launches in ``.launches``.
+Both are ``torch.autograd.Function``s: the backward returns dx (identity
+path included) and f32 grads of the LayerNorm, weights, biases and the
+expanded rel-pos bias; ``mask`` and ``dp`` get none. A wrapper given a CUDA
+tensor launches its kernel or raises; given a CPU tensor it runs the plain
+version (``*_reference``), which computes in f32 on values rounded to the
+compute dtype (``x.dtype``) at the same points as the JAX kernel. Each
+wrapper counts its launches in ``.launches``.
 
 Weights are the port's f32 params in PyTorch layout (``[out, in]``); the
 kernels round them to the compute dtype themselves.
@@ -29,6 +35,7 @@ from fmc_uia_tpu_torch.ops import build
 
 _LN_EPS = 1e-6
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+_GELU_K = math.sqrt(2.0 / math.pi)
 
 
 def _q(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -36,11 +43,29 @@ def _q(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype).float()
 
 
-def _window_ln(xf: torch.Tensor, scale, bias, dtype) -> torch.Tensor:
+def _ln_stats(xf: torch.Tensor):
+    """f32 LayerNorm statistics (flax fast variance): (xh, rstd)."""
     mu = xf.mean(-1, keepdim=True)
     var = (xf * xf).mean(-1, keepdim=True) - mu * mu
-    xh = (xf - mu) * torch.rsqrt(var + _LN_EPS)
+    rstd = torch.rsqrt(var + _LN_EPS)
+    return (xf - mu) * rstd, rstd
+
+
+def _window_ln(xf: torch.Tensor, scale, bias, dtype) -> torch.Tensor:
+    xh, _ = _ln_stats(xf)
     return _q(xh * scale + bias, dtype)
+
+
+def _ln_backward(dxn, xh, rstd, scale):
+    """Pullback of ``xh * scale + bias`` through the f32 LayerNorm over the
+    last axis: (dxf, dscale, dbias), grads summed over every other axis."""
+    dims = tuple(range(dxn.dim() - 1))
+    dg = (dxn * xh).sum(dims)
+    db = dxn.sum(dims)
+    dxh = dxn * scale
+    dxf = (dxh - dxh.mean(-1, keepdim=True)
+           - xh * (dxh * xh).mean(-1, keepdim=True)) * rstd
+    return dxf, dg, db
 
 
 def _dp_scale(dp: Optional[torch.Tensor], B: int, x: torch.Tensor):
@@ -52,6 +77,21 @@ def _dp_scale(dp: Optional[torch.Tensor], B: int, x: torch.Tensor):
 # ---------------------------------------------------------------------------
 # attention branch
 # ---------------------------------------------------------------------------
+def _windows(t, ws):
+    """[B, Hp, Wp, C] -> [B, nW, N, C] in window order, and back."""
+    B, Hp, Wp, C = t.shape
+    nh, nw = Hp // ws, Wp // ws
+    t = t.reshape(B, nh, ws, nw, ws, C).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(B, nh * nw, ws * ws, C)
+
+
+def _unwindows(t, ws, Hp, Wp):
+    B, _, _, C = t.shape
+    nh, nw = Hp // ws, Wp // ws
+    t = t.reshape(B, nh, nw, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(B, Hp, Wp, C)
+
+
 def attention_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                bproj, bias_hnn, mask, num_heads: int,
                                dp=None):
@@ -63,10 +103,8 @@ def attention_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
     N = bias_hnn.shape[-1]
     ws = math.isqrt(N)
     H, dh = num_heads, C // num_heads
-    nh, nw = Hp // ws, Wp // ws
-    nW = nh * nw
-    xw = x.reshape(B, nh, ws, nw, ws, C).permute(0, 1, 3, 2, 4, 5)
-    xn = _window_ln(xw.reshape(B, nW, N, C).float(), ln_scale, ln_bias, cd)
+    nW = (Hp // ws) * (Wp // ws)
+    xn = _window_ln(_windows(x, ws).float(), ln_scale, ln_bias, cd)
     qkv = _q(xn @ _q(wqkv, cd).t() + bqkv, cd)
 
     def heads(t):  # [B, nW, N, C] -> [B, H, nW, N, dh]
@@ -81,10 +119,67 @@ def attention_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
     p = _q(torch.softmax(s, dim=-1), cd)
     o = _q(p @ v, cd).permute(0, 2, 3, 1, 4).reshape(B, nW, N, C)
     y = _q(o @ _q(wproj, cd).t() + bproj, cd)
-    y = y.reshape(B, nh, nw, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
-    y = y.reshape(B, Hp, Wp, C)
+    y = _unwindows(y, ws, Hp, Wp)
     dpc = _q(_dp_scale(dp, B, x), cd).view(B, 1, 1, 1)
     return (x.float() + _q(dpc * y, cd)).to(cd)
+
+
+def attention_branch_backward_reference(x, ln_scale, ln_bias, wqkv, bqkv,
+                                        wproj, bproj, bias_hnn, mask,
+                                        num_heads: int, dy, dp=None):
+    """Plain version of ``_branch_pullback``: recomputes the forward, then
+    the analytic pullback, rounding to the compute dtype where the JAX
+    pullback casts (dy * dp; do; dq, dk, dv; ds once, as dsb; dx before the
+    bf16 identity-path add). Returns (dx, dln_scale, dln_bias, dwqkv
+    [3C, C], dbqkv, dwproj [C, C], dbproj, dbias [H, N, N]), the grads in
+    f32. ``dp`` enters the pullback unrounded, as the kernel reads it."""
+    cd = x.dtype
+    B, Hp, Wp, C = x.shape
+    N = bias_hnn.shape[-1]
+    ws = math.isqrt(N)
+    H, dh = num_heads, C // num_heads
+    nW = (Hp // ws) * (Wp // ws)
+
+    def heads(t):  # [B, nW, N, C] -> [B, H, nW, N, dh]
+        return t.reshape(B, nW, N, H, dh).permute(0, 3, 1, 2, 4)
+
+    def unheads(t):  # [B, H, nW, N, dh] -> [B, nW, N, C]
+        return t.permute(0, 2, 3, 1, 4).reshape(B, nW, N, C)
+
+    # recompute the forward (the casts of _branch_math)
+    xh, rstd = _ln_stats(_windows(x, ws).float())
+    xn = _q(xh * ln_scale + ln_bias, cd)
+    wq = _q(wqkv, cd)
+    q, k, v = (heads(t) for t in _q(xn @ wq.t() + bqkv, cd).split(C, -1))
+    scale = _q(torch.tensor(dh ** -0.5), cd).to(x.device)
+    qb = _q(q * scale, cd)
+    s = qb @ k.transpose(-1, -2) + bias_hnn[None, :, None].float()
+    if mask is not None:
+        s = s + mask[None, None].float()
+    pf = torch.softmax(s, dim=-1)
+    p = _q(pf, cd)
+    o = unheads(_q(p @ v, cd))
+
+    # pullback
+    dpv = _dp_scale(dp, B, x).view(B, 1, 1, 1)
+    dyf = _q(_windows(dy, ws).float() * dpv, cd)
+    flat = (-1, C)
+    dbproj = dyf.sum((0, 1, 2))
+    dwproj = dyf.reshape(flat).t() @ o.reshape(flat)
+    dob = heads(_q(dyf @ _q(wproj, cd), cd))
+    dv = p.transpose(-1, -2) @ dob
+    dpm = dob @ v.transpose(-1, -2)
+    ds = pf * (dpm - (dpm * pf).sum(-1, keepdim=True))
+    dbias = ds.sum((0, 2))
+    dsb = _q(ds, cd)
+    dq = _q(unheads(_q(dsb @ k, cd)) * scale, cd)
+    dk = unheads(_q(dsb.transpose(-1, -2) @ qb, cd))
+    dqkv = torch.cat([dq, dk, unheads(_q(dv, cd))], dim=-1)
+    dbqkv = dqkv.sum((0, 1, 2))
+    dwqkv = dqkv.reshape(-1, 3 * C).t() @ xn.reshape(flat)
+    dxf, dg, db = _ln_backward(dqkv @ wq, xh, rstd, ln_scale)
+    dx = _unwindows(dxf, ws, Hp, Wp).to(cd) + dy.to(cd)
+    return dx, dg, db, dwqkv, dbqkv, dwproj, dbproj, dbias
 
 
 def _f32_on(t, device, shape, what):
@@ -110,6 +205,17 @@ def _check_x(x: torch.Tensor, ndim: int):
                          f"{ndim}-d tensor, got shape {tuple(x.shape)}")
 
 
+def _check_dy(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The cotangent may arrive strided from the roll/crop backward: make
+    it contiguous (a fresh, 16-byte aligned allocation)."""
+    if dy.dtype != x.dtype or dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} on {dy.device} "
+                         f"does not match x {x.dtype} {tuple(x.shape)}")
+    dy = dy.contiguous()
+    _check_x(dy, x.dim())
+    return dy
+
+
 def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -118,15 +224,9 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def attention_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
-                     bias_hnn, mask, num_heads: int, dp=None):
-    """Fused attention branch on the rolled, padded ``x`` [B, Hp, Wp, C];
-    returns the block's first half (residual included). CPU tensors take
-    the plain version; CUDA tensors launch ``swin_attn_fwd``."""
-    if x.device.type == "cpu":
-        return attention_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv,
-                                          wproj, bproj, bias_hnn, mask,
-                                          num_heads, dp)
+def _attn_kernel_args(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                      bias_hnn, mask, num_heads, dp):
+    """Checks shared by K1f and K1b; returns (f32 params, mask, dp)."""
     _check_x(x, 4)
     B, Hp, Wp, C = x.shape
     N = bias_hnn.shape[-1]
@@ -151,6 +251,20 @@ def attention_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
         mask = _f32_on(mask.expand(nW, N, N), dev, (nW, N, N), "mask")
     if dp is not None:
         dp = _f32_on(dp.reshape(B), dev, (B,), "dp")
+    return args, mask, dp
+
+
+def _attention_forward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                       bias_hnn, mask, num_heads: int, dp=None):
+    if x.device.type == "cpu":
+        return attention_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv,
+                                          wproj, bproj, bias_hnn, mask,
+                                          num_heads, dp)
+    args, mask, dp = _attn_kernel_args(x, ln_scale, ln_bias, wqkv, bqkv,
+                                       wproj, bproj, bias_hnn, mask,
+                                       num_heads, dp)
+    B, Hp, Wp, C = x.shape
+    ws = math.isqrt(bias_hnn.shape[-1])
     out = torch.empty_like(x)
     scratch = torch.empty_like(x)
     rc = build.load("swin_attn_fwd")(
@@ -164,12 +278,98 @@ def attention_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     return out
 
 
+def attention_branch_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                              bproj, bias_hnn, mask, num_heads: int, dy,
+                              dp=None):
+    """K1b: the pullback of ``attention_branch`` at ``x`` for the
+    cotangent ``dy``; returns what ``attention_branch_backward_reference``
+    returns. CPU tensors take the plain version; CUDA tensors launch
+    ``swin_attn_bwd``."""
+    if x.device.type == "cpu":
+        return attention_branch_backward_reference(
+            x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias_hnn, mask,
+            num_heads, dy, dp)
+    args, mask, dp = _attn_kernel_args(x, ln_scale, ln_bias, wqkv, bqkv,
+                                       wproj, bproj, bias_hnn, mask,
+                                       num_heads, dp)
+    dy = _check_dy(dy, x)
+    B, Hp, Wp, C = x.shape
+    N = bias_hnn.shape[-1]
+    ws = math.isqrt(N)
+    bf = int(x.dtype == torch.bfloat16)
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    grads = [torch.empty(shape, **f32) for shape in (
+        (C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,),
+        (num_heads, N, N))]
+    dx = torch.empty_like(x)
+    nbytes = build.load("swin_attn_bwd", "swin_attn_bwd_workspace")(
+        B, Hp, Wp, C, num_heads, ws, bf)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    rc = build.load("swin_attn_bwd")(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        *[t.data_ptr() for t in args], _ptr(mask), _ptr(dp),
+        *[g.data_ptr() for g in grads], work.data_ptr(),
+        (C // num_heads) ** -0.5, B, Hp, Wp, C, num_heads, ws, bf,
+        _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"swin_attn_bwd launch failed: CUDA error {rc}")
+    attention_branch_backward.launches += 1
+    return (dx, *grads)
+
+
+attention_branch_backward.launches = 0
+
+
+class _AttentionBranchFn(torch.autograd.Function):
+    """K1f forward, K1b backward (plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                bias_hnn, mask, dp, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                              bproj, bias_hnn, mask, dp)
+        return _attention_forward(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                                  bproj, bias_hnn, mask, num_heads, dp)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias_hnn, mask,
+         dp) = ctx.saved_tensors
+        grads = attention_branch_backward(
+            x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias_hnn, mask,
+            ctx.num_heads, dy, dp)
+        return (*grads, None, None, None)
+
+
+def attention_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                     bias_hnn, mask, num_heads: int, dp=None):
+    """Fused attention branch on the rolled, padded ``x`` [B, Hp, Wp, C];
+    returns the block's first half (residual included), differentiable in
+    ``x``, the LayerNorm, the weights and ``bias_hnn``. CPU tensors take
+    the plain versions; CUDA tensors launch ``swin_attn_fwd`` forward and
+    ``swin_attn_bwd`` backward."""
+    return _AttentionBranchFn.apply(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                                    bproj, bias_hnn, mask, dp, num_heads)
+
+
 attention_branch.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # MLP branch
 # ---------------------------------------------------------------------------
+def _gelu_and_grad(h: torch.Tensor):
+    """jax.nn.gelu (tanh approximation) and its derivative, f32."""
+    inner = _GELU_K * (h + 0.044715 * (h * h * h))
+    t = torch.tanh(inner)
+    g = h * (0.5 * (1.0 + t))
+    dg = (0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * _GELU_K
+          * (1.0 + 3.0 * 0.044715 * h * h))
+    return g, dg
+
+
 def mlp_branch_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dp=None):
     """Plain version of ``_mlp_math`` on ``x`` [B, H, W, C]; ``w1``
     [4C, C], ``w2`` [C, 4C], ``dp`` [B] or None."""
@@ -184,11 +384,36 @@ def mlp_branch_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dp=None):
     return (xf + _q(dpc * y, cd)).to(cd)
 
 
-def mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2, dp=None):
-    """Fused MLP branch on ``x`` [B, H, W, C] (residual included). CPU
-    tensors take the plain version; CUDA tensors launch ``swin_mlp_fwd``."""
-    if x.device.type == "cpu":
-        return mlp_branch_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
+def mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
+                                  dp=None):
+    """Plain version of ``_mlp_pullback``: recomputes the forward, then the
+    analytic pullback, rounding where the JAX pullback casts (dy * dp; the
+    GELU output; dh1 before its products, while db1 sums it in f32; dx
+    before the bf16 identity-path add). Returns (dx, dln_scale, dln_bias,
+    dw1 [4C, C], db1, dw2 [C, 4C], db2), the grads in f32."""
+    cd = x.dtype
+    B = x.shape[0]
+    C = x.shape[-1]
+    xh, rstd = _ln_stats(x.float().reshape(B, -1, C))
+    xn = _q(xh * ln_scale + ln_bias, cd)
+    w1c = _q(w1, cd)
+    h1 = xn @ w1c.t() + b1
+    g, dgelu = _gelu_and_grad(h1)
+    dpv = _dp_scale(dp, B, x).view(B, 1, 1)
+    dyc = _q(dy.float().reshape(B, -1, C) * dpv, cd)
+    flat = (-1, C)
+    db2 = dyc.sum((0, 1))
+    dw2 = dyc.reshape(flat).t() @ _q(g, cd).reshape(-1, w1.shape[0])
+    dh1 = dgelu * (dyc @ _q(w2, cd))
+    db1 = dh1.sum((0, 1))
+    dh1c = _q(dh1, cd)
+    dw1 = dh1c.reshape(-1, w1.shape[0]).t() @ xn.reshape(flat)
+    dxf, dg, db = _ln_backward(dh1c @ w1c, xh, rstd, ln_scale)
+    dx = dxf.reshape(x.shape).to(cd) + dy.to(cd)
+    return dx, dg, db, dw1, db1, dw2, db2
+
+
+def _mlp_kernel_args(x, ln_scale, ln_bias, w1, b1, w2, b2, dp):
     _check_x(x, 4)
     B, H, W, C = x.shape
     Ch = w1.shape[0]
@@ -199,6 +424,14 @@ def mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2, dp=None):
         (w2, (C, Ch), "w2"), (b2, (C,), "b2"))]
     if dp is not None:
         dp = _f32_on(dp.reshape(B), dev, (B,), "dp")
+    return args, dp
+
+
+def _mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, dp=None):
+    if x.device.type == "cpu":
+        return mlp_branch_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
+    args, dp = _mlp_kernel_args(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
+    B, H, W, C = x.shape
     if x.dtype == torch.bfloat16 and (C % 32 or C > 256):
         raise ValueError(f"bf16 kernel: C={C} must be a multiple of 32 and "
                          "at most 256")
@@ -207,12 +440,71 @@ def mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2, dp=None):
     # fails in the launcher (cudaFuncSetAttribute) and raises below
     rc = build.load("swin_mlp_fwd")(
         x.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in args],
-        _ptr(dp), B * H * W, C, Ch, H * W,
+        _ptr(dp), B * H * W, C, w1.shape[0], H * W,
         int(x.dtype == torch.bfloat16), _stream(x))
     if rc != 0:
         raise RuntimeError(f"swin_mlp_fwd launch failed: CUDA error {rc}")
     mlp_branch.launches += 1
     return out
+
+
+def mlp_branch_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, dy, dp=None):
+    """K2b: the pullback of ``mlp_branch`` at ``x`` for ``dy``; returns
+    what ``mlp_branch_backward_reference`` returns. CPU tensors take the
+    plain version; CUDA tensors launch ``swin_mlp_bwd``."""
+    if x.device.type == "cpu":
+        return mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1,
+                                             w2, b2, dy, dp)
+    args, dp = _mlp_kernel_args(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
+    dy = _check_dy(dy, x)
+    B, H, W, C = x.shape
+    Ch = w1.shape[0]
+    if C > 1024 or (x.dtype == torch.bfloat16 and C % 8):
+        raise ValueError(f"swin_mlp_bwd: C={C}: need C <= 1024, and a "
+                         "multiple of 8 in bf16 (16-byte rows)")
+    bf = int(x.dtype == torch.bfloat16)
+    dev = x.device
+    grads = [torch.empty(shape, dtype=torch.float32, device=dev)
+             for shape in ((C,), (C,), (Ch, C), (Ch,), (C, Ch), (C,))]
+    dx = torch.empty_like(x)
+    T = B * H * W
+    nbytes = build.load("swin_mlp_bwd", "swin_mlp_bwd_workspace")(
+        T, C, Ch, bf)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    rc = build.load("swin_mlp_bwd")(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        *[t.data_ptr() for t in args], _ptr(dp),
+        *[g.data_ptr() for g in grads], work.data_ptr(),
+        T, C, Ch, H * W, bf, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"swin_mlp_bwd launch failed: CUDA error {rc}")
+    mlp_branch_backward.launches += 1
+    return (dx, *grads)
+
+
+mlp_branch_backward.launches = 0
+
+
+class _MlpBranchFn(torch.autograd.Function):
+    """K2f forward, K2b backward (plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, dp):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
+        return _mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*mlp_branch_backward(*ctx.saved_tensors[:7], dy,
+                                     ctx.saved_tensors[7]), None)
+
+
+def mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2, dp=None):
+    """Fused MLP branch on ``x`` [B, H, W, C] (residual included),
+    differentiable in ``x``, the LayerNorm and the weights. CPU tensors
+    take the plain versions; CUDA tensors launch ``swin_mlp_fwd`` forward
+    and ``swin_mlp_bwd`` backward."""
+    return _MlpBranchFn.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
 
 
 mlp_branch.launches = 0

@@ -1,0 +1,358 @@
+"""Training step, optimizer and schedule (port of ``fmc_uia_tpu/train.py``).
+
+One train step per task type, as in the JAX package:
+
+    photometric augmentation (+ flips) -> train-mode forward (drop path,
+    dropout) -> CenterNet targets -> loss -> backward (the fused Swin
+    branches through their backward kernels) -> clip model grads ->
+    grouped-LR AdamW
+
+Optimizer parity with the optax chain of ``build_optimizer``:
+``scale_by_adam(b1=0.9, b2=0.999, eps=1e-8)`` -> ``add_decayed_weights(wd)``
+-> ``scale(group multiplier)`` -> ``params += -lr * update``, with one
+multiplier per label (encoder x0.1, heads x1.0, adaptive log-vars
+adaptive_lr / lr, frozen untouched). Every parameter is updated every step,
+its grad zero when the step's task type does not reach it (``jax.grad``
+returns zeros there too), so momentum and weight decay act as in JAX.
+Clipping applies to the model's grads only, by ``max_norm / (norm +
+1e-6)``; the adaptive log-vars' grads are zeroed during the adaptive
+warmup epochs.
+
+Gradient accumulation, burst mode, AOT warm-compile and device meshes are
+not ported yet; asking for them raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from fmc_uia_tpu_torch import losses as losses_lib
+from fmc_uia_tpu_torch.device import resolve_device
+from fmc_uia_tpu_torch.ops.centernet import make_centernet_targets
+from fmc_uia_tpu_torch.ops.image import input_prep_fns, random_flips
+from fmc_uia_tpu_torch.tasks import (
+    CLASSIFICATION,
+    DETECTION,
+    REGRESSION,
+    SEGMENTATION,
+    TaskRegistry,
+)
+
+_NOT_PORTED = ("{what} is not ported to fmc_uia_tpu_torch yet (ROADMAP.md, "
+               "port queue item '{item}')")
+_ITEM_OFF_PATH = "Off-main-path heads and conditioning"
+_ITEM_PARALLEL = "Parallel modes"
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+def label_params(model: nn.Module, freeze_encoder: bool = False
+                 ) -> Dict[str, str]:
+    """Parameter name -> ``encoder`` / ``head`` / ``frozen``, by the name's
+    first part as the JAX package labels its tree paths (its ViT-only
+    labels come with the ViT encoders)."""
+    return {name: ("head" if not name.startswith("encoder.")
+                   else "frozen" if freeze_encoder else "encoder")
+            for name, _ in model.named_parameters()}
+
+
+class GroupedAdamW:
+    """AdamW in optax's order over groups of f32 parameters, one LR
+    multiplier per group (see the module docstring). Moments are f32,
+    zero-initialised; the step count is shared."""
+
+    def __init__(self, groups: List[Tuple[float, List[nn.Parameter]]],
+                 weight_decay: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.groups = [(float(m), list(ps)) for m, ps in groups if ps]
+        self.wd, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
+        self.count = 0
+        self.mu = [[torch.zeros_like(p) for p in ps] for _, ps in self.groups]
+        self.nu = [[torch.zeros_like(p) for p in ps] for _, ps in self.groups]
+
+    @torch.no_grad()
+    def step(self, lr: float) -> None:
+        self.count += 1
+        bc1 = 1.0 - self.b1 ** self.count
+        bc2 = 1.0 - self.b2 ** self.count
+        for (mult, ps), mu, nu in zip(self.groups, self.mu, self.nu):
+            g = [p.grad for p in ps]
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+            torch._foreach_mul_(nu, self.b2)
+            torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+            den = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.eps)
+            upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+            if self.wd:
+                torch._foreach_add_(upd, ps, alpha=self.wd)
+            torch._foreach_mul_(upd, mult)
+            torch._foreach_mul_(upd, -lr)
+            torch._foreach_add_(ps, upd)
+
+
+def build_optimizer(config, model: nn.Module,
+                    adaptive: Optional[nn.ParameterDict] = None
+                    ) -> GroupedAdamW:
+    """The grouped AdamW of ``training.optimizer`` (type AdamW only)."""
+    opt_cfg = config.get("training.optimizer", {}) or {}
+    opt_type = str(opt_cfg.get("type", "AdamW"))
+    if opt_type != "AdamW":
+        raise NotImplementedError(_NOT_PORTED.format(
+            what=f"optimizer type {opt_type!r}", item=_ITEM_OFF_PATH))
+    base_lr = float(config.learning_rate)
+    grouped = bool(opt_cfg.get("use_grouped_lr", True))
+    enc_mult = (float(opt_cfg.get("encoder_lr_multiplier", 0.1))
+                if grouped else 1.0)
+    head_mult = (float(opt_cfg.get("head_lr_multiplier", 1.0))
+                 if grouped else 1.0)
+    labels = label_params(
+        model, bool(config.get("model.encoder.freeze_encoder", False)))
+    by_label = {"encoder": [], "head": []}
+    for name, p in model.named_parameters():
+        if labels[name] != "frozen":
+            by_label[labels[name]].append(p)
+    groups = [(enc_mult, by_label["encoder"]), (head_mult, by_label["head"])]
+    if adaptive is not None:
+        adaptive_lr = float(config.get("training.adaptive_loss.learning_rate",
+                                       base_lr))
+        groups.append((adaptive_lr / base_lr, list(adaptive.values())))
+    return GroupedAdamW(groups, float(config.weight_decay))
+
+
+class LRScheduler:
+    """Epoch-granularity schedule: a multiplicative scale on the base LR
+    (``CosineAnnealingLR``, ``StepLR``, ``ReduceLROnPlateau`` or None).
+    ``step(score)`` ends an epoch; plateau mode reads the score."""
+
+    def __init__(self, config):
+        sch = config.get("training.scheduler", {}) or {}
+        self.kind = sch.get("type", "CosineAnnealingLR")
+        self.base_lr = float(config.learning_rate)
+        self.epoch = 0
+        self.scale = 1.0
+        if self.kind == "CosineAnnealingLR":
+            self.t_max = int(sch.get("T_max", config.num_epochs))
+            self.eta_min = float(sch.get("eta_min", 1e-6))
+        elif self.kind == "StepLR":
+            self.step_size = int(sch.get("step_size", 20))
+            self.gamma = float(sch.get("gamma", 0.1))
+        elif self.kind == "ReduceLROnPlateau":
+            self.mode = sch.get("mode", "max")
+            self.factor = float(sch.get("factor", 0.5))
+            self.patience = int(sch.get("patience", 5))
+            self._best = -np.inf if self.mode == "max" else np.inf
+            self._bad = 0
+        elif self.kind in ("None", None):
+            self.kind = None
+        else:
+            raise ValueError(f"Unknown scheduler type: {self.kind}")
+
+    def current_scale(self) -> float:
+        return self.scale
+
+    def current_lr(self) -> float:
+        return self.base_lr * self.scale
+
+    def step(self, score: Optional[float] = None) -> None:
+        self.epoch += 1
+        if self.kind == "CosineAnnealingLR":
+            e = min(self.epoch, self.t_max)
+            lr = self.eta_min + (self.base_lr - self.eta_min) * (
+                1 + np.cos(np.pi * e / self.t_max)) / 2
+            self.scale = lr / self.base_lr
+        elif self.kind == "StepLR":
+            self.scale = self.gamma ** (self.epoch // self.step_size)
+        elif self.kind == "ReduceLROnPlateau" and score is not None:
+            improved = (score > self._best) if self.mode == "max" else (
+                score < self._best)
+            if improved:
+                self._best = score
+                self._bad = 0
+            else:
+                self._bad += 1
+                if self._bad > self.patience:
+                    self.scale *= self.factor
+                    self._bad = 0
+
+
+# ---------------------------------------------------------------------------
+# Trainer
+# ---------------------------------------------------------------------------
+class Trainer:
+    """The per-type train steps of one model, with its optimizer state,
+    schedule and random generator (on the model's device).
+
+    ``registry`` defaults to the model's. ``seed`` (default
+    ``experiment.seed``) seeds the generator of augmentation, dropout and
+    drop path. ``train_batch(batch, epoch)`` takes a batch dict (``image``
+    uint8 [B, H, W, 3], ``label``, ``task_id``, ``task_index``,
+    ``task_type``), numpy or tensors, and returns ``total_loss``,
+    ``raw_loss``, ``task_weight`` and ``grad_norm`` as device tensors:
+    nothing in a step waits for the device."""
+
+    def __init__(self, config, model: nn.Module,
+                 registry: Optional[TaskRegistry] = None, device="cuda",
+                 seed: Optional[int] = None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(_NOT_PORTED.format(
+                what="data/tensor-parallel meshes", item=_ITEM_PARALLEL))
+        if int(config.get("training.accumulation_steps", 1) or 1) > 1:
+            raise NotImplementedError(_NOT_PORTED.format(
+                what="gradient accumulation (training.accumulation_steps)",
+                item=_ITEM_OFF_PATH))
+        if bool(config.get("model.moe.enabled", False)):
+            raise NotImplementedError(_NOT_PORTED.format(
+                what="the MoE balance loss (model.moe)",
+                item=_ITEM_OFF_PATH))
+        if bool(config.get("model.heads.segmentation.use_deep_supervision",
+                           False)):
+            raise NotImplementedError(_NOT_PORTED.format(
+                what="deep-supervision seg losses", item=_ITEM_OFF_PATH))
+        dev = resolve_device(device)
+        p0 = next(model.parameters())
+        if p0.device.type != dev.type:
+            raise ValueError(f"model is on {p0.device}, Trainer on {dev}: "
+                             "build the model there")
+        self.device = p0.device  # with its index: cuda -> cuda:0
+        registry = registry or model.registry
+        self.config = config
+        self.model = model
+        self.registry = registry
+        loss_fns, loss_weights, adaptive_init = losses_lib.build_all_losses(
+            config, registry)
+        self.loss_fns = loss_fns
+        self.adaptive = None
+        if adaptive_init is not None:
+            self.adaptive = nn.ParameterDict({
+                t: nn.Parameter(torch.tensor(v, device=p0.device))
+                for t, v in adaptive_init.items()})
+        self.adaptive_warmup = int(
+            config.get("training.adaptive_loss.warmup_epochs", 0))
+        self.fixed_weights = {}
+        for t in registry.present_types():
+            key = "regression" if t == REGRESSION else t
+            w = (loss_weights or {}).get(key, (loss_weights or {}).get(t))
+            self.fixed_weights[t] = torch.tensor(
+                1.0 if w is None else float(w), device=p0.device)
+        self.grad_clip = float(config.get("training.gradient_clip", 0) or 0)
+        self.optimizer = build_optimizer(config, model, self.adaptive)
+        self.scheduler = LRScheduler(config)
+        self.generator = torch.Generator(device=p0.device)
+        self.generator.manual_seed(int(config.seed if seed is None
+                                       else seed))
+        self.train_prep, _ = input_prep_fns(config, model.dtype)
+        aug = config.get("data.augmentation.train", {}) or {}
+        self.flip_h = float(aug.get("horizontal_flip", 0.0) or 0.0)
+        self.flip_v = float(aug.get("vertical_flip", 0.0) or 0.0)
+        self.nc_table = torch.as_tensor(registry.num_classes_table,
+                                        dtype=torch.long, device=p0.device)
+        self._task_index: Dict[str, torch.Tensor] = {}
+        # every parameter carries a grad buffer, zeroed each step: a
+        # parameter the step's type does not reach gets zero, as jax.grad
+        # gives it
+        self._params = list(model.parameters())
+        self._adaptive_params = ([] if self.adaptive is None
+                                 else list(self.adaptive.values()))
+        for p in self._params + self._adaptive_params:
+            p.grad = torch.zeros_like(p)
+
+    # -- batches -------------------------------------------------------------
+    def put_batch(self, batch: Dict) -> Dict:
+        """Start the host->device copies of a batch (pinned host memory,
+        non-blocking); integer labels (uint8 seg masks on the wire) are
+        widened to int64 on the device."""
+        out = dict(batch)
+        for key in ("image", "label"):
+            v = batch[key]
+            if not torch.is_tensor(v):
+                v = torch.from_numpy(np.ascontiguousarray(v))
+            if v.device != self.device:
+                if self.device.type == "cuda":
+                    v = v.pin_memory().to(self.device, non_blocking=True)
+                else:
+                    v = v.to(self.device)
+            out[key] = v
+        label = out["label"]
+        if not label.is_floating_point() and label.dtype != torch.long:
+            out["label"] = label.long()
+        return out
+
+    def _index(self, batch) -> torch.Tensor:
+        tid = batch["task_id"]
+        t = self._task_index.get(tid)
+        if t is None:
+            t = torch.tensor(int(batch["task_index"]), dtype=torch.long,
+                             device=self.device)
+            self._task_index[tid] = t
+        return t
+
+    # -- the step ------------------------------------------------------------
+    def _raw_loss(self, outputs, labels, task_type: str,
+                  task_index: torch.Tensor) -> torch.Tensor:
+        """The task type's loss of the model's outputs (f32 scalar)."""
+        ncls = self.nc_table.index_select(0, task_index.reshape(1))[0]
+        fn = self.loss_fns[task_type]
+        if task_type in (SEGMENTATION, CLASSIFICATION):
+            return fn(outputs, labels, num_valid_classes=ncls)
+        if task_type == DETECTION:
+            H, W = outputs["heatmap"].shape[1:3]
+            targets = make_centernet_targets(labels, H, W)
+            return fn({k: v.float() for k, v in outputs.items()}, targets)
+        return fn(outputs.float(), labels, num_valid_cols=2 * ncls)
+
+    def compute_grads(self, batch: Dict, epoch: int = 0) -> Dict:
+        """Augment, forward in train mode, loss, backward and clip: leaves
+        the step's grads in ``.grad`` and returns the logs."""
+        b = self.put_batch(batch)
+        task_type = b["task_type"]
+        task_index = self._index(b)
+        images, labels = b["image"], b["label"]
+        torch._foreach_zero_([p.grad for p in self._params
+                              + self._adaptive_params])
+        if self.flip_h > 0 or self.flip_v > 0:
+            images, labels = random_flips(images, labels, task_type,
+                                          self.flip_h, self.flip_v,
+                                          generator=self.generator)
+        x = self.train_prep(images, generator=self.generator)
+        outputs = self.model(x, task_type, task_index, train=True,
+                             generator=self.generator)
+        raw = self._raw_loss(outputs, labels, task_type, task_index)
+        if self.adaptive is not None:
+            total, _, weights = losses_lib.adaptive_weighted_loss(
+                dict(self.adaptive), {task_type: raw})
+            weight = weights[task_type]
+        else:
+            weight = self.fixed_weights[task_type]
+            total = raw * weight
+        total.backward()
+        logs = {"total_loss": total.detach(), "raw_loss": raw.detach(),
+                "task_weight": weight.detach()}
+        if self.grad_clip > 0:
+            logs["grad_norm"] = torch.nn.utils.clip_grad_norm_(
+                self._params, self.grad_clip)
+        if self.adaptive is not None and epoch < self.adaptive_warmup:
+            torch._foreach_zero_([p.grad for p in self._adaptive_params])
+        return logs
+
+    def train_batch(self, batch: Dict, epoch: int) -> Dict:
+        logs = self.compute_grads(batch, epoch)
+        self.optimizer.step(self.scheduler.current_lr())
+        return logs
+
+    def train_burst(self, batch: Dict, n_steps: int, epoch: int = 0):
+        raise NotImplementedError(_NOT_PORTED.format(
+            what="burst mode (Trainer.train_burst)", item=_ITEM_OFF_PATH))
+
+    def warm_compile(self, example_batches, parallel: bool = True,
+                     aot_dir=None):
+        raise NotImplementedError(
+            "AOT warm-compile has no counterpart: PyTorch runs eagerly; the "
+            "CUDA kernels build at first use (ROADMAP.md, port queue item "
+            f"'{_ITEM_OFF_PATH}')")

@@ -31,3 +31,138 @@ def random_like_tree(shapes, seed: int):
         return leaf(path, tuple(node.shape)).astype(np.float32)
 
     return walk(shapes, ())
+
+
+# ---------------------------------------------------------------------------
+# a whole train step, JAX package vs port (tests/test_torch_train*.py)
+# ---------------------------------------------------------------------------
+# swin_micro 64², window 8, fused attention and MLP branches; augmentation,
+# dropout and drop path off, so both sides are deterministic
+TRAIN_OVERRIDES = {
+    "model": {
+        "encoder": {"name": "swin_micro", "window_size": 8,
+                    "fused_block": True, "fused_mlp": True,
+                    "scan_stages": [0, 1, 3], "ln_bf16": True,
+                    "drop_path_rate": 0.0},
+        "decoder": {"dropout": 0.0},
+        "heads": {"classification": {"dropout": 0.0},
+                  "regression": {"hidden_dims": [16, 8], "dropout": 0.0}}},
+    "data": {"augmentation": {"train": {"random_brightness_contrast": 0.0,
+                                        "gauss_noise": 0.0}}},
+}
+TRAIN_TASKS = {"segmentation": "T2B_organ_b",
+               "classification": "T1_planes", "detection": "T4_box",
+               "Regression": "T5_points"}
+
+
+def train_batch_np(rng, ttype, registry, B=2, S=64):
+    """A batch as bench.py makes them, from a numpy RandomState."""
+    image = rng.randint(0, 256, (B, S, S, 3)).astype(np.uint8)
+    if ttype == "segmentation":
+        label = rng.randint(0, 2, (B, S, S)).astype(np.int32)
+    elif ttype == "classification":
+        label = rng.randint(0, 3, (B,)).astype(np.int32)
+    elif ttype == "detection":
+        x1 = rng.uniform(0.1, 0.5, (B, 1))
+        y1 = rng.uniform(0.1, 0.5, (B, 1))
+        label = np.concatenate([x1, y1, x1 + 0.3, y1 + 0.3],
+                               axis=1).astype(np.float32)
+    else:
+        label = rng.rand(B, 4).astype(np.float32)
+    tid = TRAIN_TASKS[ttype]
+    return {"image": image, "label": label, "task_id": tid,
+            "task_index": registry[tid].global_index, "task_type": ttype}
+
+
+def train_step_pair(ttypes, seed=5):
+    """One train step per task type in ``ttypes`` on both sides, from the
+    same bridged weights and batch. The JAX side is the package's own step
+    (``train.make_train_step``) with an optax transformation that keeps the
+    step's (clipped) grads as its state; the port side is
+    ``Trainer.compute_grads``. The weights' seed is one where the step is
+    well conditioned: no ReLU input of the FPN or the heads sits so near
+    zero that the two sides' f32 rounding puts it on different sides of
+    the kink (at seed 3 one input of the detection head sat 6.5e-7 of its
+    std from zero, and the grads of every leaf before it jumped by up to 7%
+    of the leaf's max). Returns {type: {jlogs, jgrads (port names and
+    layouts), logs, grads}}."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from fmc_uia_tpu import losses as jax_losses
+    from fmc_uia_tpu.models import build_model as jax_build_model
+    from fmc_uia_tpu.models.multitask import MultiTaskModel as JaxModel
+    from fmc_uia_tpu.tasks import TaskRegistry as JaxRegistry
+    from fmc_uia_tpu.train import TrainState, make_train_step
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.tasks import TaskRegistry
+    from fmc_uia_tpu_torch.train import Trainer
+    from fmc_uia_tpu_torch.utils.convert import (
+        jax_leaves_to_port,
+        load_jax_params,
+    )
+    from helpers import make_tiny_config
+
+    def init(params):
+        return jax.tree_util.tree_map(jnp.zeros_like, params)
+
+    def keep_grads(grads, state, params=None):
+        return jax.tree_util.tree_map(jnp.zeros_like, grads), grads
+
+    tx = optax.GradientTransformation(init, keep_grads)
+    jcfg = make_tiny_config(**TRAIN_OVERRIDES)
+    jreg = JaxRegistry.from_config(jcfg)
+    jmodel = jax_build_model(jcfg, jreg)
+    x0 = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    shapes = jax.eval_shape(
+        lambda: jmodel.init(jax.random.PRNGKey(0), x0,
+                            method=JaxModel.init_all))["params"]
+    params = random_like_tree(shapes, seed=seed)
+    loss_fns, loss_weights, _ = jax_losses.build_all_losses(jcfg, jreg)
+    cfg = Config(config_dict=jcfg.config)
+    reg = TaskRegistry.from_config(cfg)
+    model = build_model(cfg, reg, device="cpu")
+    load_jax_params(model, params)
+    trainer = Trainer(cfg, model, reg, device="cpu", seed=0)
+    out = {}
+    for ttype in ttypes:
+        batch = train_batch_np(np.random.RandomState(4), ttype, reg)
+        step = jax.jit(make_train_step(jmodel, tx, jcfg, jreg, ttype,
+                                       loss_fns, loss_weights)[1])
+
+        state = TrainState(step=jnp.asarray(0, jnp.int32),
+                           params={"model": params},
+                           opt_state=tx.init({"model": params}))
+        new_state, jlogs = step(
+            state, jnp.asarray(batch["image"]), jnp.asarray(batch["label"]),
+            jnp.int32(batch["task_index"]), jnp.float32(1e-3),
+            jnp.float32(1.0), jax.random.PRNGKey(0))
+        jgrads = jax_leaves_to_port(jax.tree_util.tree_map(
+            np.asarray, new_state.opt_state["model"]))
+        logs = trainer.compute_grads(batch)
+        out[ttype] = dict(
+            jlogs={k: float(v) for k, v in jlogs.items()}, jgrads=jgrads,
+            logs={k: float(v) for k, v in logs.items()},
+            grads={n: p.grad.numpy().copy()
+                   for n, p in model.named_parameters()})
+    return out
+
+
+def check_train_step(r):
+    """The loss and the grad norm within 1e-5 relative, and every gradient
+    leaf within 1e-4 of its largest magnitude."""
+    for key in ("total_loss", "raw_loss", "grad_norm"):
+        ref, got = r["jlogs"][key], r["logs"][key]
+        assert abs(got - ref) <= 1e-5 * abs(ref), (key, got, ref)
+    assert r["logs"]["task_weight"] == r["jlogs"]["task_weight"]
+    assert set(r["grads"]) == set(r["jgrads"])
+    bad = []
+    for name, ref in r["jgrads"].items():
+        got = r["grads"][name]
+        assert got.shape == ref.shape, name
+        err = float(np.abs(got - ref).max())
+        if not err <= 1e-4 * float(np.abs(ref).max()):
+            bad.append((name, err, float(np.abs(ref).max())))
+    assert not bad, bad[:5]
