@@ -23,6 +23,14 @@ pass):
    bound ms. On the same inputs K1f and K2f are held against their plain
    forward versions as in phase 2, since the train step runs them at
    these shapes.
+2c. K3 — the fused photometric preprocessing kernel
+   against its plain version at B=24, 512², f32 and bf16: sigma = 0 with
+   alpha/beta that saturate both clips (bitwise); p = 1 for both ops with
+   the generator's draws (f32 within 1e-5, bf16 within one bf16 ulp of
+   the output: both sides draw the same Philox bits); p = 0 against
+   ``normalize_images`` (5e-7 in f32); the noise law on the kernel's own
+   output (sigma = 5 on a constant 128: mean and std within 0.05). Kernel,
+   plain, unfused ``augment_and_normalize`` and bound ms.
 3. model — the flagship 27-task swin_b 512² model (random weights from a
    seed) in bf16 through ``Predictor`` on batches of 8, one task of each
    type; held against the same weights in f32 on the card, and in f32 on
@@ -49,10 +57,24 @@ pass):
    below the first; one step's grads in f32 on the card against f32 on the
    CPU (B=1, 256², the same batches, augmentation and dropout off), every
    leaf within 1e-3 of its largest magnitude.
+6. fit — the flagship trained from disk: a 27-task synthetic dataset of
+   576x768 PNG frames (30 per task) written by the port's generator into a
+   temporary directory; ``fit`` with ``data.fused_preprocess`` for 2
+   epochs of 12 steps (validation and a checkpoint each epoch), then
+   ``fit(resume=True)`` to epoch 3. The launch counters are zeroed just
+   before the first ``fit`` and read just after the second: K3 once per
+   train step, K1b/K2b 24/4 per train step, K1f/K2f 24/4 per train step
+   and evaluation batch. Prints the host ms of one frame's decode steps
+   and resize, the host ms per batch (decode + resize + collate), the
+   share of each epoch's loop spent waiting on the prefetch
+   queue, img/s of the epoch loops beside phase 5's staged img/s, the
+   losses, the validation rows and the resume facts. Fails on a
+   non-finite loss, a wrong launch count, a resume that does not start at
+   epoch 2 or a history without 3 epochs.
 
 The line before the card's name is ``{"kernels": [...]}`` (K1f/K2f
-launches from phase 4, K1b/K2b from phase 5); the last line is
-``{"ok": true, "device": {...}}``. Per-case numbers also go to
+launches from phase 4, K1b/K2b from phase 5, K3 from phase 6); the last
+line is ``{"ok": true, "device": {...}}``. Per-case numbers also go to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -436,6 +458,122 @@ def check_bwd_kernels(dev, records):
                 summary["mlp_branch_backward"].append(rec)
             del x, dy, w, args
     return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: K3
+# ---------------------------------------------------------------------------
+K3_OPS_PER_ELEMENT = 74  # Philox 49 (98 a pair), Box-Muller and the rest 25
+
+
+def bf16_ulps(a, b):
+    """|a - b| in bf16 ulps of max(|a|, |b|), per element."""
+    import torch
+
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_k3(dev, records, mean, std):
+    """K3 against its plain version on the card at the train step's
+    shapes; returns the kernels-line summary (bf16 timings)."""
+    import torch
+
+    from fmc_uia_tpu_torch.ops import preprocess as pp
+    from fmc_uia_tpu_torch.ops.image import (
+        augment_and_normalize,
+        normalize_images,
+    )
+
+    B, S = TRAIN_BATCH, IMAGE
+    gen = torch.Generator(device=dev).manual_seed(7)
+    img = torch.randint(0, 256, (B, S, S, 3), dtype=torch.uint8, device=dev,
+                        generator=gen)
+    seeds = torch.randint(0, 2 ** 31 - 1, (B,), dtype=torch.int32,
+                          device=dev, generator=gen)
+    # (alpha, beta) that push both ends past the clips: 1.5 x - 100 < 0
+    # below 67 and > 255 above 236, and so on
+    sat = torch.tensor([[1.5, -100.0, 0.0], [1.2, 60.0, 0.0],
+                        [2.0, -200.0, 0.0], [0.8, -40.0, 0.0]],
+                       device=dev).repeat(B // 4, 1).contiguous()
+    drawn, dseeds = pp.draw_params(B, dev, gen, 1.0, 1.0)
+    zero, zseeds = pp.draw_params(B, dev, gen, 0.0, 0.0)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for case, sc, sd in (("sigma0_saturated", sat, seeds),
+                             ("p1_draws", drawn, dseeds)):
+            got = pp.augment_normalize(img, sc, sd, mean, std, dtype).float()
+            ref = pp.augment_normalize_reference(img, sc, sd, mean, std,
+                                                 dtype).float()
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if case == "sigma0_saturated":
+                tol, ok = 0.0, err == 0.0
+            elif dtype == torch.float32:
+                tol, ok = 1e-5, err <= 1e-5
+            else:
+                ulps = float(bf16_ulps(got, ref).max())
+                tol, ok = 1.0, ulps <= 1.0
+                err_ulps = ulps
+            if not ok:
+                fail(f"K3 {case} {dname}: err {err:.3e} > tol {tol}")
+            worst = max(worst, err)
+            rec = dict(kernel="augment_normalize", case=case, dtype=dname,
+                       shape=[B, S, S, 3], max_abs_err=err, tol=tol)
+            if case == "p1_draws" and dtype == torch.bfloat16:
+                rec["max_bf16_ulps"] = err_ulps
+            records.append(rec)
+            log(f"  K3 {case:17s} {dname:8s} [{B}, {S}, {S}, 3] err "
+                f"{err:.3e} (tol {tol}"
+                + (f"; {err_ulps:.2f} bf16 ulps" if "max_bf16_ulps" in rec
+                   else "") + ")")
+            del got, ref
+    got = pp.augment_normalize(img, zero, zseeds, mean, std, torch.float32)
+    err = float((got - normalize_images(img, mean, std)).abs().max())
+    if not err <= 5e-7:
+        fail(f"K3 p=0 vs normalize_images: err {err:.3e} > 5e-7")
+    records.append(dict(kernel="augment_normalize", case="p0_vs_normalize",
+                        dtype="float32", max_abs_err=err, tol=5e-7))
+    log(f"  K3 p0_vs_normalize  float32  err {err:.3e} (tol 5e-7)")
+    const = torch.full((2, S, S, 3), 128, dtype=torch.uint8, device=dev)
+    noise = pp.augment_normalize(
+        const, torch.tensor([[1.0, 0.0, 5.0]] * 2, device=dev),
+        torch.tensor([11, 12], dtype=torch.int32, device=dev), [0.0] * 3,
+        [1 / 255.0] * 3, torch.float32).double()
+    m, sd = float(noise.mean()), float(noise.std())
+    if not (abs(m - 128.0) < 0.05 and abs(sd - 5.0) < 0.05):
+        fail(f"K3 noise law: mean {m:.4f} (128), std {sd:.4f} (5)")
+    records.append(dict(kernel="augment_normalize", case="noise_law",
+                        mean=m, std=sd, samples=noise.numel()))
+    log(f"  K3 noise law, sigma 5 on 128 ({noise.numel()} samples): mean "
+        f"{m:.4f}, std {sd:.4f}")
+    del noise, got
+
+    P = S * S * 3
+    bf = torch.bfloat16
+    ms = cuda_ms(lambda: pp.augment_normalize(img, drawn, dseeds, mean, std,
+                                              bf), reps=50, warmup=5)
+    plain_ms = cuda_ms(lambda: pp.augment_normalize_reference(
+        img, drawn, dseeds, mean, std, bf), reps=5, warmup=1)
+    unfused_ms = cuda_ms(lambda: augment_and_normalize(
+        img, mean, std, 0.2, 0.1, train=True, dtype=bf, generator=gen),
+        reps=20, warmup=2)
+    nbytes = B * P * (1 + 2) + B * 16 + 24
+    flops = K3_OPS_PER_ELEMENT * B * P
+    bound = 1e3 * max(flops / PEAK_F32, nbytes / HBM_BPS)
+    summ = dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+                bound_ms=bound, max_abs_err=worst,
+                bound_by=("operations" if flops / PEAK_F32
+                          >= nbytes / HBM_BPS else "bytes"),
+                bytes=nbytes, operations=flops)
+    records.append(dict(kernel="augment_normalize", case="timing",
+                        dtype="bfloat16", shape=[B, S, S, 3], **summ))
+    log(f"  K3 bf16 [{B}, {S}, {S}, 3]: {ms:.4f} ms (plain {plain_ms:.3f}, "
+        f"unfused augment_and_normalize {unfused_ms:.3f}, bound {bound:.4f}"
+        f" by {summ['bound_by']}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} G operations)")
+    return summ
 
 
 # ---------------------------------------------------------------------------
@@ -861,6 +999,199 @@ def check_train_grads(report):
             for t, v in worst.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 6: fit from disk
+# ---------------------------------------------------------------------------
+FIT_FRAME = (576, 768)   # frames above 512 on both axes: the host resizes
+# 30 frames per task leave 24 in the train split (val_split 0.2), so every
+# train batch holds 24 images: with fewer train rows than a batch the
+# sampler's wraparound yields short batches (12 rows: 24 then 12)
+FIT_PER_TASK = 30
+FIT_STEPS = 12           # steps per epoch
+
+
+def host_frame_ms(path):
+    """Median ms of each host step on one frame, on one thread: PNG chunks
+    with their CRCs, inflate (zlib), unfilter (the host helper), the
+    whole decode, and the bilinear resize to the train size."""
+    import zlib
+
+    import numpy as np
+
+    from fmc_uia_tpu_torch.data import image_io
+
+    with open(path, "rb") as f:
+        data = f.read()
+    idat = b"".join(b for k, b in image_io._chunks(data) if k == b"IDAT")
+    raw = zlib.decompress(idat)
+    img = image_io.decode_png(data, False)
+    h, w = img.shape[:2]
+    rows = np.empty((h, w * 3), np.uint8)
+    lib = image_io._lib()
+    steps = {
+        "chunks_crc": lambda: list(image_io._chunks(data)),
+        "inflate": lambda: zlib.decompress(idat),
+        "unfilter": lambda: lib.png_unfilter(raw, image_io._u8p(rows), h,
+                                             w * 3, 3),
+        "decode": lambda: image_io.decode_png(data, False),
+        "resize": lambda: image_io.resize_bilinear(img, IMAGE, IMAGE),
+    }
+    out = {}
+    for k, fn in steps.items():
+        ts = []
+        for _ in range(11):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        out[k] = float(np.median(ts))
+    return out
+
+
+def fit_phase(name, smi, report, staged_img_s):
+    """The flagship trained from PNG files through ``fit`` and resumed;
+    returns the launch counts of both runs."""
+    import copy
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from fmc_uia_tpu_torch.fit import fit
+    from fmc_uia_tpu_torch.flagship import flagship_config_dict
+    from fmc_uia_tpu_torch.ops import preprocess as pp
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+
+    counters = (sb.attention_branch, sb.attention_branch_backward,
+                sb.mlp_branch, sb.mlp_branch_backward, pp.augment_normalize)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    try:
+        d = flagship_config_dict()
+        t0 = time.perf_counter()
+        # one task per call (seeded by its index) on 8 threads: zlib and
+        # numpy release the GIL
+        with ThreadPoolExecutor(8) as ex:
+            list(ex.map(lambda it: generate_synthetic_dataset(
+                os.path.join(tmp, "data"), tasks=[it[1]],
+                samples_per_task=FIT_PER_TASK, image_hw=FIT_FRAME,
+                seed=it[0]), enumerate(d["tasks"])))
+        gen_s = time.perf_counter() - t0
+        data_mb = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(os.path.join(tmp, "data"))
+                      for f in fs) / 1e6
+        log(f"[fit] wrote {len(d['tasks'])} tasks x {FIT_PER_TASK} frames "
+            f"{FIT_FRAME[0]}x{FIT_FRAME[1]} (PNG, {data_mb:.0f} MB) in "
+            f"{gen_s:.1f} s")
+        frame_ms = host_frame_ms(os.path.join(
+            tmp, "data", "images", f"{d['tasks'][0]['task_id']}_0000.png"))
+        log(f"[fit] host ms per frame, one thread (median of 11): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in frame_ms.items()))
+        d["data"].update(root_path=os.path.join(tmp, "data"),
+                         fused_preprocess=True)
+        d["experiment"].update(output_dir=os.path.join(tmp, "out"),
+                               checkpoint_freq=1)
+        d["training"].update(num_epochs=2, steps_per_epoch=FIT_STEPS)
+        d["validation"].update(enabled=True, freq=1)
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        r1 = fit(config=Config(config_dict=copy.deepcopy(d)), device="cuda")
+        fit1_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        d["training"]["num_epochs"] = 3
+        t0 = time.perf_counter()
+        r2 = fit(config=Config(config_dict=d), resume=True, device="cuda")
+        torch.cuda.synchronize()
+        fit2_s = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        exp = r2["experiment_dir"]
+        with open(os.path.join(exp, "training_history.json")) as f:
+            hist = json.load(f)
+        ckpts = sorted(f for f in os.listdir(exp) if f.endswith(".pt"))
+        out_mb = sum(os.path.getsize(os.path.join(exp, f))
+                     for f in os.listdir(exp)) / 1e6
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    epochs = r1["epoch_stats"] + r2["epoch_stats"]
+    steps = sum(e["steps"] for e in epochs)
+    evals = r1["eval_batches"] + r2["eval_batches"]
+    want = {"attention_branch": 24 * (steps + evals),
+            "attention_branch_backward": 24 * steps,
+            "mlp_branch": 4 * (steps + evals),
+            "mlp_branch_backward": 4 * steps, "augment_normalize": steps}
+    if launches != want:
+        fail(f"fit launches {launches} != {want} ({steps} train steps, "
+             f"{evals} eval batches)")
+    if [e["epoch"] for e in r2["epoch_stats"]] != [3]:
+        fail(f"the resumed run ran epochs "
+             f"{[e['epoch'] for e in r2['epoch_stats']]}, not [3]")
+    if exp != r1["experiment_dir"]:
+        fail(f"resume opened {exp}, not {r1['experiment_dir']}")
+    if [e["epoch"] for e in hist] != [1, 2, 3]:
+        fail(f"history epochs {[e['epoch'] for e in hist]} != [1, 2, 3]")
+    losses = {e["epoch"]: {t: v["mean"] for t, v in e["train_losses"].items()}
+              for e in hist}
+    if not all(np.isfinite(v) for e in losses.values() for v in e.values()):
+        fail(f"non-finite train losses: {losses}")
+    B = TRAIN_BATCH
+    if any(e["images"] != B * e["batches"] for e in epochs):
+        fail(f"train batches of fewer than {B} images: {epochs}")
+    batches = sum(e["batches"] for e in epochs)
+    host_ms = 1e3 * sum(e["host_load_s"] for e in epochs) / batches
+    per_epoch = [{"epoch": e["epoch"], "steps": e["steps"],
+                  "loop_s": e["loop_s"],
+                  "img_s": e["images"] / e["loop_s"],
+                  "queue_wait_share": e["queue_wait_s"] / e["loop_s"],
+                  "host_ms_per_batch": 1e3 * e["host_load_s"] / e["batches"],
+                  "put_ms_per_batch": 1e3 * e["host_put_s"] / e["batches"]}
+                 for e in epochs]
+    steady = [e for e in per_epoch if e["epoch"] > 1]
+    rep = dict(frames=FIT_FRAME, per_task=FIT_PER_TASK, data_mb=data_mb,
+               gen_s=gen_s, host_frame_ms=frame_ms, fit1_s=fit1_s, fit2_s=fit2_s, epochs=per_epoch,
+               host_ms_per_batch=host_ms, launches=launches,
+               train_steps=steps, eval_batches=evals,
+               mean_losses={k: float(np.mean(list(v.values())))
+                            for k, v in losses.items()},
+               val=hist[-1].get("val_metrics", []),
+               best_score=r2["best_score"], best_epoch=r2["best_epoch"],
+               best_eval_on_train=r2["best_eval_on_train"],
+               checkpoints=ckpts, experiment_mb=out_mb,
+               staged_img_s=staged_img_s)
+    report["fit"] = rep
+    log(f"[fit] fit: 2 epochs x {FIT_STEPS} steps at B={B} + validation and "
+        f"a checkpoint each, {fit1_s:.1f} s; resume to epoch 3: "
+        f"{fit2_s:.1f} s; {steps} train steps, {evals} eval batches")
+    log(f"[fit] host decode + resize + collate: {host_ms:.1f} ms per batch "
+        f"of {B} at 4 workers; put (pin + copy enqueue) "
+        + ", ".join(f"{e['put_ms_per_batch']:.1f}" for e in per_epoch)
+        + " ms per batch by epoch")
+    for e in per_epoch:
+        log(f"[fit] epoch {e['epoch']}: {e['steps']} steps in "
+            f"{e['loop_s']:.2f} s = {e['img_s']:.2f} img/s from disk; queue "
+            f"wait {100 * e['queue_wait_share']:.2f} % of the loop; host "
+            f"{e['host_ms_per_batch']:.1f} ms per batch")
+    log(f"[fit] steady img/s from disk (epochs 2-3) "
+        + ", ".join(f"{e['img_s']:.2f}" for e in steady)
+        + f" vs phase 5 staged {staged_img_s:.2f} | {name} | {smi}")
+    log(f"[fit] mean train loss by epoch "
+        + ", ".join(f"{k}: {v:.4f}" for k, v in rep["mean_losses"].items()))
+    for row in rep["val"]:
+        log("  val " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                                 else f"{k} {v}" for k, v in row.items()))
+    log(f"[fit] best score {r2['best_score']:.4f} (epoch "
+        f"{r2['best_epoch']}); best model on the train split "
+        f"{r2['best_eval_on_train']}")
+    log(f"[fit] resume: latest checkpoint epoch 2 -> ran epoch 3 in the same "
+        f"experiment dir; history epochs {[e['epoch'] for e in hist]}; files "
+        f"{ckpts} ({out_mb:.0f} MB); launches {launches}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -915,6 +1246,10 @@ def main() -> int:
     log(f"[kernels-bwd] backward kernel vs plain version on the card, "
         f"train shapes B={TRAIN_BATCH}")
     summary.update(check_bwd_kernels(dev, records))
+    log(f"[kernels-pre] K3 vs plain version on the card, B={TRAIN_BATCH} "
+        f"{IMAGE}²")
+    fcfg = flagship_config_dict()["data"]["augmentation"]["normalize"]
+    k3 = check_k3(dev, records, fcfg["mean"], fcfg["std"])
     report["kernel_cases"] = records
 
     # -- 3. model --------------------------------------------------------------
@@ -1057,6 +1392,9 @@ def main() -> int:
                          "max_batch": BATCH}
     # -- 5. training -----------------------------------------------------------
     train_launches = train_phase(name, smi, report, out_dir)
+    # -- 6. fit from disk ------------------------------------------------------
+    torch.cuda.empty_cache()
+    fit_launches = fit_phase(name, smi, report, report["train"]["img_s"])
 
     # -- kernels line ----------------------------------------------------------
     def entry(kname, source, replaces, count):
@@ -1100,6 +1438,14 @@ def main() -> int:
         entry("mlp_branch_backward", "fmc_uia_tpu_torch/csrc/swin_mlp_bwd.cu",
               "fmc_uia_tpu/ops/swin_block_pallas.py:716",
               train_launches["mlp_branch_backward"]),
+        # per flagship train step (B=24, 512², bf16); launches from phase 6
+        {"name": "augment_normalize", "route": "cuda",
+         "source": "fmc_uia_tpu_torch/csrc/preprocess_fwd.cu",
+         "replaces": "fmc_uia_tpu/ops/preprocess_pallas.py:93",
+         "launches": fit_launches["augment_normalize"],
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None},
     ]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

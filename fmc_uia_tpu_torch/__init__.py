@@ -12,9 +12,12 @@ Ported so far: the serving path — config, tasks, the Swin encoder with
 the fused attention and MLP branches, the FPN decoders, TaskFiLM, the
 default seg / GAP cls / CenterNet det / MLP reg head banks, the multi-task
 model, the weight bridge from a JAX params tree, ``Predictor`` and
-``StreamingPredictor`` — and the train step: the branches' backward
-kernels, drop path and dropout, augmentation, CenterNet targets, the
-losses and ``train.Trainer`` with its grouped-LR AdamW.
+``StreamingPredictor`` — the train step: the branches' backward kernels,
+drop path and dropout, augmentation, CenterNet targets, the losses and
+``train.Trainer`` with its grouped-LR AdamW — and training from disk: the
+fused photometric kernel (K3), the data pipeline (``data/``, with its own
+PNG decoder and a host C++ helper, no pandas/cv2/PIL/PyYAML), metrics and
+``evaluate``, the logger, checkpoints and ``fit`` with resume.
 """
 
 __version__ = "0.1.0"

@@ -83,5 +83,14 @@ class Config:
     def get_task_configs(self) -> List[Dict]:
         return self.config["tasks"]
 
+    def set_task_configs_from_dataset(self, task_configs: List[Dict]) -> None:
+        """Override the task list with the dataset-derived one, marked
+        ``runtime.tasks_from_dataset``."""
+        self.config["tasks"] = task_configs
+        self.config.setdefault("runtime", {})["tasks_from_dataset"] = True
+
+    def tasks_from_dataset(self) -> bool:
+        return bool(self.get("runtime.tasks_from_dataset", False))
+
     def __repr__(self) -> str:
         return f"Config(exp_name={self.exp_name}, encoder={self.encoder_name})"

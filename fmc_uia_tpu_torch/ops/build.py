@@ -1,12 +1,15 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``) and the
+host image helper (``csrc/host_image.cpp``).
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds). Libraries land in ``build/fmc_uia_tpu_torch/`` at
-the checkout's root, named by a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree reuses the library. ``build()`` starts one
-``nvcc`` per missing library, all at once; a failure raises with nvcc's
-output. Nothing here runs at import time.
+Each CUDA source is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). The host helper is plain C++ built by
+``g++`` (which nvcc itself needs) the same way. Libraries land in
+``build/fmc_uia_tpu_torch/`` at the checkout's root, named by a hash of the
+sources and flags, so an edit rebuilds and an unchanged tree reuses the
+library. ``build()`` starts one ``nvcc`` per missing library, all at once;
+a failure raises with the compiler's output. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
@@ -24,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "fmc_uia_tpu_torch"
 KERNELS = ("swin_attn_fwd", "swin_mlp_fwd", "swin_attn_bwd",
-           "swin_mlp_bwd")
+           "swin_mlp_bwd", "preprocess_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -39,9 +43,22 @@ SIGNATURES = {
     "swin_attn_bwd_workspace": [_I] * 7,
     "swin_mlp_bwd": [_VP] * 17 + [_LL] + [_I] * 4 + [_VP],
     "swin_mlp_bwd_workspace": [_LL] + [_I] * 3,
+    "preprocess_fwd": [_VP] * 6 + [_I, _I, _LL, _I, _VP],
+}
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+_U8P, _IP = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
+# (restype, argtypes) of the host helper's functions
+HOST_SIGNATURES = {
+    "resize_bilinear_u8": (None, [_U8P, _I, _I, _I, _U8P, _I, _I]),
+    "resize_nearest_u8": (None, [_U8P, _I, _I, _I, _U8P, _I, _I]),
+    "resize_batch_u8": (None, [ctypes.POINTER(_U8P), _IP, _IP, _I, _U8P,
+                               _I, _I, _I, _I, _I]),
+    "png_unfilter": (ctypes.c_int, [ctypes.c_char_p, _U8P, _I, _LL, _I]),
 }
 
 _libs: Dict[str, Callable[..., int]] = {}
+_host_libs: Dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -60,6 +77,42 @@ def lib_path(name: str) -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def host_lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update((CSRC / f"{name}.cpp").read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library ``csrc/<name>.cpp``, built by ``g++`` on first use
+    (thread-safe; a failed build raises with g++'s output), with the
+    ctypes signatures of ``HOST_SIGNATURES`` set."""
+    with _host_lock:
+        lib = _host_libs.get(name)
+        if lib is not None:
+            return lib
+        out = host_lib_path(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: cannot build {name}.cpp")
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            p = subprocess.run([gxx, *HOST_FLAGS, str(CSRC / f"{name}.cpp"),
+                                "-o", str(tmp)], capture_output=True,
+                               text=True)
+            if p.returncode != 0:
+                raise RuntimeError(f"g++ {name}.cpp failed (exit "
+                                   f"{p.returncode}):\n{p.stdout}{p.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        for fn, (res, args) in HOST_SIGNATURES.items():
+            f = getattr(lib, fn)
+            f.restype, f.argtypes = res, args
+        _host_libs[name] = lib
+        return lib
 
 
 def ptxas_report(name: str) -> str:

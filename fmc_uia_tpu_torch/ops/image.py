@@ -20,10 +20,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-_K3_ITEM = ("data.fused_preprocess (the fused photometric kernel K3, "
-            "fmc_uia_tpu/ops/preprocess_pallas.py) is not ported yet "
-            "(ROADMAP.md, 'TPU kernels: ported and to port', K3, with the "
-            "data pipeline item)")
+from fmc_uia_tpu_torch.ops.preprocess import fused_augment_normalize
 
 
 def normalize_images(images: torch.Tensor, mean: Sequence[float],
@@ -151,7 +148,10 @@ def input_prep_fns(config, compute_dtype=torch.float32):
     """(train_prep(images, generator), eval_prep(images)) from the config:
     device photometric augmentation + dataset-stats normalization, or the
     pass-through of ``data.use_adaptive_norm`` (images standardized on the
-    host already)."""
+    host already). With ``data.fused_preprocess`` the train side is K3
+    (``ops/preprocess.py``) on every device: its kernel on the card, its
+    plain version on the CPU (the JAX package runs the unfused chain off
+    the TPU instead); the eval side stays ``normalize_images``."""
     if config.get("data.use_adaptive_norm", False):
         mean = config.get("data.augmentation.normalize.mean")
         std = config.get("data.augmentation.normalize.std")
@@ -171,8 +171,7 @@ def input_prep_fns(config, compute_dtype=torch.float32):
 
         return train_prep, lambda images: images.to(compute_dtype)
 
-    if config.get("data.fused_preprocess", False):
-        raise NotImplementedError(_K3_ITEM)
+    use_fused = bool(config.get("data.fused_preprocess", False))
     stats = {}
     aug = config.get("data.augmentation.train", {}) or {}
     bc_p = float(aug.get("random_brightness_contrast", 0.2))
@@ -188,6 +187,11 @@ def input_prep_fns(config, compute_dtype=torch.float32):
         return stats[device]
 
     def train_prep(images, generator=None):
+        if use_fused:
+            return fused_augment_normalize(
+                images, *mean_std(images.device), brightness_contrast_p=bc_p,
+                gauss_noise_p=noise_p, dtype=compute_dtype,
+                generator=generator)
         return augment_and_normalize(
             images, *mean_std(images.device), brightness_contrast_p=bc_p,
             gauss_noise_p=noise_p, train=True, dtype=compute_dtype,

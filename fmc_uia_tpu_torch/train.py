@@ -157,6 +157,18 @@ class LRScheduler:
     def current_scale(self) -> float:
         return self.scale
 
+    def state_dict(self) -> Dict:
+        """The schedule's state as Python numbers (a resumed run loads it
+        instead of replaying the epochs, so plateau mode resumes too)."""
+        return {k: float(v) if isinstance(v, float) else v
+                for k, v in vars(self).items()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        if state.get("kind") != self.kind:
+            raise ValueError(f"scheduler {state.get('kind')!r} in the "
+                             f"checkpoint, {self.kind!r} configured")
+        vars(self).update(state)
+
     def current_lr(self) -> float:
         return self.base_lr * self.scale
 
@@ -247,6 +259,7 @@ class Trainer:
         self.generator = torch.Generator(device=p0.device)
         self.generator.manual_seed(int(config.seed if seed is None
                                        else seed))
+        self.host_step = 0  # train steps taken (the profiler's step index)
         self.train_prep, _ = input_prep_fns(config, model.dtype)
         aug = config.get("data.augmentation.train", {}) or {}
         self.flip_h = float(aug.get("horizontal_flip", 0.0) or 0.0)
@@ -344,7 +357,21 @@ class Trainer:
     def train_batch(self, batch: Dict, epoch: int) -> Dict:
         logs = self.compute_grads(batch, epoch)
         self.optimizer.step(self.scheduler.current_lr())
+        self.host_step += 1
         return logs
+
+    def adaptive_snapshot(self) -> Optional[Dict[str, Dict[str, float]]]:
+        """The adaptive loss weights 0.5 e^{-lv} and sigmas e^{lv/2} (lv
+        bounded) per task type, read from the device; None when off."""
+        if self.adaptive is None:
+            return None
+        with torch.no_grad():
+            lv = {t: losses_lib.stable_log_var(v)
+                  for t, v in self.adaptive.items()}
+            return {"weights": {t: float(0.5 * torch.exp(-v))
+                                for t, v in lv.items()},
+                    "sigmas": {t: float(torch.exp(0.5 * v))
+                               for t, v in lv.items()}}
 
     def train_burst(self, batch: Dict, n_steps: int, epoch: int = 0):
         raise NotImplementedError(_NOT_PORTED.format(

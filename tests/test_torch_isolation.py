@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of fmc_uia_tpu_torch
-loads no jax, flax or fmc_uia_tpu module; chip_smoke.py imports none of
-them; entry points asked for CUDA on a host without a GPU raise; the
-flagship config dict equals configs/config.yaml with the bench overrides.
+loads no jax, flax or fmc_uia_tpu module, nor pandas, cv2, PIL or yaml;
+chip_smoke.py imports none of them; its C++ sources include nothing of
+fmc_uia_tpu; entry points asked for CUDA on a host without a GPU raise;
+the flagship config dict equals configs/config.yaml with the bench
+overrides.
 """
 
 import ast
@@ -35,13 +37,16 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m in ('jax', 'flax', "
         "'fmc_uia_tpu') or m.startswith(('jax.', 'flax.', 'fmc_uia_tpu.'))]\n"
         "assert not bad, bad\n"
+        "host = [m for m in sys.modules if m.split('.')[0] in ('pandas', "
+        "'cv2', 'PIL', 'yaml')]\n"
+        "assert not host, host\n"
         "print(len(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = ROOT
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 37
 
 
 def _imports(path):
@@ -62,6 +67,18 @@ def test_chip_smoke_and_port_sources_import_no_jax():
         assert not bad, (p, bad)
 
 
+def test_port_csrc_includes_nothing_of_the_jax_package():
+    csrc = os.path.join(ROOT, "fmc_uia_tpu_torch", "csrc")
+    sources = [f for f in os.listdir(csrc)
+               if f.endswith((".cu", ".cuh", ".cpp"))]
+    assert "host_image.cpp" in sources and "preprocess_fwd.cu" in sources
+    for name in sources:
+        for line in open(os.path.join(csrc, name)):
+            if line.lstrip().startswith("#include"):
+                assert "fmc_uia_tpu/" not in line and "native" not in line, (
+                    name, line)
+
+
 def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present: the default device is valid")
@@ -80,6 +97,13 @@ def test_entry_points_refuse_missing_cuda():
         Predictor(model, reg, [0.3] * 3, [0.2] * 3, 64)
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamingPredictor(model, reg, [0.3] * 3, [0.2] * 3, 64)
+    from fmc_uia_tpu_torch.fit import fit
+    from fmc_uia_tpu_torch.metrics import evaluate
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit(config=cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate(model, [], reg, [0.3] * 3, [0.2] * 3)
 
 
 def test_unported_families_raise():

@@ -297,10 +297,32 @@ def test_flips_match_jax(ttype):
 
 
 def test_fused_preprocess_raises():
-    cfg = Config(config_dict=make_tiny_config(
-        data={"fused_preprocess": True}).config)
-    with pytest.raises(NotImplementedError, match="K3"):
-        PI.input_prep_fns(cfg)
+    """data.fused_preprocess no longer raises: the train prep is K3, which
+    on a CPU tensor runs its plain version (the same draws through
+    augment_normalize_reference give the same output), inside the
+    normalized range; the eval prep stays normalize_images."""
+    from fmc_uia_tpu_torch.ops import preprocess as PP
+
+    cfg = Config(config_dict=make_tiny_config(data={
+        "fused_preprocess": True, "augmentation": {"train": {
+            "random_brightness_contrast": 1.0, "gauss_noise": 1.0}}}).config)
+    train_prep, eval_prep = PI.input_prep_fns(cfg, torch.bfloat16)
+    img = torch.from_numpy(_images(np.random.RandomState(9), B=4, S=16))
+    got = train_prep(img, generator=torch.Generator().manual_seed(9))
+    sc, seeds = PP.draw_params(4, "cpu", torch.Generator().manual_seed(9),
+                               1.0, 1.0)
+    mean = cfg.get("data.augmentation.normalize.mean")
+    std = cfg.get("data.augmentation.normalize.std")
+    want = PP.augment_normalize_reference(img, sc, seeds, mean, std,
+                                          torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    lo, hi = (np.array([0.0, 255.0]) - 255 * mean[0]) / (255 * std[0])
+    assert float(got.min()) >= lo - 0.02 and float(got.max()) <= hi + 0.02
+    assert not torch.equal(got, eval_prep(img))  # p = 1: every image moved
+    np.testing.assert_array_equal(
+        eval_prep(img).float().numpy(),
+        PI.normalize_images(img, mean, std, torch.bfloat16).float().numpy())
 
 
 # ---------------------------------------------------------------------------
