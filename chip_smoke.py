@@ -31,6 +31,17 @@ pass):
    ``normalize_images`` (5e-7 in f32); the noise law on the kernel's own
    output (sigma = 5 on a constant 128: mean and std within 0.05). Kernel,
    plain, unfused ``augment_and_normalize`` and bound ms.
+2d. K4 — the ViT global-attention kernels (K4f forward, K4b backward)
+   against their plain versions at the DINOv3 ViT-B/8 512² shapes (12
+   heads x 64, N = 4101) in f32 (TF32 off) and bf16: K4f at B=8 (serving)
+   and B=24 (train), K4b at B=24, and a tail case (B=2, N = 1029); each
+   element within one ulp of its own magnitude plus 1e-4 (K4f) / 1e-3
+   (K4b) of its (b, h) slice's largest magnitude in f32, 4 bf16 ulps of
+   it in bf16; the lse within 1e-5. The dense plain versions run in chunks
+   of 2 images. bf16 times: kernel, plain, bound (tensor-core operations
+   against bytes; the exponentials' time beside it) and SDPA forward /
+   forward + backward as the library yardstick (never on the port's
+   path).
 3. model — the flagship 27-task swin_b 512² model (random weights from a
    seed) in bf16 through ``Predictor`` on batches of 8, one task of each
    type; held against the same weights in f32 on the card, and in f32 on
@@ -72,10 +83,27 @@ pass):
    non-finite loss, a wrong launch count, a resume that does not start at
    epoch 2 or a history without 3 epochs.
 
+7. DINOv3 serving — the DINOv3 ViT-B/8 512² preset
+   (``dino_patch8_config_dict``: RoPE, LayerScale, 4 storage tokens,
+   'resize' adapter, the flagship's FPN/FiLM/27 heads; random weights from
+   a seed) in bf16 through ``Predictor`` at B=8: K4f must launch 12 times
+   a forward; held against f32 on the card at B=8 (10 %, decoded ids
+   equal except at near ties) and f32 on the CPU for one 256² image (N =
+   1029, 1e-3); then one closed loop of 64 outstanding requests through
+   ``StreamingPredictor`` for >= 10 s, results held against
+   ``Predictor``: img/s, p50/p99, K4f launches = 12 x dispatches.
+8. DINOv3 training — phase 5 on the DINOv3 preset (``freeze_dino``: the
+   backbone's grads are computed and clipped, not applied): warm-up, a
+   timed round-robin of >= 10 s (img/s, ms per step per type, peak
+   memory; K4f and K4b 12 each a step), a profiled step per type
+   (``chiprun_out/profile_dino_train_step.txt``), the fixed-batch falling
+   loss, and f32 grads card vs CPU at B=1 256² for every leaf, the
+   backbone and ``rope_periods`` included.
+
 The line before the card's name is ``{"kernels": [...]}`` (K1f/K2f
-launches from phase 4, K1b/K2b from phase 5, K3 from phase 6); the last
-line is ``{"ok": true, "device": {...}}``. Per-case numbers also go to
-``chiprun_out/chip_smoke.json``.
+launches from phase 4, K1b/K2b from phase 5, K3 from phase 6, K4f from
+phase 7, K4b from phase 8); the last line is ``{"ok": true, "device":
+{...}}``. Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -577,6 +605,183 @@ def check_k3(dev, records, mean, std):
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: K4
+# ---------------------------------------------------------------------------
+K4_HEADS, K4_DH = 12, 64
+K4_N = 4101          # DINOv3 ViT-B/8 at 512²: 64 x 64 patches + 1 cls + 4
+PEAK_SFU = 3.9e12    # H100 special-function exponentials/s (FA3 paper)
+PLAIN_CHUNK = 2      # images per call of the dense plain versions
+
+
+def k4_cases():
+    """(label, B, N, backward?) of K4: the serving batch, the train batch
+    (forward and backward) and a tail case (256² + prefix, N = 1029)."""
+    return [("serve_b8", BATCH, K4_N, False),
+            ("train_b24", TRAIN_BATCH, K4_N, True),
+            ("tail_n1029", 2, 1029, True)]
+
+
+def chunked(fn, *ts):
+    """``fn`` over chunks of PLAIN_CHUNK images, outputs concatenated
+    (a dense [B, 12, 4101, 4101] f32 score tensor at B = 24 is 19 GB)."""
+    import torch
+
+    outs = [fn(*(t[i:i + PLAIN_CHUNK] for t in ts))
+            for i in range(0, ts[0].shape[0], PLAIN_CHUNK)]
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def check_k4_tensor(got, ref, dtype, rel_f32, what):
+    """Each element within one ulp of its own magnitude plus a tolerance
+    scaled to its (b, h) slice's largest magnitude: f32 ``rel_f32`` of it
+    (sums over up to 4,101 terms in another order, exp2 against exp);
+    bf16 4 bf16 ulps of it (each side rounds p or ds once, the output
+    once). Returns [max err, worst excess / tol]."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    bits = 7 if dtype == torch.bfloat16 else 23
+    mag = torch.maximum(got.abs(), ref.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
+    smax = ref.abs().amax((-2, -1), keepdim=True).clamp_min(1e-30)
+    if dtype == torch.bfloat16:
+        tol = 4 * torch.exp2(torch.floor(torch.log2(smax)) - 7)
+    else:
+        tol = rel_f32 * smax
+    diff = (got - ref).abs()
+    worst = float(((diff - ulp) / tol).max())
+    if not worst <= 1.0:
+        fail(f"{what} {dtype}: error beyond one ulp is {worst:.3f} x tol")
+    return [float(diff.max()), worst]
+
+
+def check_k4(dev, records):
+    """K4f and K4b against their plain versions on the card, f32 (TF32
+    off) and bf16, at the DINOv3 patch-8 shapes; times in bf16: kernel,
+    plain (B = 8), bound, and SDPA (forward; forward + backward) as the
+    library yardstick. Returns the kernels-line summary."""
+    import torch
+    import torch.nn.functional as F
+
+    from fmc_uia_tpu_torch.ops import vit_attention as va
+
+    gen = torch.Generator().manual_seed(4)
+    scale = K4_DH ** -0.5
+    summ = {"global_attention": {"errs": []},
+            "global_attention_backward": {"errs": []}}
+    for label, B, N, bwd in k4_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            shape = (B, K4_HEADS, N, K4_DH)
+            q, k, v, do = (torch.randn(shape, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            o, lse = va.global_attention_forward(q, k, v, scale)
+            ro, rl = chunked(lambda a, b, c: va.global_attention_reference(
+                a, b, c, scale), q, k, v)
+            torch.cuda.synchronize()
+            err_o = check_k4_tensor(o, ro, dtype, 1e-4, f"K4f {label} o")
+            err_l = float((lse - rl).abs().max())
+            if not err_l <= 1e-5 * max(1.0, float(rl.abs().max())):
+                fail(f"K4f {label} {dname}: lse err {err_l:.3e}")
+            del ro, rl
+            rec = dict(kernel="global_attention", case=label, dtype=dname,
+                       shape=list(shape), max_abs_err=err_o[0],
+                       worst_over_tol=err_o[1], lse_err=err_l)
+            records.append(rec)
+            summ["global_attention"]["errs"].append(err_o[0])
+            log(f"  K4f {label:11s} {dname:8s} {list(shape)} err "
+                f"{err_o[0]:.3e} (beyond 1 ulp {err_o[1]:.3f} x tol); lse "
+                f"err {err_l:.2e}")
+            if bwd:
+                got = va.global_attention_backward(q, k, v, o, lse, do,
+                                                   scale)
+                ref = chunked(
+                    lambda *a: va.global_attention_backward_reference(
+                        *a, scale), q, k, v, o, lse, do)
+                torch.cuda.synchronize()
+                errs = {n: check_k4_tensor(g, r, dtype, 1e-3,
+                                           f"K4b {label} {n}")
+                        for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+                del got, ref
+                rec = dict(kernel="global_attention_backward", case=label,
+                           dtype=dname, shape=list(shape), errs=errs,
+                           max_abs_err=max(e[0] for e in errs.values()))
+                records.append(rec)
+                summ["global_attention_backward"]["errs"].append(
+                    rec["max_abs_err"])
+                log(f"  K4b {label:11s} {dname:8s} {list(shape)} "
+                    + ", ".join(f"{n} err {e[0]:.3e} ({e[1]:.3f} x tol)"
+                                for n, e in errs.items()))
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+
+    # times, bf16, at the main path's shapes
+    bf = torch.bfloat16
+    for label, B, N, bwd in k4_cases()[:2]:
+        shape = (B, K4_HEADS, N, K4_DH)
+        q, k, v, do = (torch.randn(shape, generator=gen).to(dev, bf)
+                       for _ in range(4))
+        o, lse = va.global_attention_forward(q, k, v, scale)
+        elems = B * K4_HEADS * N * K4_DH
+        mm = 4 * B * K4_HEADS * N * N * K4_DH
+        exps = B * K4_HEADS * N * N
+        nbytes = 4 * elems * 2 + 4 * B * K4_HEADS * N
+        t = dict(ms=cuda_ms(lambda: va.global_attention_forward(
+                     q, k, v, scale), reps=10, warmup=2),
+                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                     q, k, v, scale=scale), reps=10, warmup=2),
+                 bound_ms=1e3 * max(mm / PEAK_BF16, nbytes / HBM_BPS),
+                 bound_by=("operations" if mm / PEAK_BF16
+                           >= nbytes / HBM_BPS else "bytes"),
+                 exp_ms=1e3 * exps / PEAK_SFU, operations=mm, bytes=nbytes,
+                 exponentials=exps)
+        t["plain_ms"] = cuda_ms(lambda: chunked(
+            lambda a, b, c: va.global_attention_reference(a, b, c, scale),
+            q, k, v), reps=2, warmup=1)
+        summ["global_attention"][label] = t
+        records.append(dict(kernel="global_attention", case=f"time_{label}",
+                            dtype="bfloat16", shape=list(shape), **t))
+        log(f"  K4f {label} bf16: {t['ms']:.3f} ms (SDPA {t['library_ms']:.3f}"
+            f", plain {t['plain_ms']:.3f} in chunks of {PLAIN_CHUNK}, bound "
+            f"{t['bound_ms']:.4f} by {t['bound_by']}; "
+            f"{exps / 1e9:.2f} G exponentials = {t['exp_ms']:.3f} ms at "
+            f"{PEAK_SFU / 1e12:.1f} T/s)")
+        if bwd:
+            mm = 10 * B * K4_HEADS * N * N * K4_DH
+            exps = 2 * B * K4_HEADS * N * N
+            nbytes = 8 * elems * 2 + 4 * B * K4_HEADS * N
+            ql, kl, vl = (t_.detach().requires_grad_() for t_ in (q, k, v))
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+                return torch.autograd.grad(out, (ql, kl, vl), do)
+
+            tb = dict(ms=cuda_ms(lambda: va.global_attention_backward(
+                          q, k, v, o, lse, do, scale), reps=10, warmup=2),
+                      library_ms=cuda_ms(sdpa_fwd_bwd, reps=10, warmup=2),
+                      bound_ms=1e3 * max(mm / PEAK_BF16, nbytes / HBM_BPS),
+                      bound_by=("operations" if mm / PEAK_BF16
+                                >= nbytes / HBM_BPS else "bytes"),
+                      exp_ms=1e3 * exps / PEAK_SFU, operations=mm,
+                      bytes=nbytes, exponentials=exps)
+            tb["plain_ms"] = cuda_ms(lambda: chunked(
+                lambda *a: va.global_attention_backward_reference(*a, scale),
+                q, k, v, o, lse, do), reps=2, warmup=1)
+            summ["global_attention_backward"][label] = tb
+            records.append(dict(kernel="global_attention_backward",
+                                case=f"time_{label}", dtype="bfloat16",
+                                shape=list(shape), **tb))
+            log(f"  K4b {label} bf16: {tb['ms']:.3f} ms (SDPA fwd+bwd "
+                f"{tb['library_ms']:.3f}, plain {tb['plain_ms']:.3f} in "
+                f"chunks, bound {tb['bound_ms']:.4f} by {tb['bound_by']}; "
+                f"{exps / 1e9:.2f} G exponentials = {tb['exp_ms']:.3f} ms)")
+            del ql, kl, vl
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return summ
+
+
+# ---------------------------------------------------------------------------
 # phase 3/4: model and serving
 # ---------------------------------------------------------------------------
 def near_tie_ok(pred, ref_logits, err, ncls):
@@ -725,6 +930,8 @@ TRAIN_S = 10.0       # the timed round-robin, at least this long
 FIXED_STEPS = 10     # steps on one fixed batch per type (the loss falls)
 GRAD_IMAGE = 256     # the card-vs-CPU gradient check: B=1 at this size
 KERNEL_GROUPS = (    # kernel-name fragments of the profile's shares
+    ("K4f", ("vitfa::fwd_",)),
+    ("K4b", ("vitfa::dkv_", "vitfa::dq_", "vitfa::rowdot")),
     ("K1f", ("attn_window_head", "attn_proj_residual")),
     ("K2f", ("mlp_fwd",)),
     ("K1b+K2b", ("swin::gemm_", "attn_core_bwd", "swin::ln_rows",
@@ -803,9 +1010,9 @@ def learnable_batches(registry, B, S, seed):
     return out
 
 
-def profile_train_round(trainer, batches, out_dir, report):
+def profile_train_round(trainer, batches, out_dir, report, key):
     """torch.profiler over one step of each type: the device time by kernel
-    group, and the op table (chiprun_out/profile_train_step.txt)."""
+    group, and the op table (chiprun_out/profile_<key>_step.txt)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -816,7 +1023,7 @@ def profile_train_round(trainer, batches, out_dir, report):
             trainer.train_batch(b, 0)
         torch.cuda.synchronize()
     avg = prof.key_averages()
-    with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{key}_step.txt"), "w") as f:
         f.write(avg.table(sort_by="self_device_time_total", row_limit=60))
 
     def dev_us(e):
@@ -836,16 +1043,39 @@ def profile_train_round(trainer, batches, out_dir, report):
                 break
         else:
             shares["elementwise/other"] += dev_us(e)
-    report["train"]["profile"] = {
+    report[key]["profile"] = {
         "device_ms_per_round": total / 1e3, "kernels": len(kern),
         "share": {g: v / max(total, 1e-9) for g, v in shares.items()}}
-    log(f"[train] profile of one step per type: {total / 1e3:.1f} ms of "
+    log(f"[{key}] profile of one step per type: {total / 1e3:.1f} ms of "
         f"device time; share " + ", ".join(
             f"{g} {v / max(total, 1e-9):.3f}" for g, v in shares.items()))
 
 
-def train_phase(name, smi, report, out_dir):
-    """The flagship Trainer at B=24 in bf16: a warm-up step per type, a
+def swin_preset():
+    """The flagship preset of phase 5: its config dict, the kernels a
+    train step launches and how often (K1f/K1b 24, K2f/K2b 4)."""
+    from fmc_uia_tpu_torch.flagship import flagship_config_dict
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+
+    per_step = ((sb.attention_branch, 24), (sb.attention_branch_backward, 24),
+                (sb.mlp_branch, 4), (sb.mlp_branch_backward, 4))
+    return dict(key="train", what="flagship swin_b",
+                config=flagship_config_dict, per_step=per_step)
+
+
+def dino_preset():
+    """The DINOv3 ViT-B/8 preset of phase 8: K4f and K4b once per block
+    (12) a step."""
+    from fmc_uia_tpu_torch.flagship import dino_patch8_config_dict
+    from fmc_uia_tpu_torch.ops import vit_attention as va
+
+    per_step = ((va.global_attention, 12), (va.global_attention_backward, 12))
+    return dict(key="dino_train", what="DINOv3 ViT-B/8",
+                config=dino_patch8_config_dict, per_step=per_step)
+
+
+def train_phase(name, smi, report, out_dir, preset):
+    """A preset's Trainer at B=24 in bf16: a warm-up step per type, a
     timed round-robin, the launch counts, a falling loss on a fixed batch,
     one profiled round, and f32 grads on the card against the CPU's.
     Returns the timed run's launch counts."""
@@ -853,29 +1083,28 @@ def train_phase(name, smi, report, out_dir):
     import torch
 
     from fmc_uia_tpu_torch.config import Config
-    from fmc_uia_tpu_torch.flagship import flagship_config_dict
     from fmc_uia_tpu_torch.models import build_model
-    from fmc_uia_tpu_torch.ops import swin_block as sb
     from fmc_uia_tpu_torch.tasks import TaskRegistry
     from fmc_uia_tpu_torch.train import Trainer
 
-    counters = (sb.attention_branch, sb.attention_branch_backward,
-                sb.mlp_branch, sb.mlp_branch_backward)
-    cfg = Config(config_dict=flagship_config_dict())
+    key, tag = preset["key"], f"[{preset['key']}]"
+    counters = [c for c, _ in preset["per_step"]]
+    cfg = Config(config_dict=preset["config"]())
     registry = TaskRegistry.from_config(cfg)
     model = build_model(cfg, registry, dtype=torch.bfloat16, device="cuda",
                         generator=torch.Generator().manual_seed(0))
     trainer = Trainer(cfg, model, registry, device="cuda", seed=0)
     batches = {t: trainer.put_batch(b) for t, b in train_batches(
         registry, TRAIN_BATCH, IMAGE, seed=0).items()}
-    report["train"] = {"batch": TRAIN_BATCH, "image": IMAGE}
+    report[key] = {"batch": TRAIN_BATCH, "image": IMAGE,
+                   "model": preset["what"]}
 
     first = {}
     for t, b in batches.items():  # warm-up: allocator, cuDNN heuristics
         t0 = time.perf_counter()
         float(trainer.train_batch(b, 0)["total_loss"])
         first[t] = time.perf_counter() - t0
-    log(f"[train] first step per type (s, host clock, synced): "
+    log(f"{tag} first step per type (s, host clock, synced): "
         f"{ {k: round(v, 2) for k, v in first.items()} }")
 
     torch.cuda.synchronize()
@@ -896,11 +1125,9 @@ def train_phase(name, smi, report, out_dir):
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
     steps = len(timed)
-    want = {"attention_branch": 24 * steps,
-            "attention_branch_backward": 24 * steps,
-            "mlp_branch": 4 * steps, "mlp_branch_backward": 4 * steps}
+    want = {c.__name__: n * steps for c, n in preset["per_step"]}
     if launches != want:
-        fail(f"train launches {launches} != 24/24/4/4 x {steps} steps")
+        fail(f"{key} launches {launches} != {want} ({steps} steps)")
     stacked = torch.stack(losses).float()
     if not bool(torch.isfinite(stacked).all()):
         fail(f"non-finite train losses: {stacked.tolist()}")
@@ -909,16 +1136,16 @@ def train_phase(name, smi, report, out_dir):
           for t in batches}
     peak = torch.cuda.max_memory_allocated()
     img_s = steps * TRAIN_BATCH / wall
-    report["train"].update(
+    report[key].update(
         steps=steps, wall_s=wall, img_s=img_s, ms_per_step_by_type=ms,
         peak_bytes=peak, launches=launches, first_step_s=first)
-    log(f"[train] {steps} steps (round-robin over 4 types) x B="
-        f"{TRAIN_BATCH} in {wall:.2f} s: {img_s:.2f} img/s; ms per step by "
+    log(f"{tag} {preset['what']}: {steps} steps (round-robin over 4 types)"
+        f" x B={TRAIN_BATCH} in {wall:.2f} s: {img_s:.2f} img/s; ms per step by "
         f"type (CUDA events) { {k: round(v, 1) for k, v in ms.items()} }; "
         f"peak memory {peak / 2**30:.2f} GiB; launches {launches}; losses "
         f"finite | {name} | {smi}")
 
-    profile_train_round(trainer, batches, out_dir, report)
+    profile_train_round(trainer, batches, out_dir, report, key)
 
     falls = {}
     fixed = learnable_batches(registry, TRAIN_BATCH, IMAGE, seed=2)
@@ -930,18 +1157,18 @@ def train_phase(name, smi, report, out_dir):
             fail(f"{t}: loss did not fall over {FIXED_STEPS} steps on one "
                  f"batch: {vals}")
         falls[t] = vals
-    report["train"]["fixed_batch_losses"] = falls
-    log(f"[train] {FIXED_STEPS} steps on one batch per type, first -> mean "
+    report[key]["fixed_batch_losses"] = falls
+    log(f"{tag} {FIXED_STEPS} steps on one batch per type, first -> mean "
         f"of last 3: " + ", ".join(
             f"{t} {v[0]:.4f} -> {np.mean(v[-3:]):.4f}"
             for t, v in falls.items()))
     del trainer, model, batches
     torch.cuda.empty_cache()
-    check_train_grads(report)
+    check_train_grads(report, preset)
     return launches
 
 
-def check_train_grads(report):
+def check_train_grads(report, preset):
     """One step's grads in f32 on the card against f32 on the CPU, B=1 at
     256², the same weights and batch (``learnable_batches``),
     augmentation, dropout and drop path off: every leaf within 1e-3 of its
@@ -950,16 +1177,16 @@ def check_train_grads(report):
     import torch
 
     from fmc_uia_tpu_torch.config import Config
-    from fmc_uia_tpu_torch.flagship import flagship_config_dict
     from fmc_uia_tpu_torch.models import build_model
     from fmc_uia_tpu_torch.tasks import TaskRegistry
     from fmc_uia_tpu_torch.train import Trainer
 
-    d = flagship_config_dict()
+    d = preset["config"]()
     d["data"]["image_size"] = GRAD_IMAGE
     d["data"]["augmentation"]["train"].update(
         random_brightness_contrast=0.0, gauss_noise=0.0)
-    d["model"]["encoder"]["drop_path_rate"] = 0.0
+    if d["model"]["encoder"]["name"].startswith("swin"):
+        d["model"]["encoder"]["drop_path_rate"] = 0.0
     d["model"]["decoder"]["dropout"] = 0.0
     for h in ("classification", "regression"):
         d["model"]["heads"][h]["dropout"] = 0.0
@@ -992,9 +1219,9 @@ def check_train_grads(report):
         worst[t] = {"worst_err_over_max": rel, "worst_leaf": leaf,
                     "loss_card": float(lc["total_loss"]),
                     "loss_cpu": float(lp["total_loss"])}
-    report["train"]["grads_card_vs_cpu"] = worst
-    log(f"[train] f32 grads card vs CPU, B=1 {GRAD_IMAGE}²: worst leaf "
-        f"err / leaf max by type " + ", ".join(
+    report[preset["key"]]["grads_card_vs_cpu"] = worst
+    log(f"[{preset['key']}] f32 grads card vs CPU, B=1 {GRAD_IMAGE}²: worst "
+        f"leaf err / leaf max by type " + ", ".join(
             f"{t} {v['worst_err_over_max']:.2e} ({v['worst_leaf']})"
             for t, v in worst.items()))
 
@@ -1192,6 +1419,128 @@ def fit_phase(name, smi, report, staged_img_s):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: DINOv3 serving
+# ---------------------------------------------------------------------------
+def dino_serving_phase(name, smi, report):
+    """The DINOv3 ViT-B/8 512² preset (random weights from a seed) in bf16
+    through ``Predictor`` at B=8: K4f 12 launches a forward; held against
+    f32 on the card at B=8 and f32 on the CPU for one 256² image (N =
+    1029: the K4 path still); then one closed loop of 64 outstanding
+    requests through ``StreamingPredictor`` for >= 10 s, every result
+    held against ``Predictor``. Returns the serving run's launches."""
+    import numpy as np
+    import torch
+
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.export import Predictor
+    from fmc_uia_tpu_torch.flagship import (
+        SERVING_TASKS,
+        dino_patch8_config_dict,
+    )
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.ops import vit_attention as va
+    from fmc_uia_tpu_torch.ops.image import normalize_images
+    from fmc_uia_tpu_torch.serving import StreamingPredictor
+    from fmc_uia_tpu_torch.tasks import TaskRegistry
+
+    cfg = Config(config_dict=dino_patch8_config_dict())
+    registry = TaskRegistry.from_config(cfg)
+    mean = cfg.get("data.augmentation.normalize.mean")
+    std = cfg.get("data.augmentation.normalize.std")
+    model = build_model(cfg, registry, dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    pred = Predictor(model, registry, mean, std, IMAGE, device="cuda")
+    rng = np.random.RandomState(3)
+    imgs = rng.randint(0, 256, (BATCH, IMAGE, IMAGE, 3)).astype(np.uint8)
+    for tid in SERVING_TASKS:  # first use: allocator, cuDNN heuristics
+        pred.predict_images(imgs, tid)
+    torch.cuda.synchronize()
+    va.global_attention.launches = 0
+    outs = {}
+    t0 = time.perf_counter()
+    for tid in SERVING_TASKS:
+        outs[tid] = pred.predict_images(imgs, tid)
+    fwd_s = (time.perf_counter() - t0) / len(SERVING_TASKS)
+    got = va.global_attention.launches
+    if got != 12 * len(SERVING_TASKS):
+        fail(f"DINOv3 K4f launches {got} != 12 x {len(SERVING_TASKS)}")
+    rep = {"params_M": n_params / 1e6, "fwd_ms_b8": 1e3 * fwd_s,
+           "launches_per_forward": got / len(SERVING_TASKS)}
+    log(f"[dino] DINOv3 ViT-B/8 {IMAGE}² (N = {K4_N}), {n_params / 1e6:.1f} M"
+        f" params: {len(SERVING_TASKS)} Predictor forwards at B={BATCH}, "
+        f"K4f launches {got}; {1e3 * fwd_s:.1f} ms per forward (host "
+        f"clock, synced)")
+    model32 = build_model(cfg, registry, dtype=torch.float32, device="cuda")
+    model32.load_state_dict(model.state_dict())
+    model_cpu = build_model(cfg, registry, dtype=torch.float32,
+                            device="cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    x_pre = normalize_images(torch.from_numpy(imgs), mean, std)
+    small = x_pre[:1, :GRAD_IMAGE, :GRAD_IMAGE].contiguous()
+    cmp = {}
+    for tid in SERVING_TASKS:
+        spec = registry[tid]
+        # tolerances as phase 3: bf16 vs f32 10 % of the largest output,
+        # decoded ids equal except at near ties; f32 card vs CPU 1e-3
+        ref, err = compare_models(model, model32, x_pre, spec, 0.1,
+                                  "DINOv3 bf16 vs f32")
+        _, err1 = compare_models(model32, model_cpu, small, spec, 1e-3,
+                                 "DINOv3 f32 card vs f32 cpu, 256²")
+        p = torch.from_numpy(outs[tid])
+        entry = {"bf16_vs_f32_err": err, "f32_card_vs_cpu_err_256": err1}
+        if spec.task_name in ("segmentation", "classification"):
+            entry["disagree"], entry["near_ties"] = near_tie_ok(
+                p, ref, err, spec.num_classes)
+        elif spec.task_name == "Regression":
+            entry["decoded_err"] = float((p - ref).abs().max())
+        cmp[tid] = entry
+        log(f"  {tid:20s} {entry}")
+    rep["compare"] = cmp
+    del model32, model_cpu
+    torch.cuda.empty_cache()
+
+    svc = StreamingPredictor(model, registry, mean, std, IMAGE,
+                             max_batch=BATCH, max_delay_ms=5.0,
+                             device="cuda")
+    svc.warmup(task_ids=list(SERVING_TASKS))
+    pool = rng.randint(0, 256, (OUTSTANDING, IMAGE, IMAGE, 3)).astype(
+        np.uint8)
+    tids = [SERVING_TASKS[j % 4] for j in range(OUTSTANDING)]
+    refs = [None] * OUTSTANDING
+    for tid in SERVING_TASKS:
+        idx = [j for j in range(OUTSTANDING) if tids[j] == tid]
+        for k in range(0, len(idx), BATCH):
+            for j, res in zip(idx[k:k + BATCH],
+                              pred.predict_images(pool[idx[k:k + BATCH]],
+                                                  tid)):
+                refs[j] = res
+    torch.cuda.synchronize()
+    before = dict(svc.stats, by_size=dict(svc.stats["by_size"]))
+    va.global_attention.launches = 0
+    n_done, wall, lat, results = serve_closed_loop(svc, pool, tids)
+    launches = va.global_attention.launches
+    dispatches = svc.stats["dispatches"] - before["dispatches"]
+    svc.close()
+    check_served(results, refs, tids, registry)
+    if launches != 12 * dispatches or dispatches == 0:
+        fail(f"DINOv3 serving K4f launches {launches} != 12 x {dispatches}")
+    ms = [v for _, v in lat]
+    rep.update(requests=n_done, wall_s=wall, img_s=n_done / wall,
+               p50_ms=float(np.percentile(ms, 50)),
+               p99_ms=float(np.percentile(ms, 99)), dispatches=dispatches,
+               launches=launches)
+    report["dino_serving"] = rep
+    log(f"[dino] serving: {n_done} requests in {wall:.2f} s: "
+        f"{rep['img_s']:.2f} img/s, e2e p50 {rep['p50_ms']:.1f} ms, p99 "
+        f"{rep['p99_ms']:.1f} ms, {dispatches} dispatches, K4f launches "
+        f"{launches}; results equal to Predictor's | {name} | {smi}")
+    del svc, pred, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1250,6 +1599,9 @@ def main() -> int:
         f"{IMAGE}²")
     fcfg = flagship_config_dict()["data"]["augmentation"]["normalize"]
     k3 = check_k3(dev, records, fcfg["mean"], fcfg["std"])
+    log(f"[kernels-k4] K4f/K4b vs plain versions on the card, {K4_HEADS} "
+        f"heads x {K4_DH}, N = {K4_N}")
+    k4 = check_k4(dev, records)
     report["kernel_cases"] = records
 
     # -- 3. model --------------------------------------------------------------
@@ -1391,10 +1743,15 @@ def main() -> int:
                          "outstanding": OUTSTANDING, "launches": launches,
                          "max_batch": BATCH}
     # -- 5. training -----------------------------------------------------------
-    train_launches = train_phase(name, smi, report, out_dir)
+    train_launches = train_phase(name, smi, report, out_dir, swin_preset())
     # -- 6. fit from disk ------------------------------------------------------
     torch.cuda.empty_cache()
     fit_launches = fit_phase(name, smi, report, report["train"]["img_s"])
+    # -- 7. DINOv3 serving -----------------------------------------------------
+    torch.cuda.empty_cache()
+    dino_serve_launches = dino_serving_phase(name, smi, report)
+    # -- 8. DINOv3 training ----------------------------------------------------
+    dino_launches = train_phase(name, smi, report, out_dir, dino_preset())
 
     # -- kernels line ----------------------------------------------------------
     def entry(kname, source, replaces, count):
@@ -1446,6 +1803,28 @@ def main() -> int:
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
+    ]
+
+    def k4_entry(kname, case, source, count):
+        t = k4[kname][case]
+        return {"name": kname, "route": "cuda", "source": source,
+                "replaces": "fmc_uia_tpu/ops/vit_attention.py:82",
+                "launches": count,
+                "max_abs_err": max(k4[kname]["errs"]), "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    # per launch (one block): K4f at the serving batch (B=8) with launches
+    # from phase 7's serving run, K4b at the train batch (B=24) with
+    # launches from phase 8's timed run; library: SDPA forward, and
+    # forward + backward
+    kernels += [
+        k4_entry("global_attention", "serve_b8",
+                 "fmc_uia_tpu_torch/csrc/vit_flash_fwd.cu",
+                 dino_serve_launches),
+        k4_entry("global_attention_backward", "train_b24",
+                 "fmc_uia_tpu_torch/csrc/vit_flash_bwd.cu",
+                 dino_launches["global_attention_backward"]),
     ]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

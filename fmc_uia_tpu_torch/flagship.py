@@ -4,8 +4,11 @@ with the overrides of ``bench.py`` (build_bench) and ``bench_serving.py``
 ``scan_stages [0, 1, 3]``, fused attention and MLP branches, separate det
 FPN, TaskFiLM, 27 tasks.
 
-A dict and not the YAML file, because the GPU machine may lack PyYAML
-(tests/test_torch_isolation.py holds the two equal).
+``dino_patch8_config_dict`` is the DINOv3 ViT-B patch-8 preset
+(``configs/Dino_resize_patch8.yaml``) with the train batch of 24.
+
+Dicts and not the YAML files, because the GPU machine may lack PyYAML
+(tests/test_torch_isolation.py holds them equal).
 """
 
 from __future__ import annotations
@@ -132,3 +135,21 @@ _FLAGSHIP = {
 def flagship_config_dict() -> dict:
     """A fresh copy of the flagship configuration."""
     return copy.deepcopy(_FLAGSHIP)
+
+
+def dino_patch8_config_dict() -> dict:
+    """``configs/Dino_resize_patch8.yaml`` as a dict (the DINOv3 ViT-B
+    patch-8 preset at 512²: 4,101 tokens, RoPE, LayerScale, 'resize'
+    adapter, frozen backbone; the flagship's FPN, TaskFiLM and 27 heads),
+    with two overrides: ``data.batch_size`` 24, the flagship's train batch
+    (the YAML's 64 would need more memory for saved activations than the
+    card's 80 GB), and ``data.fused_preprocess`` false."""
+    d = flagship_config_dict()
+    d["experiment"].update(name="dinov3_resize_patch8_512",
+                           output_dir="outputs/dino_resize_patch8")
+    d["model"]["encoder"] = {
+        "name": "dinov3", "timm_name": "vit_base_patch8_dinov3",
+        "pretrained": None, "freeze_dino": True,
+        "out_indices": [2, 5, 8, 11],
+        "adapter": {"type": "resize", "channels": 256}}
+    return d

@@ -1,7 +1,9 @@
 """Encoder dispatch (port of ``fmc_uia_tpu/models/encoders/__init__.py``).
 
-Only the Swin family is ported so far (``swin_*`` and ``timm:*swin*``);
-every other family raises and names the ROADMAP item that ports it.
+Ported: Swin (``swin_*``, ``timm:*swin*``) and ViT/DINOv3 (``vit_*``,
+``dinov3*``, ``timm:`` names containing vit/deit/dino/eva) with the
+'resize' adapter. ResNet, ConvNeXt and EfficientNet raise and name the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -9,8 +11,9 @@ from __future__ import annotations
 import torch
 
 _NOT_PORTED = ("encoder {name!r} is not ported to fmc_uia_tpu_torch yet "
-               "(ROADMAP.md, port queue item 'Other encoders': ViT/DINOv3, "
-               "ConvNeXt, EfficientNet, ResNet)")
+               "(ROADMAP.md, port queue item 'Other encoders': ResNet, "
+               "ConvNeXt, EfficientNet)")
+_VIT_KEYS = ("vit", "deit", "dino", "eva")
 
 
 def _timm_swin_variant(body: str) -> str:
@@ -24,13 +27,20 @@ def _timm_swin_variant(body: str) -> str:
 def build_encoder(config, dtype=torch.float32):
     """Build the encoder named by ``model.encoder.name``."""
     from fmc_uia_tpu_torch.models.encoders.swin import build_swin
+    from fmc_uia_tpu_torch.models.encoders.vit import build_vit_encoder
 
     name = str(config.get("model.encoder.name", "resnet50"))
-    if name.startswith("timm:") and "swin" in name.lower():
-        return build_swin(_timm_swin_variant(name[len("timm:"):].lower()),
-                          config, dtype=dtype)
+    if name.startswith("timm:"):
+        body = name[len("timm:"):].lower()
+        if "swin" in body:
+            return build_swin(_timm_swin_variant(body), config, dtype=dtype)
+        if any(k in body for k in _VIT_KEYS):
+            return build_vit_encoder(name, config, dtype=dtype)
+        raise NotImplementedError(_NOT_PORTED.format(name=name))
     if name.startswith("swin_"):
         return build_swin(name, config, dtype=dtype)
+    if name.startswith(("vit_", "dinov3")):
+        return build_vit_encoder(name, config, dtype=dtype)
     raise NotImplementedError(_NOT_PORTED.format(name=name))
 
 

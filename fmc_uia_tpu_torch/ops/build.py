@@ -28,10 +28,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "fmc_uia_tpu_torch"
 KERNELS = ("swin_attn_fwd", "swin_mlp_fwd", "swin_attn_bwd",
-           "swin_mlp_bwd", "preprocess_fwd")
+           "swin_mlp_bwd", "preprocess_fwd", "vit_flash_fwd",
+           "vit_flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F, _LLP = ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
 # C signature (argtypes) of each exported function. A library's entry
 # point is named after it and returns an int CUDA error code; a
 # ``*_workspace`` function returns the bytes of scratch its entry point
@@ -44,6 +46,9 @@ SIGNATURES = {
     "swin_mlp_bwd": [_VP] * 17 + [_LL] + [_I] * 4 + [_VP],
     "swin_mlp_bwd_workspace": [_LL] + [_I] * 3,
     "preprocess_fwd": [_VP] * 6 + [_I, _I, _LL, _I, _VP],
+    # tensors, then a host array of (b, h, n) element strides per tensor
+    "vit_flash_fwd": [_VP] * 5 + [_LLP, _F] + [_I] * 5 + [_VP],
+    "vit_flash_bwd": [_VP] * 10 + [_LLP, _F] + [_I] * 5 + [_VP],
 }
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 _U8P, _IP = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)

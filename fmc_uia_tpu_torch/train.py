@@ -4,14 +4,15 @@ One train step per task type, as in the JAX package:
 
     photometric augmentation (+ flips) -> train-mode forward (drop path,
     dropout) -> CenterNet targets -> loss -> backward (the fused Swin
-    branches through their backward kernels) -> clip model grads ->
-    grouped-LR AdamW
+    branches and the ViT global attention through their backward
+    kernels) -> clip model grads -> grouped-LR AdamW
 
 Optimizer parity with the optax chain of ``build_optimizer``:
 ``scale_by_adam(b1=0.9, b2=0.999, eps=1e-8)`` -> ``add_decayed_weights(wd)``
 -> ``scale(group multiplier)`` -> ``params += -lr * update``, with one
 multiplier per label (encoder x0.1, heads x1.0, adaptive log-vars
-adaptive_lr / lr, frozen untouched). Every parameter is updated every step,
+adaptive_lr / lr, frozen untouched: ``freeze_encoder``, ``freeze_dino``'s
+backbone, DINOv3's ``rope_periods``). Every parameter is updated every step,
 its grad zero when the step's task type does not reach it (``jax.grad``
 returns zeros there too), so momentum and weight decay act as in JAX.
 Clipping applies to the model's grads only, by ``max_norm / (norm +
@@ -51,14 +52,26 @@ _ITEM_PARALLEL = "Parallel modes"
 # ---------------------------------------------------------------------------
 # optimizer
 # ---------------------------------------------------------------------------
-def label_params(model: nn.Module, freeze_encoder: bool = False
-                 ) -> Dict[str, str]:
-    """Parameter name -> ``encoder`` / ``head`` / ``frozen``, by the name's
-    first part as the JAX package labels its tree paths (its ViT-only
-    labels come with the ViT encoders)."""
-    return {name: ("head" if not name.startswith("encoder.")
-                   else "frozen" if freeze_encoder else "encoder")
-            for name, _ in model.named_parameters()}
+def label_params(model: nn.Module, freeze_encoder: bool = False,
+                 freeze_backbone: bool = False) -> Dict[str, str]:
+    """Parameter name -> ``encoder`` / ``head`` / ``frozen``, by path as
+    the JAX package labels its tree: ``rope_periods`` (a DINOv3 buffer) is
+    always frozen; ``freeze_backbone`` (``model.encoder.freeze_dino``)
+    freezes ``encoder.backbone.*`` and leaves the adapter training. A
+    frozen parameter gets no update and no weight decay; its grad is still
+    computed and counts in the clip's global norm, as in JAX."""
+
+    def label(name: str) -> str:
+        if name.rsplit(".", 1)[-1] == "rope_periods":
+            return "frozen"
+        if not name.startswith("encoder."):
+            return "head"
+        if freeze_encoder or (freeze_backbone
+                              and name.startswith("encoder.backbone.")):
+            return "frozen"
+        return "encoder"
+
+    return {name: label(name) for name, _ in model.named_parameters()}
 
 
 class GroupedAdamW:
@@ -113,7 +126,8 @@ def build_optimizer(config, model: nn.Module,
     head_mult = (float(opt_cfg.get("head_lr_multiplier", 1.0))
                  if grouped else 1.0)
     labels = label_params(
-        model, bool(config.get("model.encoder.freeze_encoder", False)))
+        model, bool(config.get("model.encoder.freeze_encoder", False)),
+        bool(config.get("model.encoder.freeze_dino", False)))
     by_label = {"encoder": [], "head": []}
     for name, p in model.named_parameters():
         if labels[name] != "frozen":

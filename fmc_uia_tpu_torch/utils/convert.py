@@ -12,8 +12,11 @@ bridge only has to
     banked dense ``[T, in, out]`` -> ``[T, out, in]``, conv HWIO -> OIHW,
     banked conv ``[T, kh, kw, I, O]`` -> ``[T, O, I, kh, kw]``.
 
-It raises on any leaf left unmatched on either side, and on a shape
-mismatch.
+Every other leaf keeps its name and layout: LayerNorm scales and biases,
+the ViT/DINOv3 ``cls_token``, ``storage_tokens``, ``prefix_tokens``,
+``pos_embed``, ``rope_periods`` (a parameter in JAX, so one here) and
+LayerScale ``ls1``/``ls2``. It raises on any leaf left unmatched on either
+side, and on a shape mismatch.
 """
 
 from __future__ import annotations

@@ -135,3 +135,48 @@ def test_flagship_dict_equals_yaml_with_bench_overrides():
     cfg = Config(config_dict=flagship_config_dict())
     assert cfg.image_size == 512 and cfg.mixed_precision
     assert len(cfg.get_task_configs()) == 27
+
+
+def test_dino_patch8_dict_equals_yaml_with_overrides():
+    from fmc_uia_tpu_torch.flagship import dino_patch8_config_dict
+
+    with open(os.path.join(ROOT, "configs", "Dino_resize_patch8.yaml")) as f:
+        want = yaml.safe_load(f)
+    want["data"]["batch_size"] = 24  # the flagship's train batch
+    want["data"]["fused_preprocess"] = False
+    assert dino_patch8_config_dict() == want
+    cfg = Config(config_dict=dino_patch8_config_dict())
+    assert cfg.image_size == 512 and cfg.mixed_precision
+    assert cfg.get("model.encoder.freeze_dino") is True
+    assert len(cfg.get_task_configs()) == 27
+
+
+def test_dino_build_refuses_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the default device is valid")
+    from fmc_uia_tpu_torch.flagship import dino_patch8_config_dict
+    from fmc_uia_tpu_torch.models import build_model
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(Config(config_dict=dino_patch8_config_dict()))
+
+
+def test_unported_vit_paths_raise():
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.models.encoders.adapters import _resize_feature
+
+    enc = {"name": "dinov3", "timm_name": "vit_small_patch16_dinov3",
+           "adapter": {"type": "spm_interaction"}}
+    cfg = Config(config_dict=make_tiny_config(model={"encoder": enc}).config)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(cfg, device="cpu")
+    # patch 14 at 224²: a 16² map to stride 16's 14² is a non-integer
+    # downsample (jax.image.resize 'linear', antialiased)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _resize_feature(torch.zeros(1, 16, 16, 4), 14, 14)
+    for name in ("resnet_tiny", "convnext_t", "efficientnet-b0",
+                 "timm:resnet50"):
+        cfg = Config(config_dict=make_tiny_config(
+            model={"encoder": {"name": name}}).config)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(cfg, device="cpu")

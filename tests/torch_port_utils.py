@@ -74,7 +74,7 @@ def train_batch_np(rng, ttype, registry, B=2, S=64):
             "task_index": registry[tid].global_index, "task_type": ttype}
 
 
-def train_step_pair(ttypes, seed=5):
+def train_step_pair(ttypes, seed=5, overrides=None, size=64):
     """One train step per task type in ``ttypes`` on both sides, from the
     same bridged weights and batch. The JAX side is the package's own step
     (``train.make_train_step``) with an optax transformation that keeps the
@@ -84,8 +84,10 @@ def train_step_pair(ttypes, seed=5):
     zero that the two sides' f32 rounding puts it on different sides of
     the kink (at seed 3 one input of the detection head sat 6.5e-7 of its
     std from zero, and the grads of every leaf before it jumped by up to 7%
-    of the leaf's max). Returns {type: {jlogs, jgrads (port names and
-    layouts), logs, grads}}."""
+    of the leaf's max). ``overrides`` (default ``TRAIN_OVERRIDES``) and
+    ``size`` (the square image side) choose another model. Returns {type:
+    {jlogs, jgrads (port names and layouts), jgrads_tree (the JAX tree),
+    logs, grads, params (the shared numpy weights), jcfg, cfg, model}}."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -112,10 +114,11 @@ def train_step_pair(ttypes, seed=5):
         return jax.tree_util.tree_map(jnp.zeros_like, grads), grads
 
     tx = optax.GradientTransformation(init, keep_grads)
-    jcfg = make_tiny_config(**TRAIN_OVERRIDES)
+    jcfg = make_tiny_config(**(TRAIN_OVERRIDES if overrides is None
+                               else overrides))
     jreg = JaxRegistry.from_config(jcfg)
     jmodel = jax_build_model(jcfg, jreg)
-    x0 = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    x0 = jnp.zeros((1, size, size, 3), jnp.float32)
     shapes = jax.eval_shape(
         lambda: jmodel.init(jax.random.PRNGKey(0), x0,
                             method=JaxModel.init_all))["params"]
@@ -128,7 +131,8 @@ def train_step_pair(ttypes, seed=5):
     trainer = Trainer(cfg, model, reg, device="cpu", seed=0)
     out = {}
     for ttype in ttypes:
-        batch = train_batch_np(np.random.RandomState(4), ttype, reg)
+        batch = train_batch_np(np.random.RandomState(4), ttype, reg,
+                               S=size)
         step = jax.jit(make_train_step(jmodel, tx, jcfg, jreg, ttype,
                                        loss_fns, loss_weights)[1])
 
@@ -139,14 +143,16 @@ def train_step_pair(ttypes, seed=5):
             state, jnp.asarray(batch["image"]), jnp.asarray(batch["label"]),
             jnp.int32(batch["task_index"]), jnp.float32(1e-3),
             jnp.float32(1.0), jax.random.PRNGKey(0))
-        jgrads = jax_leaves_to_port(jax.tree_util.tree_map(
-            np.asarray, new_state.opt_state["model"]))
+        jgrads_tree = jax.tree_util.tree_map(
+            np.asarray, new_state.opt_state["model"])
         logs = trainer.compute_grads(batch)
         out[ttype] = dict(
-            jlogs={k: float(v) for k, v in jlogs.items()}, jgrads=jgrads,
+            jlogs={k: float(v) for k, v in jlogs.items()},
+            jgrads=jax_leaves_to_port(jgrads_tree), jgrads_tree=jgrads_tree,
             logs={k: float(v) for k, v in logs.items()},
             grads={n: p.grad.numpy().copy()
-                   for n, p in model.named_parameters()})
+                   for n, p in model.named_parameters()},
+            params=params, jcfg=jcfg, cfg=cfg, model=model)
     return out
 
 
