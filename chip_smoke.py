@@ -7,7 +7,9 @@ Phases (any failure exits non-zero; nothing is caught and turned into a
 pass):
 
 1. env — the card's name and power limit, and the kernels' build time
-   (nvcc, from ``fmc_uia_tpu_torch/csrc``).
+   (nvcc, from ``fmc_uia_tpu_torch/csrc``), ptxas' registers, spills and
+   wgmma serialisation notes, and the HGMMA / UTMALDG counts of the K4
+   kernels' SASS (``cuobjdump``; a bf16 kernel without both fails).
 2. kernels — each hand-written forward kernel (K1f, K2f) against its
    plain PyTorch version on the card, in f32 (TF32 off) and bf16, at the
    swin_b 512² stage shapes of a batch of 8 (shifted and unshifted), a
@@ -34,14 +36,19 @@ pass):
 2d. K4 — the ViT global-attention kernels (K4f forward, K4b backward)
    against their plain versions at the DINOv3 ViT-B/8 512² shapes (12
    heads x 64, N = 4101) in f32 (TF32 off) and bf16: K4f at B=8 (serving)
-   and B=24 (train), K4b at B=24, and a tail case (B=2, N = 1029); each
+   and B=24 (train), K4b at B=24, a tail case (B=2, N = 1029) and the
+   bf16 kernels' tile edges (B=1, N = 128, 129, 257); each
    element within one ulp of its own magnitude plus 1e-4 (K4f) / 1e-3
    (K4b) of its (b, h) slice's largest magnitude in f32, 4 bf16 ulps of
    it in bf16; the lse within 1e-5. The dense plain versions run in chunks
-   of 2 images. bf16 times: kernel, plain, bound (tensor-core operations
-   against bytes; the exponentials' time beside it) and SDPA forward /
-   forward + backward as the library yardstick (never on the port's
-   path).
+   of 2 images. At B = 8 / 24 the bf16 kernels run twice on the same
+   inputs and must agree bitwise. bf16 times (kernel and SDPA: per call
+   of 10 back-to-back calls, so the host's launch gaps are not counted):
+   kernel, plain, bound (the
+   least work: tensor-core operations, exponentials at the special-
+   function units' rate, bytes; the largest) and SDPA as the library
+   yardstick (never on the port's path): its forward for K4f, its
+   backward alone for K4b (forward + backward beside it).
 3. model — the flagship 27-task swin_b 512² model (random weights from a
    seed) in bf16 through ``Predictor`` on batches of 8, one task of each
    type; held against the same weights in f32 on the card, and in f32 on
@@ -144,8 +151,11 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, calls: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of ``calls`` back-to-back
+    ``fn()`` calls, per call. With ``calls`` > 1 the card has the next
+    launch queued while it runs one, so a slow host's launch gaps do not
+    count as device time."""
     import torch
 
     for _ in range(warmup):
@@ -155,10 +165,11 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     times.sort()
     return times[len(times) // 2]
 
@@ -194,6 +205,33 @@ def check_branch(out, ref, x, dtype, what):
              f"tol {tol:.3e} (branch max {branch:.3e})")
     return dict(max_abs_err=float(diff.max()), branch_max=branch,
                 excess_err=excess, tol=tol)
+
+
+def check_sass(build):
+    """The bf16 K4 kernels as built must run their products on wgmma
+    (HGMMA) and their loads by TMA (UTMALDG): counts per kernel from
+    ``cuobjdump -sass`` of the built libraries."""
+    tool = os.path.join(os.path.dirname(os.path.dirname(build._nvcc())),
+                        "bin", "cuobjdump")
+    counts = {}
+    for k in ("vit_flash_fwd", "vit_flash_bwd"):
+        out = subprocess.run([tool, "-sass", str(build.lib_path(k))],
+                             capture_output=True, text=True, timeout=120)
+        if out.returncode != 0:
+            fail(f"cuobjdump {k}: {out.stderr.strip()}")
+        fn = None
+        for line in out.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+            elif fn:
+                for op in counts[fn]:
+                    counts[fn][op] += op in line
+    for fn, c in counts.items():
+        log(f"  sass {fn}: {c}")
+        if "bf16" in fn and not (c["HGMMA"] and c["UTMALDG"]):
+            fail(f"{fn}: no HGMMA or UTMALDG in its SASS")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -611,14 +649,30 @@ K4_HEADS, K4_DH = 12, 64
 K4_N = 4101          # DINOv3 ViT-B/8 at 512²: 64 x 64 patches + 1 cls + 4
 PEAK_SFU = 3.9e12    # H100 special-function exponentials/s (FA3 paper)
 PLAIN_CHUNK = 2      # images per call of the dense plain versions
+K4_CALLS = 10        # back-to-back calls per timing of K4 and of SDPA
 
 
 def k4_cases():
     """(label, B, N, backward?) of K4: the serving batch, the train batch
-    (forward and backward) and a tail case (256² + prefix, N = 1029)."""
+    (forward and backward), a tail case (256² + prefix, N = 1029) and the
+    bf16 kernels' tile edges at B = 1: one full 128-row tile, then a
+    one-row and a one-key tail (N = 128, 129, 257)."""
     return [("serve_b8", BATCH, K4_N, False),
             ("train_b24", TRAIN_BATCH, K4_N, True),
-            ("tail_n1029", 2, 1029, True)]
+            ("tail_n1029", 2, 1029, True),
+            ("edge_n128", 1, 128, True),
+            ("edge_n129", 1, 129, True),
+            ("edge_n257", 1, 257, True)]
+
+
+def k4_bound(mm, exps, nbytes):
+    """The least time for ``mm`` tensor-core operations, ``exps``
+    exponentials on the special-function units and ``nbytes`` moved, and
+    which of the three bounds it."""
+    t = {"operations": mm / PEAK_BF16, "exponentials": exps / PEAK_SFU,
+         "bytes": nbytes / HBM_BPS}
+    by = max(t, key=t.get)
+    return 1e3 * t[by], ("bytes" if by == "bytes" else "operations")
 
 
 def chunked(fn, *ts):
@@ -657,9 +711,10 @@ def check_k4_tensor(got, ref, dtype, rel_f32, what):
 
 def check_k4(dev, records):
     """K4f and K4b against their plain versions on the card, f32 (TF32
-    off) and bf16, at the DINOv3 patch-8 shapes; times in bf16: kernel,
-    plain (B = 8), bound, and SDPA (forward; forward + backward) as the
-    library yardstick. Returns the kernels-line summary."""
+    off) and bf16, at the DINOv3 patch-8 shapes and the tile edges; times
+    in bf16: kernel, plain, bound, and SDPA (forward; backward alone, and
+    forward + backward) as the library yardstick; bf16 repeats bitwise
+    equal. Returns the kernels-line summary."""
     import torch
     import torch.nn.functional as F
 
@@ -715,26 +770,32 @@ def check_k4(dev, records):
             del q, k, v, do, o, lse
             torch.cuda.empty_cache()
 
-    # times, bf16, at the main path's shapes
+    # times, bf16, at the main path's shapes; K4f and K4b run twice on the
+    # same inputs and must give bitwise-equal outputs (no atomics)
     bf = torch.bfloat16
     for label, B, N, bwd in k4_cases()[:2]:
         shape = (B, K4_HEADS, N, K4_DH)
         q, k, v, do = (torch.randn(shape, generator=gen).to(dev, bf)
                        for _ in range(4))
         o, lse = va.global_attention_forward(q, k, v, scale)
+        o2, lse2 = va.global_attention_forward(q, k, v, scale)
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            fail(f"K4f {label} bf16: two runs differ")
+        del o2, lse2
         elems = B * K4_HEADS * N * K4_DH
+        # least work: q k^T and p v; one exponential per score
         mm = 4 * B * K4_HEADS * N * N * K4_DH
         exps = B * K4_HEADS * N * N
         nbytes = 4 * elems * 2 + 4 * B * K4_HEADS * N
+        bound_ms, bound_by = k4_bound(mm, exps, nbytes)
         t = dict(ms=cuda_ms(lambda: va.global_attention_forward(
-                     q, k, v, scale), reps=10, warmup=2),
+                     q, k, v, scale), reps=10, warmup=2, calls=K4_CALLS),
                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                     q, k, v, scale=scale), reps=10, warmup=2),
-                 bound_ms=1e3 * max(mm / PEAK_BF16, nbytes / HBM_BPS),
-                 bound_by=("operations" if mm / PEAK_BF16
-                           >= nbytes / HBM_BPS else "bytes"),
+                     q, k, v, scale=scale), reps=10, warmup=2,
+                     calls=K4_CALLS),
+                 bound_ms=bound_ms, bound_by=bound_by,
                  exp_ms=1e3 * exps / PEAK_SFU, operations=mm, bytes=nbytes,
-                 exponentials=exps)
+                 exponentials=exps, bitwise_repeat=True)
         t["plain_ms"] = cuda_ms(lambda: chunked(
             lambda a, b, c: va.global_attention_reference(a, b, c, scale),
             q, k, v), reps=2, warmup=1)
@@ -745,25 +806,41 @@ def check_k4(dev, records):
             f", plain {t['plain_ms']:.3f} in chunks of {PLAIN_CHUNK}, bound "
             f"{t['bound_ms']:.4f} by {t['bound_by']}; "
             f"{exps / 1e9:.2f} G exponentials = {t['exp_ms']:.3f} ms at "
-            f"{PEAK_SFU / 1e12:.1f} T/s)")
+            f"{PEAK_SFU / 1e12:.1f} T/s); two runs bitwise equal")
         if bwd:
+            g1 = va.global_attention_backward(q, k, v, o, lse, do, scale)
+            g2 = va.global_attention_backward(q, k, v, o, lse, do, scale)
+            if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+                fail(f"K4b {label} bf16: two runs differ")
+            del g1, g2
+            # least work: the five products S, dP, dV, dK, dQ and one
+            # exponential per score; the kernels' two-pass split does seven
+            # (S and dP in both passes) and two
             mm = 10 * B * K4_HEADS * N * N * K4_DH
-            exps = 2 * B * K4_HEADS * N * N
+            exps = B * K4_HEADS * N * N
             nbytes = 8 * elems * 2 + 4 * B * K4_HEADS * N
+            bound_ms, bound_by = k4_bound(mm, exps, nbytes)
             ql, kl, vl = (t_.detach().requires_grad_() for t_ in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
 
             def sdpa_fwd_bwd():
-                out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
-                return torch.autograd.grad(out, (ql, kl, vl), do)
+                o_ = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+                return torch.autograd.grad(o_, (ql, kl, vl), do)
 
             tb = dict(ms=cuda_ms(lambda: va.global_attention_backward(
-                          q, k, v, o, lse, do, scale), reps=10, warmup=2),
-                      library_ms=cuda_ms(sdpa_fwd_bwd, reps=10, warmup=2),
-                      bound_ms=1e3 * max(mm / PEAK_BF16, nbytes / HBM_BPS),
-                      bound_by=("operations" if mm / PEAK_BF16
-                                >= nbytes / HBM_BPS else "bytes"),
+                          q, k, v, o, lse, do, scale), reps=10, warmup=2,
+                          calls=K4_CALLS),
+                      # the same function: SDPA's backward alone
+                      library_ms=cuda_ms(lambda: torch.autograd.grad(
+                          out, (ql, kl, vl), do, retain_graph=True),
+                          reps=10, warmup=2, calls=K4_CALLS),
+                      library_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd, reps=10,
+                                                 warmup=2, calls=K4_CALLS),
+                      bound_ms=bound_ms, bound_by=bound_by,
                       exp_ms=1e3 * exps / PEAK_SFU, operations=mm,
-                      bytes=nbytes, exponentials=exps)
+                      bytes=nbytes, exponentials=exps,
+                      design_operations=14 * B * K4_HEADS * N * N * K4_DH,
+                      design_exponentials=2 * exps, bitwise_repeat=True)
             tb["plain_ms"] = cuda_ms(lambda: chunked(
                 lambda *a: va.global_attention_backward_reference(*a, scale),
                 q, k, v, o, lse, do), reps=2, warmup=1)
@@ -771,11 +848,13 @@ def check_k4(dev, records):
             records.append(dict(kernel="global_attention_backward",
                                 case=f"time_{label}", dtype="bfloat16",
                                 shape=list(shape), **tb))
-            log(f"  K4b {label} bf16: {tb['ms']:.3f} ms (SDPA fwd+bwd "
-                f"{tb['library_ms']:.3f}, plain {tb['plain_ms']:.3f} in "
-                f"chunks, bound {tb['bound_ms']:.4f} by {tb['bound_by']}; "
-                f"{exps / 1e9:.2f} G exponentials = {tb['exp_ms']:.3f} ms)")
-            del ql, kl, vl
+            log(f"  K4b {label} bf16: {tb['ms']:.3f} ms (SDPA bwd "
+                f"{tb['library_ms']:.3f}, SDPA fwd+bwd "
+                f"{tb['library_fwd_bwd_ms']:.3f}, plain {tb['plain_ms']:.3f}"
+                f" in chunks, bound {tb['bound_ms']:.4f} by {tb['bound_by']}"
+                f"; {exps / 1e9:.2f} G exponentials = {tb['exp_ms']:.3f} ms)"
+                "; two runs bitwise equal")
+            del ql, kl, vl, out
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return summ
@@ -1585,8 +1664,9 @@ def main() -> int:
         f"{ {k: round(v, 1) for k, v in spent.items()} }")
     for k in build.KERNELS:
         for line in build.ptxas_report(k).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "C7512")):
                 log(f"  ptxas {k}: {line.strip()}")
+    report["sass"] = check_sass(build)
 
     # -- 2. kernels ------------------------------------------------------------
     records = []
@@ -1816,8 +1896,8 @@ def main() -> int:
 
     # per launch (one block): K4f at the serving batch (B=8) with launches
     # from phase 7's serving run, K4b at the train batch (B=24) with
-    # launches from phase 8's timed run; library: SDPA forward, and
-    # forward + backward
+    # launches from phase 8's timed run; library: SDPA's forward, and its
+    # backward alone
     kernels += [
         k4_entry("global_attention", "serve_b8",
                  "fmc_uia_tpu_torch/csrc/vit_flash_fwd.cu",

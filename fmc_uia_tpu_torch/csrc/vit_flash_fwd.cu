@@ -17,26 +17,32 @@
 // does, without padding (4101 -> 4608 would cost 1.26x the work). Rows
 // >= N are never written; masked keys add exactly 0 to the row sums.
 //
-// Design (FlashAttention-2): one block per (query tile of 64, h, b), four
-// warps of 16 query rows. The warp keeps its q rows as mma A fragments in
-// registers; key/value tiles of 64 rows stream through shared memory,
-// double-buffered with cp.async (the next tile in flight while this one
-// is used). Per tile: S = Q K^T on the tensor cores (mma.sync m16n8k16,
-// bf16 in, f32 out, B fragments by ldmatrix), the running max and sum in
-// registers (a quad of lanes shares a row), P rounded to bf16 straight
-// from the S accumulators into A fragments, O += P V (V fragments by
-// ldmatrix.trans). The f32 version runs one thread per query row on the
-// CUDA cores (the card checks and the f32 model reference use it).
+// Design (bf16; FlashAttention-3's forward on Hopper): one block per
+// (query tile of 128, h, b): two consumer warpgroups and one producer
+// warp. The producer loads the Q tile once and streams K and V tiles of
+// 128 keys by TMA into a ring of kFwdStages 128-byte-swizzled stages, with
+// a full and an empty mbarrier per tile and stage; K and V have barriers
+// of their own, so S can start before V has landed. The consumers (64
+// query rows each) run the products on wgmma: S = Q K^T as m64n128k16
+// from shared memory (K as stored, K-major), O += P V as m64n64k16 with P
+// in registers, rounded to bf16 straight from the S accumulators, and V
+// as an MN-major operand (the transpose bit), so no transposed copy is
+// made. Overlap: tile j's S = Q K_j^T and tile j-1's O += P V_{j-1} are
+// issued together, so the softmax of tile j (its exponentials) runs while
+// P V_{j-1} is on the tensor cores; and the two warpgroups issue their
+// products in turn on named barriers (ping-pong), so one's softmax runs
+// under the other's products (faster than leaving them to interleave).
+// The f32 version runs one thread per query row on the CUDA cores (the
+// card checks and the f32 model reference use it).
 //
 // What bounds it: 4 B H N^2 dh operations on the tensor cores against
 // 4 B H N dh elements moved (q, k, v in, o out): N^2 / N products per
 // element, far above the card's balance at N = 4101, so operations bound
 // it. Beside them, B H N^2 exponentials, which at dh = 64 take about as
-// long on the special-function units as the products on the tensor cores.
-// Not done yet: wgmma, TMA, warp specialisation, overlapping the
-// exponentials of one tile with the products of the next.
+// long on the special-function units as the products on the tensor cores:
+// hence the overlap.
 
-#include "vit_flash_common.cuh"
+#include "vit_flash_sm90.cuh"
 
 namespace vitfa {
 
@@ -51,117 +57,213 @@ struct FwdArgs {
   int B, H, N;
 };
 
-__global__ void __launch_bounds__(kThreads) fwd_bf16(FwdArgs a) {
-  __shared__ __align__(16) bf16 ks[2][kTile * kPitch];
-  __shared__ __align__(16) bf16 vs[2][kTile * kPitch];
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int N = a.N;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = 2 * (lane & 3);
-  const bf16* Q = static_cast<const bf16*>(a.q) + head_off(a.lq, b, h);
-  const bf16* K = static_cast<const bf16*>(a.k) + head_off(a.lk, b, h);
-  const bf16* V = static_cast<const bf16*>(a.v) + head_off(a.lv, b, h);
-  const int nkt = (N + kTile - 1) / kTile;
+constexpr int kFwdConsumers = 2;  // consumer warpgroups of a block
+using FwdRoles = WarpRoles<kFwdConsumers>;
+constexpr int kFwdRows = 64 * kFwdConsumers;  // query rows of a block
+constexpr int kFwdKeys = 128;  // keys of a K/V tile
+constexpr int kFwdStages = 2;  // K/V stages (3 were no faster)
+constexpr uint32_t kFwdTileBytes = kFwdKeys * kRowBytes;
 
-  load_tile_async(ks[0], K, a.lk.n, 0, N);
-  load_tile_async(vs[0], V, a.lv.n, 0, N);
-  cp_async_commit();
+struct FwdSmem {  // at the 1024-aligned start of dynamic shared memory
+  bf16 q[kFwdRows * kDh];
+  bf16 k[kFwdStages][kFwdKeys * kDh];
+  bf16 v[kFwdStages][kFwdKeys * kDh];
+  uint64_t q_full;
+  uint64_t k_full[kFwdStages], k_empty[kFwdStages];
+  uint64_t v_full[kFwdStages], v_empty[kFwdStages];
+};
+constexpr int kFwdSmemBytes = static_cast<int>(sizeof(FwdSmem)) + 1024;
 
-  const int row0 = qt * kTile + warp * 16;
-  uint32_t qf[4][4];
-  load_a_frags(qf, Q, a.lq.n, row0, N);
-
-  float o[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  // running max (log2 domain) and sum of rows g and g + 8
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+// One consumer warpgroup: 64 query rows, all key tiles.
+__device__ __forceinline__ void fwd_consumer(FwdSmem& s, const FwdArgs& a,
+                                             int cw, int nkt) {
+  const int N = a.N, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x % kWgThreads, lane = tid & 31;
+  const int c = 2 * (lane & 3);
+  // this thread's rows: r0 and r0 + 8
+  const int r0 = blockIdx.x * kFwdRows + cw * 64 + (tid >> 5) * 16 +
+                 (lane >> 2);
   const float sl2 = a.scale * kLog2e;
+  const uint64_t dq = sw128_desc(s.q + cw * 64 * kDh);
 
-  for (int t = 0; t < nkt; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < nkt) {
-      load_tile_async(ks[cur ^ 1], K, a.lk.n, (t + 1) * kTile, N);
-      load_tile_async(vs[cur ^ 1], V, a.lv.n, (t + 1) * kTile, N);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  float sacc[64], o[32];
+  uint32_t p[8][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  // running max (raw scores) and this thread's part of the row sums
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  auto issue_s = [&](int st) {
+    const uint64_t dk = sw128_desc(s.k[st]);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n128(sacc, dq + ks * kDescKStep, dk + ks * kDescKStep, ks);
+    wg_commit();
+  };
+  auto issue_pv = [&](int st) {
+    const uint64_t dv = sw128_desc(s.v[st]);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs_n64_t(o, p[kk], dv + kk * kDescRowStep16);
+    wg_commit();
+  };
+  // Online softmax of tile j in place (sacc -> unnormalized p, f32);
+  // returns the factors that rescale the rows' earlier sums.
+  auto softmax = [&](int j, float& al0, float& al1) {
+    const int kbase = j * kFwdKeys;
+    if (kbase + kFwdKeys > N) {  // keys >= N of the last tile
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kbase + 8 * i + c + (e & 1) >= N) sacc[4 * i + e] = -INFINITY;
     }
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-    mma_abt(s, qf, ks[cur]);
-
-    // scale (log2 domain), mask keys >= N, row max; every tile holds a
-    // real key, so the max is finite after the first tile
-    const int kbase = t * kTile;
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kbase + nt * 8 + c + (e & 1);
-        const float val = key < N ? s[nt][e] * sl2 : -INFINITY;
-        s[nt][e] = val;
-        if (e < 2)
-          mx0 = fmaxf(mx0, val);
-        else
-          mx1 = fmaxf(mx1, val);
-      }
+    for (int i = 0; i < 16; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(sacc[4 * i], sacc[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sacc[4 * i + 2], sacc[4 * i + 3]));
+    }
+    // every tile holds a real key, so the max is finite from tile 0 on
     mx0 = quad_max(mx0);
     mx1 = quad_max(mx1);
-    const float al0 = exp2f(m0 - mx0), al1 = exp2f(m1 - mx1);
+    al0 = fast_exp2((m0 - mx0) * sl2);
+    al1 = fast_exp2((m1 - mx1) * sl2);
     m0 = mx0;
     m1 = mx1;
+    const float b0 = -mx0 * sl2, b1 = -mx1 * sl2;
     float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - m0);
-      s[nt][1] = exp2f(s[nt][1] - m0);
-      s[nt][2] = exp2f(s[nt][2] - m1);
-      s[nt][3] = exp2f(s[nt][3] - m1);
-      ls0 += s[nt][0] + s[nt][1];
-      ls1 += s[nt][2] + s[nt][3];
+    for (int i = 0; i < 16; ++i) {
+      sacc[4 * i] = fast_exp2(fmaf(sacc[4 * i], sl2, b0));
+      sacc[4 * i + 1] = fast_exp2(fmaf(sacc[4 * i + 1], sl2, b0));
+      sacc[4 * i + 2] = fast_exp2(fmaf(sacc[4 * i + 2], sl2, b1));
+      sacc[4 * i + 3] = fast_exp2(fmaf(sacc[4 * i + 3], sl2, b1));
+      ls0 += sacc[4 * i] + sacc[4 * i + 1];
+      ls1 += sacc[4 * i + 2] + sacc[4 * i + 3];
     }
-    l0 = l0 * al0 + quad_sum(ls0);
-    l1 = l1 * al1 + quad_sum(ls1);
+    l0 = l0 * al0 + ls0;
+    l1 = l1 * al1 + ls1;
+  };
+
+  const PingPong pp{cw};
+  pp.start();
+  mbar_wait_warp(&s.q_full, 0);
+  mbar_wait_warp(&s.k_full[0], 0);
+  pp.issue_begin();
+  wg_fence();
+  issue_s(0);
+  pp.issue_end(false);
+  wg_wait<0>();
+  fence_regs(sacc);
+  warp_arrive(&s.k_empty[0]);
+  {
+    float al0, al1;
+    softmax(0, al0, al1);
+  }
+  acc_to_a(p, sacc);  // p rounded to bf16 (v's dtype)
+
+  for (int j = 1; j < nkt; ++j) {
+    const int st = j % kFwdStages, sp = (j - 1) % kFwdStages;
+    mbar_wait_warp(&s.k_full[st], (j / kFwdStages) & 1);
+    mbar_wait_warp(&s.v_full[sp], ((j - 1) / kFwdStages) & 1);
+    fence_regs(sacc);
+    fence_regs(o);
+    fence_regs(p);
+    pp.issue_begin();
+    wg_fence();
+    issue_s(st);   // S_j = Q K_j^T
+    issue_pv(sp);  // O += P_{j-1} V_{j-1}, in flight under the softmax
+    pp.issue_end(false);
+    wg_wait<1>();
+    fence_regs(sacc);
+    warp_arrive(&s.k_empty[st]);
+    float al0, al1;
+    softmax(j, al0, al1);
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    warp_arrive(&s.v_empty[sp]);
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      o[dt][0] *= al0;
-      o[dt][1] *= al0;
-      o[dt][2] *= al1;
-      o[dt][3] *= al1;
+    for (int i = 0; i < 8; ++i) {
+      o[4 * i] *= al0;
+      o[4 * i + 1] *= al0;
+      o[4 * i + 2] *= al1;
+      o[4 * i + 3] *= al1;
     }
-    uint32_t pf[4][4];
-    acc_to_a(pf, s);  // p rounded to bf16 (v's dtype)
-    mma_ab(o, pf, vs[cur]);
-    __syncthreads();  // the buffer is refilled two tiles later
+    acc_to_a(p, sacc);
+  }
+  {
+    const int sp = (nkt - 1) % kFwdStages;
+    mbar_wait_warp(&s.v_full[sp], ((nkt - 1) / kFwdStages) & 1);
+    fence_regs(o);
+    fence_regs(p);
+    pp.issue_begin();
+    wg_fence();
+    issue_pv(sp);
+    pp.issue_end(true);
+    wg_wait<0>();
+    fence_regs(o);
   }
 
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
   bf16* O = static_cast<bf16*>(a.o) + head_off(a.lo, b, h);
-  const int r0 = row0 + g, r1 = r0 + 8;
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int r1 = r0 + 8;
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int d = dt * 8 + c;
+  for (int i = 0; i < 8; ++i) {
+    const int d = 8 * i + c;
     if (r0 < N)
       *reinterpret_cast<__nv_bfloat162*>(O + r0 * a.lo.n + d) =
-          __floats2bfloat162_rn(o[dt][0] * inv0, o[dt][1] * inv0);
+          __floats2bfloat162_rn(o[4 * i] * inv0, o[4 * i + 1] * inv0);
     if (r1 < N)
       *reinterpret_cast<__nv_bfloat162*>(O + r1 * a.lo.n + d) =
-          __floats2bfloat162_rn(o[dt][2] * inv1, o[dt][3] * inv1);
+          __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
   }
   if ((lane & 3) == 0) {
     float* L = a.lse + (static_cast<long long>(b) * a.H + h) * N;
-    if (r0 < N) L[r0] = (m0 + log2f(l0)) * kLn2;
-    if (r1 < N) L[r1] = (m1 + log2f(l1)) * kLn2;
+    if (r0 < N) L[r0] = (m0 * sl2 + log2f(l0)) * kLn2;
+    if (r1 < N) L[r1] = (m1 * sl2 + log2f(l1)) * kLn2;
+  }
+}
+
+__global__ void __launch_bounds__(FwdRoles::kThreads, 1)
+    fwd_bf16(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, FwdArgs a) {
+  FwdSmem& s = *reinterpret_cast<FwdSmem*>(smem_base_1k());
+  const int nkt = (a.N + kFwdKeys - 1) / kFwdKeys;
+  if (threadIdx.x == 0) {
+    mbar_init(&s.q_full, 1);
+    for (int i = 0; i < kFwdStages; ++i) {
+      mbar_init(&s.k_full[i], 1);
+      mbar_init(&s.v_full[i], 1);
+      mbar_init(&s.k_empty[i], FwdRoles::kConsumerWarps);
+      mbar_init(&s.v_empty[i], FwdRoles::kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = warpgroup_index();
+  if (wg == kFwdConsumers) {  // the producer warp
+    if (threadIdx.x == FwdRoles::kProducerThread) {
+      const int h = blockIdx.y, b = blockIdx.z;
+      mbar_expect_tx(&s.q_full, kFwdRows * kRowBytes);
+      tma_load(s.q, &tq, &s.q_full, blockIdx.x * kFwdRows, h, b);
+      for (int j = 0; j < nkt; ++j) {
+        const int st = j % kFwdStages;
+        const uint32_t ph = ((j / kFwdStages) & 1) ^ 1;
+        mbar_wait(&s.k_empty[st], ph);
+        mbar_expect_tx(&s.k_full[st], kFwdTileBytes);
+        tma_load(s.k[st], &tk, &s.k_full[st], j * kFwdKeys, h, b);
+        mbar_wait(&s.v_empty[st], ph);
+        mbar_expect_tx(&s.v_full[st], kFwdTileBytes);
+        tma_load(s.v[st], &tv, &s.v_full[st], j * kFwdKeys, h, b);
+      }
+    }
+  } else {
+    fwd_consumer(s, a, wg, nkt);
   }
 }
 
@@ -220,6 +322,8 @@ __global__ void __launch_bounds__(kRowsF32) fwd_f32(FwdArgs a) {
 }  // namespace vitfa
 
 // strides: 12 element strides, (b, h, n) of q, k, v and o in that order.
+// Returns a CUDA error code, or kErrNoEncoder / kErrTensorMap (negative)
+// when the bf16 path cannot build its TMA maps.
 extern "C" int vit_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, const long long* strides,
                              float scale, int B, int H, int N, int dh,
@@ -243,8 +347,17 @@ extern "C" int vit_flash_fwd(const void* q, const void* k, const void* v,
   a.N = N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    dim3 grid((N + kTile - 1) / kTile, H, B);
-    fwd_bf16<<<grid, kThreads, 0, s>>>(a);
+    CUtensorMap mq, mk, mv;
+    int rc = make_map(&mq, q, a.lq, B, H, N, kFwdRows);
+    if (rc == 0) rc = make_map(&mk, k, a.lk, B, H, N, kFwdKeys);
+    if (rc == 0) rc = make_map(&mv, v, a.lv, B, H, N, kFwdKeys);
+    if (rc != 0) return rc;
+    const cudaError_t e = cudaFuncSetAttribute(
+        fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kFwdSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dim3 grid((N + kFwdRows - 1) / kFwdRows, H, B);
+    fwd_bf16<<<grid, FwdRoles::kThreads, kFwdSmemBytes, s>>>(mq, mk, mv, a);
   } else {
     dim3 grid((N + kRowsF32 - 1) / kRowsF32, H, B);
     fwd_f32<<<grid, kRowsF32, 0, s>>>(a);

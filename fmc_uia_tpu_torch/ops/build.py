@@ -49,6 +49,7 @@ SIGNATURES = {
     # tensors, then a host array of (b, h, n) element strides per tensor
     "vit_flash_fwd": [_VP] * 5 + [_LLP, _F] + [_I] * 5 + [_VP],
     "vit_flash_bwd": [_VP] * 10 + [_LLP, _F] + [_I] * 5 + [_VP],
+    "vit_flash_bwd_workspace": [_I] * 3,
 }
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 _U8P, _IP = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)

@@ -26,7 +26,9 @@ tensor it runs the plain version (``*_reference``). Each wrapper counts
 its launches in ``.launches``. On the card the outputs and grads are laid
 out [B, N, H, dh] and returned as [B, H, N, dh] views, so the block's
 reshape back to [B, N, C] costs nothing; the inputs may be column slices
-of the qkv projection (any strides with a contiguous last axis).
+of the qkv projection (any strides with a contiguous last axis and
+16-byte multiples, which the bf16 kernels' TMA maps take as they lie:
+``tma_layout``; others are copied).
 """
 
 from __future__ import annotations
@@ -85,21 +87,53 @@ def global_attention_backward_reference(q, k, v, o, lse, do, sm_scale: float
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+def tma_layout(t: torch.Tensor):
+    """The TMA geometry of a [B, H, N, dh] view as the bf16 kernels encode
+    their tensor maps (``csrc/vit_flash_sm90.cuh`` ``make_map``): the dims
+    innermost first, (dh, N, H, B), and the byte strides of N, H and B.
+    Raises ``ValueError`` on what TMA cannot take: a last axis that is not
+    contiguous, a base address or a stride that is not a multiple of 16
+    bytes, or a stride of 2^40 bytes or more. The f32 kernels read rows
+    with 16-byte loads and take the same views."""
+    if t.dim() != 4:
+        raise ValueError(f"TMA view: [B, H, N, dh], got {tuple(t.shape)}")
+    B, H, N, dh = t.shape
+    es = t.element_size()
+    if t.stride(-1) != 1:
+        raise ValueError(f"TMA view: last axis stride {t.stride(-1)} != 1")
+    if t.data_ptr() % 16:
+        raise ValueError(f"TMA view: base address {t.data_ptr():#x} not "
+                         "16-byte aligned")
+    strides = tuple(s * es for s in (t.stride(2), t.stride(1), t.stride(0)))
+    for name, sb in zip("nhb", strides):
+        if sb % 16 or not 0 <= sb < 2 ** 40:
+            raise ValueError(f"TMA view: {name} stride of {sb} bytes (a "
+                             "multiple of 16 below 2^40 needed)")
+    return (dh, N, H, B), strides
+
+
+def tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernels can read it as it lies, else a fresh contiguous
+    copy (new storage, so aligned even where ``t`` was a misaligned but
+    contiguous slice)."""
+    try:
+        tma_layout(t)
+    except ValueError:
+        t = t.clone(memory_format=torch.contiguous_format)
+        tma_layout(t)
+    return t
+
+
 def _kernel_view(t: torch.Tensor, shape, dtype, what) -> torch.Tensor:
     """A [B, H, N, dh] ``t`` as the kernels read it: CUDA, ``dtype``,
-    ``shape``, a contiguous last axis and 16-byte aligned rows (else a
-    contiguous copy)."""
+    ``shape``, and a TMA-ready layout (``tma_ready``)."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: kernel needs a CUDA tensor, got "
                          f"{t.device}")
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: {t.dtype} {tuple(t.shape)} != "
                          f"{dtype} {tuple(shape)}")
-    vec = 16 // t.element_size()
-    if (t.stride(-1) != 1 or any(s % vec for s in t.stride()[:3])
-            or t.data_ptr() % 16):
-        t = t.contiguous()
-    return t
+    return tma_ready(t)
 
 
 def _check_qkv(q, k, v):
@@ -128,6 +162,17 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# the entry points' own codes beside CUDA's (csrc/vit_flash_sm90.cuh)
+_OWN_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
+               -2: "cuTensorMapEncodeTiled refused a tensor map"}
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{_OWN_ERRORS.get(rc, f'CUDA error {rc}')}")
+
+
 def global_attention_forward(q, k, v, sm_scale: float):
     """K4f: (o, lse) of ``global_attention`` at q, k, v. CPU tensors take
     the plain version; CUDA tensors launch ``vit_flash_fwd``, counted in
@@ -142,8 +187,7 @@ def global_attention_forward(q, k, v, sm_scale: float):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _strides(q, k, v, o), sm_scale, B, H, N, dh,
         int(q.dtype == torch.bfloat16), _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"vit_flash_fwd launch failed: CUDA error {rc}")
+    _raise_on(rc, "vit_flash_fwd")
     global_attention.launches += 1
     return o, lse
 
@@ -163,15 +207,16 @@ def global_attention_backward(q, k, v, o, lse, do, sm_scale: float):
         raise ValueError(f"lse: {lse.dtype} {tuple(lse.shape)} != "
                          f"float32 {(B, H, N)}")
     lse = lse.contiguous()
-    di = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    # f32 workspace: lse * log2(e) and di = rowsum(o * do), rows padded
+    ws = torch.empty(build.load("vit_flash_bwd", "vit_flash_bwd_workspace")(
+        B, H, N) // 4, dtype=torch.float32, device=q.device)
     dq, dk, dv = _bnhd(q), _bnhd(q), _bnhd(q)
     rc = build.load("vit_flash_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
         sm_scale, B, H, N, dh, int(q.dtype == torch.bfloat16), _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"vit_flash_bwd launch failed: CUDA error {rc}")
+    _raise_on(rc, "vit_flash_bwd")
     global_attention_backward.launches += 1
     return dq, dk, dv
 

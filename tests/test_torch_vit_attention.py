@@ -1,6 +1,8 @@
 """The plain versions of K4 (the port's ViT global attention, forward and
 pullback) against the JAX package, on the CPU, at the real head shape
-(H = 12, dh = 64) with short sequences.
+(H = 12, dh = 64) with short sequences: N = 37, one full tile of the bf16
+kernels (128), a tail after it (130) and a one-row tail after two tiles
+(257).
 
 * Against ``_xla_attention`` (the JAX package's CPU path of
   ``global_attention``) and its ``jax.vjp``: f32 within 1e-5 of the
@@ -75,7 +77,7 @@ def _jax(a, dtype):
     return jnp.asarray(a).astype(dtype)
 
 
-@pytest.mark.parametrize("N", [37, 130])
+@pytest.mark.parametrize("N", [37, 128, 130, 257])
 def test_forward_matches_xla_attention_f32(N):
     q, k, v, _ = _inputs(N, seed=N)
     ref = _xla_attention(*(jnp.asarray(t) for t in (q, k, v)), SCALE)
@@ -88,7 +90,7 @@ def test_forward_matches_xla_attention_f32(N):
     np.testing.assert_allclose(lse.numpy(), lse_ref, rtol=1e-6, atol=1e-5)
 
 
-@pytest.mark.parametrize("N", [37, 130])
+@pytest.mark.parametrize("N", [37, 128, 130, 257])
 def test_forward_matches_xla_attention_bf16(N):
     q, k, v, _ = _inputs(N, seed=N + 1)
     ref = _xla_attention(*(_jax(t, jnp.bfloat16) for t in (q, k, v)), SCALE)
@@ -111,7 +113,7 @@ def _port_pullback(q, k, v, do, dtype):
                                                   SCALE)
 
 
-@pytest.mark.parametrize("N", [37, 130])
+@pytest.mark.parametrize("N", [37, 128, 130, 257])
 def test_pullback_matches_jax_vjp_f32(N):
     q, k, v, do = _inputs(N, seed=10 + N)
     refs = _jax_vjp(q, k, v, do, jnp.float32)
@@ -119,7 +121,7 @@ def test_pullback_matches_jax_vjp_f32(N):
         _close_rel(got, ref, 1e-5)
 
 
-@pytest.mark.parametrize("N", [37, 130])
+@pytest.mark.parametrize("N", [37, 128, 130, 257])
 def test_pullback_matches_jax_vjp_bf16(N):
     q, k, v, do = _inputs(N, seed=20 + N)
     refs = _jax_vjp(q, k, v, do, jnp.bfloat16)
@@ -128,7 +130,7 @@ def test_pullback_matches_jax_vjp_bf16(N):
         _close_rows_bf16(got.float().numpy(), np.asarray(ref, np.float32), 4)
 
 
-@pytest.mark.parametrize("N", [37, 130])
+@pytest.mark.parametrize("N", [37, 128, 130, 257])
 def test_masking_matches_padded_segment_reference(N):
     """The TPU path pads to a multiple of 512 with pad tokens in segment
     1; for the real rows that is the port's masking of keys >= N."""
