@@ -8,21 +8,33 @@ pass):
 
 1. env — the card's name and power limit, and the kernels' build time
    (nvcc, from ``fmc_uia_tpu_torch/csrc``), ptxas' registers, spills and
-   wgmma serialisation notes, and the HGMMA / UTMALDG counts of the K4
-   kernels' SASS (``cuobjdump``; a bf16 kernel without both fails).
+   wgmma serialisation notes, and the HGMMA / UTMALDG / HMMA counts of the
+   SASS (``cuobjdump``) of the K4 kernels and of the K1 functions that run
+   a product (``K1_PRODUCTS``): a bf16 one without HGMMA and UTMALDG
+   fails, and so does any HMMA (a WMMA product) in the K1 libraries.
 2. kernels — each hand-written forward kernel (K1f, K2f) against its
    plain PyTorch version on the card, in f32 (TF32 off) and bf16, at the
    swin_b 512² stage shapes of a batch of 8 (shifted and unshifted), a
-   padded grid and a window-7 case; max error against the stated tolerance
-   (scaled to the branch, not to the residual); CUDA-event medians of the
-   kernel, the plain version and the bound.
+   padded grid, a window-7 case and a head-dim-16 case; max error against
+   the stated tolerance (scaled to the branch, not to the residual);
+   CUDA-event medians of one call of the kernel, the plain version and
+   the bound; for K1f also ``ms_10``, per call of 10 back-to-back calls
+   (device time without the host's launch gaps), and for bf16 K1f the
+   library chain (``k1_chain``: layer_norm, linear, SDPA with the bias and
+   mask as attn_mask, linear, residual) as ``chain_ms`` and
+   ``chain_ms_10``, for information only, and the host time of one K1f
+   call with the card idle (``host_ms``).
 2b. backward kernels — K1b and K2b against their plain backward versions,
    f32 and bf16, at the stage shapes of the B=24 train step (K1b at all
    four stages, shifted and unshifted, a padded grid and a window-7 case;
    K2b at stages 0/1): dx per element (one ulp of its own magnitude plus
    1e-4 / 4 bf16 ulps of max|dx - dy|), every weight/bias grad within
    1e-3 (f32) / 2e-2 (bf16) of its largest magnitude; kernel, plain and
-   bound ms. On the same inputs K1f and K2f are held against their plain
+   bound ms (one call; K1b also ``ms_10`` and ``host_ms`` as K1f), and
+   the chain's autograd backward as K1b's ``chain_ms`` and
+   ``chain_ms_10``.
+   bf16 K1b at stage 2 (shifted and not) runs twice on the same inputs
+   and every output must agree bitwise. On the same inputs K1f and K2f are held against their plain
    forward versions as in phase 2, since the train step runs them at
    these shapes.
 2c. K3 — the fused photometric preprocessing kernel
@@ -174,6 +186,22 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3, calls: int = 1) -> float:
     return times[len(times) // 2]
 
 
+def host_call_ms(fn, reps: int = 20) -> float:
+    """Median host time of one ``fn()`` call with the card idle, from the
+    call to its return: the wrapper's checks and the launches' enqueue."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
 def bf16_ulp(v: float) -> float:
     """One bf16 ulp at magnitude v (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(max(v, 1e-30))) - 7)
@@ -207,36 +235,112 @@ def check_branch(out, ref, x, dtype, what):
                 excess_err=excess, tol=tol)
 
 
+# the bf16 K1 functions that run a product: each must use wgmma and TMA
+K1_PRODUCTS = {"swin_attn_fwd": ("qkv_window_attn", "gemm_sm90"),
+               "swin_attn_bwd": ("attn_core_bwd_sm90", "gemm_sm90")}
+
+
 def check_sass(build):
-    """The bf16 K4 kernels as built must run their products on wgmma
-    (HGMMA) and their loads by TMA (UTMALDG): counts per kernel from
+    """The bf16 K4 kernels, and every bf16 K1 function that runs a product
+    (``K1_PRODUCTS``), as built must run their products on wgmma (HGMMA)
+    and their loads by TMA (UTMALDG), and the K1 libraries must hold no
+    WMMA / mma.sync product (HMMA) any more: counts per kernel from
     ``cuobjdump -sass`` of the built libraries."""
     tool = os.path.join(os.path.dirname(os.path.dirname(build._nvcc())),
                         "bin", "cuobjdump")
     counts = {}
-    for k in ("vit_flash_fwd", "vit_flash_bwd"):
+    for k in ("vit_flash_fwd", "vit_flash_bwd", *K1_PRODUCTS):
         out = subprocess.run([tool, "-sass", str(build.lib_path(k))],
                              capture_output=True, text=True, timeout=120)
         if out.returncode != 0:
             fail(f"cuobjdump {k}: {out.stderr.strip()}")
         fn = None
+        mine = {}
         for line in out.stdout.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+                mine[fn] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
             elif fn:
-                for op in counts[fn]:
-                    counts[fn][op] += op in line
-    for fn, c in counts.items():
-        log(f"  sass {fn}: {c}")
-        if "bf16" in fn and not (c["HGMMA"] and c["UTMALDG"]):
-            fail(f"{fn}: no HGMMA or UTMALDG in its SASS")
+                for op in mine[fn]:
+                    mine[fn][op] += op in line
+        for fn, c in mine.items():
+            counts[f"{k}:{fn}"] = c
+            if k in K1_PRODUCTS:
+                product = any(p in fn for p in K1_PRODUCTS[k])
+                if product or c["HGMMA"] or c["HMMA"]:
+                    log(f"  sass {k} {fn}: {c}")
+                if c["HMMA"]:
+                    fail(f"{k} {fn}: HMMA (a WMMA / mma.sync product) in "
+                         "its SASS")
+                if product and not (c["HGMMA"] and c["UTMALDG"]):
+                    fail(f"{k} {fn}: no HGMMA or UTMALDG in its SASS")
+            else:
+                log(f"  sass {fn}: {c}")
+                if "bf16" in fn and not (c["HGMMA"] and c["UTMALDG"]):
+                    fail(f"{fn}: no HGMMA or UTMALDG in its SASS")
+        for k1, names in K1_PRODUCTS.items():
+            if k == k1:
+                for p in names:
+                    if not any(p in fn for fn in mine):
+                        fail(f"{k}: no {p} kernel in its SASS")
     return counts
+
+
+def k1_chain(x, w, mask, dp, H, ws):
+    """K1f as a chain of PyTorch library calls, for information only (it
+    is never on the port's path): F.layer_norm -> F.linear -> SDPA with
+    the rel-pos bias + shift mask as ``attn_mask`` -> F.linear -> x +
+    dp * y, in x's dtype with the weights cast beforehand. Returns
+    (fn, params): fn(x, *params)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fmc_uia_tpu_torch.ops.swin_block import _unwindows, _windows
+
+    B, Hp, Wp, C = x.shape
+    N, nW, dh, dt = ws * ws, (Hp // ws) * (Wp // ws), C // H, x.dtype
+    am = w["bias_hnn"][None] if mask is None else (
+        w["bias_hnn"][None] + mask[:, None])
+    am = am.to(dt)[None].expand(B, nW, H, N, N).reshape(B * nW, H, N, N)
+    params = [w[k].to(dt) for k in ("ln_scale", "ln_bias", "wqkv", "bqkv",
+                                    "wproj", "bproj")]
+    dpv = dp.to(dt).view(B, 1, 1, 1)
+
+    def fn(x, ls, lb, wq, bq, wp, bp):
+        xn = F.layer_norm(_windows(x, ws), (C,), ls, lb, eps=1e-6)
+        qkv = F.linear(xn, wq, bq).reshape(B * nW, N, 3, H, dh)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+        y = F.linear(o.permute(0, 2, 1, 3).reshape(B, nW, N, C), wp, bp)
+        return x + dpv * _unwindows(y, ws, Hp, Wp)
+
+    return fn, params
+
+
+def k1_chain_bwd_ms(x, w, mask, dp, H, ws, dy):
+    """ms of the chain's autograd backward alone (one retained forward):
+    one call, and per call of K1_CALLS back-to-back calls."""
+    import torch
+
+    fn, params = k1_chain(x, w, mask, dp, H, ws)
+    leaves = [t.detach().requires_grad_() for t in (x, *params)]
+    out = fn(*leaves)
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, dy, retain_graph=True)
+
+    ms = (cuda_ms(bwd, reps=10, warmup=2),
+          cuda_ms(bwd, reps=10, warmup=0, calls=K1_CALLS))
+    del out, leaves
+    return ms
 
 
 # ---------------------------------------------------------------------------
 # phase 2: kernels
 # ---------------------------------------------------------------------------
+K1_CALLS = 10        # back-to-back calls of K1's ``ms_10``/``chain_ms_10``
+
+
 def attn_cases():
     """(label, B, grid, C, heads, ws, shift) — the four swin_b 512² stage
     shapes, unshifted and shifted (stage 3's 16² grid > 8 shifts too),
@@ -249,6 +353,7 @@ def attn_cases():
                           c, h, 8, shift))
     cases.append(("pad12_shift", 2, 12, 128, 4, 8, 4))
     cases.append(("ws7_shift", 2, 56, 96, 3, 7, 3))
+    cases.append(("dh16_shift", 2, 32, 128, 8, 8, 4))
     return cases
 
 
@@ -297,6 +402,16 @@ def mlp_inputs(B, grid, C, dtype, gen, dev):
     return x, w, dp
 
 
+def k1_times(rec) -> str:
+    """K1's times: one call and per call of K1_CALLS back-to-back calls."""
+    out = (f"  {rec['ms']:.3f} ms, {rec['ms_10']:.3f} ms of {K1_CALLS} "
+           f"(plain {rec['plain_ms']:.3f}, bound {rec['bound_ms']:.4f}")
+    if "chain_ms" in rec:
+        out += (f", chain {rec['chain_ms']:.3f}, {rec['chain_ms_10']:.3f} "
+                f"of {K1_CALLS}; host {rec['host_ms']:.3f} a call")
+    return out + ")"
+
+
 def err_text(chk) -> str:
     return (f"err {chk['max_abs_err']:.3e} (beyond 1 ulp "
             f"{chk['excess_err']:.3e} <= tol {chk['tol']:.3e}; branch max "
@@ -333,17 +448,28 @@ def check_kernels(dev, records):
                 peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
                 rec["ms"] = cuda_ms(lambda: sb.attention_branch(x, *args,
                                                                 dp=dp))
+                # per call of back-to-back calls: device time, not the
+                # host's launch gaps (K1f's kernels are short)
+                rec["ms_10"] = cuda_ms(
+                    lambda: sb.attention_branch(x, *args, dp=dp),
+                    warmup=0, calls=K1_CALLS)
                 rec["plain_ms"] = cuda_ms(
                     lambda: sb.attention_branch_reference(x, *args, dp=dp),
                     reps=20, warmup=1)
                 rec["bound_ms"] = 1e3 * max(flops / peak, nbytes / HBM_BPS)
                 rec["bound_by"] = ("operations" if flops / peak
                                    >= nbytes / HBM_BPS else "bytes")
+            if dtype == torch.bfloat16 and label.startswith("stage"):
+                fn, params = k1_chain(x, w, mask, dp, H, ws)
+                rec["chain_ms"] = cuda_ms(lambda: fn(x, *params))
+                rec["chain_ms_10"] = cuda_ms(lambda: fn(x, *params),
+                                             warmup=0, calls=K1_CALLS)
+                rec["host_ms"] = host_call_ms(
+                    lambda: sb.attention_branch(x, *args, dp=dp))
+                del fn, params
             records.append(rec)
             log(f"  K1f {label:12s} {rec['dtype']:8s} {rec['shape']} "
-                + err_text(chk)
-                + (f"  {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f}, "
-                   f"bound {rec['bound_ms']:.4f})" if "ms" in rec else ""))
+                + err_text(chk) + (k1_times(rec) if "ms" in rec else ""))
             if dtype == torch.bfloat16 and label.startswith("stage"):
                 summary["attention_branch"].append(rec)
     for s, (grid, C) in enumerate(((128, 128), (64, 256))):
@@ -392,6 +518,7 @@ def bwd_attn_cases():
              for label, _, g, c, h, ws, shift in attn_cases()[:8]]
     cases.append(("pad12_shift", 2, 12, 128, 4, 8, 4))
     cases.append(("ws7_shift", 2, 56, 96, 3, 7, 3))
+    cases.append(("dh16_shift", 2, 32, 128, 8, 8, 4))
     return cases
 
 
@@ -441,10 +568,19 @@ def check_bwd_kernels(dev, records):
             f"{rec['dtype']:8s} {shape} " + err_text(chk))
 
     def run(kname, label, dtype, x, dy, fn, ref_fn, names, flops, nbytes,
-            timed, shape):
+            timed, shape, chain=None):
         got = fn()
         ref = ref_fn()
         torch.cuda.synchronize()
+        repeat = (kname == "attention_branch_backward"
+                  and dtype == torch.bfloat16 and label.startswith("stage2"))
+        if repeat:  # the same inputs again: every output bitwise equal
+            again = fn()
+            bad = [n for n, u, v in zip(("dx",) + names, got, again)
+                   if not torch.equal(u, v)]
+            if bad:
+                fail(f"{kname} {label} bf16: two runs differ in {bad}")
+            del again
         # dx = round(dxf) + dy: held like a branch output, dy its residual
         chk = check_branch(got[0], ref[0], dy, dtype, f"{kname} {label} dx")
         err, excess, tol = chk["max_abs_err"], chk["excess_err"], chk["tol"]
@@ -454,22 +590,36 @@ def check_bwd_kernels(dev, records):
         rec = dict(kernel=kname, case=label, dtype=str(dtype).split(".")[-1],
                    shape=shape, max_abs_err=err, excess_err=excess, tol=tol,
                    grads=grads)
+        if repeat:
+            rec["bitwise_repeat"] = True
         if timed:
             peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
             rec["ms"] = cuda_ms(fn, reps=10, warmup=2)
+            if chain is not None:  # K1b, as K1f
+                rec["ms_10"] = cuda_ms(fn, reps=10, warmup=0,
+                                       calls=K1_CALLS)
             rec["plain_ms"] = cuda_ms(ref_fn, reps=3, warmup=1)
             rec["bound_ms"] = 1e3 * max(flops / peak, nbytes / HBM_BPS)
             rec["bound_by"] = ("operations" if flops / peak
                                >= nbytes / HBM_BPS else "bytes")
+            if chain is not None and dtype == torch.bfloat16:
+                rec["chain_ms"], rec["chain_ms_10"] = chain()
+                rec["host_ms"] = host_call_ms(fn, reps=10)
             torch.cuda.empty_cache()
         records.append(rec)
         worst = max(v[0] / max(v[1], 1e-30) for v in grads.values())
+        if not timed:
+            times = ""
+        elif "ms_10" in rec:
+            times = k1_times(rec)
+        else:
+            times = (f"  {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f}, "
+                     f"bound {rec['bound_ms']:.4f})")
         log(f"  {'K1b' if kname.startswith('att') else 'K2b'} {label:12s} "
             f"{rec['dtype']:8s} {shape} dx err {err:.3e} (beyond 1 ulp "
             f"{excess:.3e} <= tol {tol:.3e}); grads worst err/tol "
-            f"{worst:.3f}"
-            + (f"  {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f}, bound "
-               f"{rec['bound_ms']:.4f})" if timed else ""))
+            f"{worst:.3f}" + (" (two runs bitwise equal)" if repeat else "")
+            + times)
         return rec
 
     for label, B, grid, C, H, ws, shift in bwd_attn_cases():
@@ -496,7 +646,9 @@ def check_bwd_kernels(dev, records):
                       lambda: sb.attention_branch_backward_reference(
                           x, *args, dy, dp=dp),
                       ATTN_GRADS, flops, nbytes, label.startswith("stage"),
-                      [B, hp, hp, C])
+                      [B, hp, hp, C],
+                      chain=lambda: k1_chain_bwd_ms(x, w, mask, dp, H, ws,
+                                                    dy))
             if label.startswith("stage") and dtype == torch.bfloat16:
                 summary["attention_branch_backward"].append(rec)
             del x, dy, w, args
@@ -1011,11 +1163,12 @@ GRAD_IMAGE = 256     # the card-vs-CPU gradient check: B=1 at this size
 KERNEL_GROUPS = (    # kernel-name fragments of the profile's shares
     ("K4f", ("vitfa::fwd_",)),
     ("K4b", ("vitfa::dkv_", "vitfa::dq_", "vitfa::rowdot")),
-    ("K1f", ("attn_window_head", "attn_proj_residual")),
+    ("K1f", ("qkv_window_attn", "EpiResidual", "<swin::K1f",
+             "attn_window_head", "attn_proj_residual")),
     ("K2f", ("mlp_fwd",)),
-    ("K1b+K2b", ("swin::gemm_", "attn_core_bwd", "swin::ln_rows",
-                 "swin::ln_bwd", "scale_rows", "colsum_partial",
-                 "reduce_slots")),
+    ("K1b+K2b", ("swin::gemm_", "sm90::gemm_sm90", "attn_core_bwd",
+                 "swin::ln_rows", "swin::ln_bwd", "scale_rows", "colsum",
+                 "reduce_slots", "cast_weights")),
     ("library gemm/conv", ("nvjet", "gemm", "conv", "cudnn", "cutlass",
                            "xmma", "wgrad", "dgrad", "fprop", "sm90_")),
 )
@@ -1664,7 +1817,10 @@ def main() -> int:
         f"{ {k: round(v, 1) for k, v in spent.items()} }")
     for k in build.KERNELS:
         for line in build.ptxas_report(k).splitlines():
-            if any(w in line for w in ("registers", "spill", "C7512")):
+            # K1's reports name their kernels: which one a count belongs to
+            if any(w in line for w in ("registers", "spill", "C7512",
+                                       "C7515")) or (
+                    k in K1_PRODUCTS and "Compiling entry" in line):
                 log(f"  ptxas {k}: {line.strip()}")
     report["sass"] = check_sass(build)
 
@@ -1846,8 +2002,10 @@ def main() -> int:
                        "stage3": 1, "stage3_shift": 1}
         else:
             weights = {"stage0": 2, "stage1": 2}
-        tot = {k: sum(weights[r["case"]] * r[k] for r in recs)
-               for k in ("ms", "plain_ms", "bound_ms")}
+        keys = ["ms", "plain_ms", "bound_ms"]
+        if all("chain_ms" in r for r in recs):  # K1: information only
+            keys += ["ms_10", "chain_ms", "chain_ms_10", "host_ms"]
+        tot = {k: sum(weights[r["case"]] * r[k] for r in recs) for k in keys}
         by = {r["bound_by"] for r in recs}
         # the forward kernels' error covers their B=24 train shapes too
         checked = recs + summary.get(f"{kname}_train", [])
@@ -1857,7 +2015,9 @@ def main() -> int:
                 "ms": tot["ms"], "plain_ms": tot["plain_ms"],
                 "bound_ms": tot["bound_ms"],
                 "bound_by": "operations" if "operations" in by else "bytes",
-                "library_ms": None}
+                "library_ms": None,
+                **{k: tot[k] for k in ("ms_10", "chain_ms", "chain_ms_10",
+                                       "host_ms") if k in tot}}
 
     # launches: K1f/K2f from the serving run (phase 4), K1b/K2b from the
     # timed train run (phase 5), each zeroed just before its run

@@ -11,38 +11,52 @@
 // sequential grid: it recomputes the forward of its tile in VMEM, pulls it
 // back, and carries the weight-gradient sums from one grid step to the
 // next. Hopper blocks run in parallel and hold at most 227 KB of shared
-// memory, so the pullback is split into the passes below (T = B*Hp*Wp
-// tokens, intermediates in a workspace in device memory):
+// memory, so the pullback is split into passes (T = B*Hp*Wp tokens, every
+// intermediate in the [B, Hp, Wp, .] grid layout, in a workspace):
 //
-//   1. ln_rows: f32 LN statistics and xn = LN1(x), rounded.
-//   2. gemm: qkv = xn Wqkv^T + bqkv, rounded; q times dh^-1/2, rounded.
-//   3. scale_rows: dyf = dy * dp, rounded; gemm: do = dyf Wproj, rounded.
-//   4. attn_core_bwd (f32, CUDA-core FMAs) / attn_core_bwd_tc (bf16,
-//      tensor cores): one block per (group of windows, head). For each of
-//      its windows it rebuilds the scores, the f32 softmax and o = p v from
-//      q, k, v, then dv = p^T do, dp = do v^T, ds = pf (dp - rowsum(dp pf)),
-//      dq = ds k (times dh^-1/2), dk = ds^T q; it writes o and dqkv [T, 3C]
-//      and adds ds into the block's dbias partial.
-//   5. gemm (split over tokens): dWproj = dyf^T o, dWqkv = dqkv^T xn, into
-//      per-split partials; colsum: dbproj, dbqkv.
-//   6. gemm: dxn = dqkv Wqkv (f32); ln_bwd: dx and dLN partials.
+//   1. cast_weights: Wqkv and Wproj rounded to bf16 once per launch (TMA
+//      reads bf16 tiles; the port's params are f32); ln_rows_bf16: f32 LN
+//      statistics and xn = LN1(x), rounded.
+//   2. gemm_run: qkv = xn Wqkv^T + bqkv, rounded; q times dh^-1/2, rounded.
+//   3. scale_rows_bf16: dyf = dy * dp, rounded; gemm_run: do = dyf Wproj.
+//   4. attn_core_bwd_sm90: one block per (group of windows, group of
+//      G = 64 / dh heads), a producer warp and two consumer warpgroups. The
+//      producer brings each window's q, k, v and do (64-channel boxes of
+//      the window's rows, rank-4 tensor maps) by TMA into a ring of two
+//      stages; consumer warpgroup w takes heads w, w + 2, .. of the group.
+//      Per head, on wgmma with one window per m64 tile: S = q k^T and
+//      dP = do v^T (m64n64, K-major at the head's columns); the f32 softmax
+//      and ds = pf (dP - rowsum(dP pf)) in registers, ds summed into the
+//      head's dbias in registers; p and dsb to shared memory; then
+//      o = p v, dq = dsb k (p, dsb from registers) and dv = p^T do,
+//      dk = dsb^T q (p, dsb read MN-major from shared memory), all
+//      m64n{dh}k16 with v, k, do and q as MN-major operands: no transposed
+//      copies. Writes o and dqkv [T, 3C] and a dbias partial per slot.
+//   5. gemm_run, split over tokens (ops/swin_block.py split_k_plan):
+//      dWproj = dyf^T o and dWqkv = dqkv^T xn as per-slot f32 partials,
+//      both operands MN-major; colsum_bf16: dbproj, dbqkv.
+//   6. gemm_run: dxn = dqkv Wqkv (f32); ln_bwd_rows: dx and dLN partials.
 //   7. reduce_slots: every partial buffer, slots added in index order.
 //
-// No atomics: every gradient sum is deterministic. Partial buffers stay
-// near 16 MB (about 1024 blocks of 64 x 64 tiles, at most 256 row slots).
+// gemm_run is the TMA + wgmma GEMM of sm90_gemm.cuh. No atomics: every
+// gradient sum is deterministic. Partial buffers stay near 16 MB (at most
+// 256 slot tiles of 128 x 128 for the weights; window groups x heads
+// <= 1024 for dbias).
+//
+// The f32 version runs the same passes on the CUDA cores (gemm and
+// attn_core_bwd of swin_bwd_common.cuh / below); it is off the bf16 main
+// path and held against the same plain version.
 //
 // What bounds it: the products, 22*C^2 + 12*N*C operations per token
 // (the qkv product and the attention are recomputed), far above the
-// card's bytes-to-operations balance. In bf16 every product runs on the
-// tensor cores (WMMA). Not done yet: the passes round-trip their
-// intermediates through device memory (the TPU kernel keeps them in VMEM);
-// no TMA/cp.async pipeline and no wgmma.
+// card's bytes-to-operations balance.
 //
 // Rounding points (as _branch_pullback): the recomputed forward's xn, qkv,
 // q * scale, p and o; dyf; do; ds once (as dsb) before its products; dq,
 // dk, dv; dq * scale; dx before the identity-path add, and the sum.
 
-#include "swin_bwd_common.cuh"
+#include "swin_attn_sm90.cuh"
+
 
 namespace swin {
 
@@ -326,220 +340,6 @@ __global__ void __launch_bounds__(kThreads)
       if (r < N && c < N) part[r * N + c] = dbias[i][j];
     }
 }
-
-// ---------------------------------------------------------------------------
-// bf16: the same per-(window, head) pullback with every product on the
-// tensor cores (WMMA m16n16k16, bf16 operands, f32 accumulators), on the
-// values the plain version rounds: q (scaled), k, v, do; p; dsb.
-//   S = q k^T and dP = do v^T (64 x 64), then per row the f32 softmax, p
-//   and ds = pf (dP - rowsum(dP pf)) (dsb rounded); then o = p v,
-//   dv = p^T do, dq = dsb k, dk = dsb^T q (64 x dh) at once.
-// ---------------------------------------------------------------------------
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using FragAc = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major>;
-using FragBc = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
-using FragBr = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
-
-constexpr int kLdHb = 32 + 8;       // bf16 pitch of q/k/v/do (dh <= 32)
-constexpr int kLdPb = kMaxN + 8;    // bf16 pitch of p and dsb
-constexpr int kLdSf = kMaxN + 4;    // f32 pitch of S/pf and dP/ds
-constexpr int kLdOf = 32 + 4;       // f32 pitch of the four 64 x dh results
-constexpr int kTcOffP = 4 * kMaxN * kLdHb * 2;
-constexpr int kTcOffSb = kTcOffP + kMaxN * kLdPb * 2;
-constexpr int kTcOffSf = kTcOffSb + kMaxN * kLdPb * 2;
-constexpr int kTcOffDf = kTcOffSf + kMaxN * kLdSf * 4;
-constexpr int kTcOffOut = kTcOffDf + kMaxN * kLdSf * 4;
-constexpr int kCoreTcSmem = kTcOffOut + 4 * kMaxN * kLdOf * 4;
-
-__global__ void __launch_bounds__(kThreads)
-    attn_core_bwd_tc(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ mask, bf16* __restrict__ o,
-                     bf16* __restrict__ dqkv, float* __restrict__ dbias_part,
-                     AttnBwdDims d, int group, float scale) {
-  extern __shared__ __align__(128) unsigned char sm[];
-  bf16* qs = reinterpret_cast<bf16*>(sm);  // [kMaxN][kLdHb] each
-  bf16* ks = qs + kMaxN * kLdHb;
-  bf16* vs = ks + kMaxN * kLdHb;
-  bf16* gs = vs + kMaxN * kLdHb;           // do
-  bf16* pb = reinterpret_cast<bf16*>(sm + kTcOffP);   // [kMaxN][kLdPb]
-  bf16* sb = reinterpret_cast<bf16*>(sm + kTcOffSb);  // dsb
-  float* sf = reinterpret_cast<float*>(sm + kTcOffSf);  // S, then pf
-  float* df = reinterpret_cast<float*>(sm + kTcOffDf);  // dP, then ds
-  float* outs = reinterpret_cast<float*>(sm + kTcOffOut);  // o, dv, dq, dk
-  const int ws = d.ws, N = ws * ws, C = d.C, dh = C / d.H;
-  const int nWw = d.Wp / ws, nWin = (d.Hp / ws) * nWw;
-  const int h = blockIdx.y;
-  const float sc = round_bf16(scale);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int wr = warp % 4, wq = warp / 4;  // row tile, column half
-  const float* bias_h = bias + static_cast<size_t>(h) * N * N;
-  const int w0 = blockIdx.x * group;
-  const int w1 = min(d.nW(), w0 + group);
-
-  float dbias[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dbias[i][j] = 0.f;
-
-  for (int w = w0; w < w1; ++w) {
-    const int b = w / nWin, wi = w % nWin;
-    const int wy = wi / nWw, wx = wi % nWw;
-    auto tok = [&](int t) -> long long {
-      return (static_cast<long long>(b) * d.Hp + wy * ws + t / ws) * d.Wp +
-             wx * ws + t % ws;
-    };
-
-    // 1. q (scaled), k, v, do of the window, 16-byte vectors (0 beyond N
-    //    and beyond dh)
-    for (int i = tid; i < 4 * kMaxN * 4; i += kThreads) {
-      const int which = i / (kMaxN * 4), t = (i / 4) % kMaxN;
-      const int c = (i % 4) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (t < N && c < dh) {
-        const long long r = tok(t);
-        v = which < 3 ? ld16(qkv + r * 3 * C + which * C + h * dh + c)
-                      : ld16(dO + r * C + h * dh + c);
-      }
-      *reinterpret_cast<uint4*>(qs + which * kMaxN * kLdHb + t * kLdHb +
-                                c) = v;
-    }
-    __syncthreads();
-
-    // 2. S = q k^T, dP = do v^T: warp (wr, wq) takes column tiles 2wq,
-    //    2wq + 1 of both
-    {
-      FragC s2[2], p2[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wm::fill_fragment(s2[j], 0.f);
-        wm::fill_fragment(p2[j], 0.f);
-      }
-      for (int c0 = 0; c0 < dh; c0 += 16) {
-        FragA fq, fg;
-        wm::load_matrix_sync(fq, qs + wr * 16 * kLdHb + c0, kLdHb);
-        wm::load_matrix_sync(fg, gs + wr * 16 * kLdHb + c0, kLdHb);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int ct = wq * 2 + j;
-          FragBc fk, fv;
-          wm::load_matrix_sync(fk, ks + ct * 16 * kLdHb + c0, kLdHb);
-          wm::load_matrix_sync(fv, vs + ct * 16 * kLdHb + c0, kLdHb);
-          wm::mma_sync(s2[j], fq, fk, s2[j]);
-          wm::mma_sync(p2[j], fg, fv, p2[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int ct = wq * 2 + j;
-        wm::store_matrix_sync(sf + wr * 16 * kLdSf + ct * 16, s2[j], kLdSf,
-                              wm::mem_row_major);
-        wm::store_matrix_sync(df + wr * 16 * kLdSf + ct * 16, p2[j], kLdSf,
-                              wm::mem_row_major);
-      }
-    }
-    __syncthreads();
-
-    // 3. per row: + bias + mask, f32 softmax (pf, p rounded), then
-    //    ds = pf (dP - sum_j dP pf) (f32, dsb rounded); 0 beyond N
-    const float* mask_w =
-        mask ? mask + static_cast<size_t>(wi) * N * N : nullptr;
-    for (int r = warp; r < kMaxN; r += kWarps) {
-      float e0 = 0.f, e1 = 0.f;
-      if (r < N) {
-        float v0 = -INFINITY, v1 = -INFINITY;
-        if (lane < N) {
-          v0 = sf[r * kLdSf + lane] + bias_h[r * N + lane];
-          if (mask_w) v0 += mask_w[r * N + lane];
-        }
-        if (lane + 32 < N) {
-          v1 = sf[r * kLdSf + lane + 32] + bias_h[r * N + lane + 32];
-          if (mask_w) v1 += mask_w[r * N + lane + 32];
-        }
-        const float m = warp_max(fmaxf(v0, v1));
-        e0 = lane < N ? expf(v0 - m) : 0.f;
-        e1 = lane + 32 < N ? expf(v1 - m) : 0.f;
-        const float s = warp_sum(e0 + e1);
-        e0 /= s;
-        e1 /= s;
-      }
-      const float g0 = df[r * kLdSf + lane], g1 = df[r * kLdSf + lane + 32];
-      const float rs = warp_sum(g0 * e0 + g1 * e1);
-      const float d0 = e0 * (g0 - rs), d1 = e1 * (g1 - rs);
-      sf[r * kLdSf + lane] = e0;
-      sf[r * kLdSf + lane + 32] = e1;
-      df[r * kLdSf + lane] = d0;
-      df[r * kLdSf + lane + 32] = d1;
-      pb[r * kLdPb + lane] = __float2bfloat16_rn(e0);
-      pb[r * kLdPb + lane + 32] = __float2bfloat16_rn(e1);
-      sb[r * kLdPb + lane] = __float2bfloat16_rn(d0);
-      sb[r * kLdPb + lane + 32] = __float2bfloat16_rn(d1);
-    }
-    __syncthreads();
-
-    // 4. dbias += ds; o = p v, dv = p^T do, dq = dsb k, dk = dsb^T q:
-    //    warp (wr, wq) takes column tile wq of the four 64 x dh results
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dbias[i][j] += df[(ty + 16 * i) * kLdSf + tx + 16 * j];
-    if (wq * 16 < dh) {
-      FragC acc[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) wm::fill_fragment(acc[k], 0.f);
-      for (int j0 = 0; j0 < kMaxN; j0 += 16) {
-        FragA fp, fs;
-        FragAc fpt, fst;
-        FragBr fv, fg, fk, fq;
-        wm::load_matrix_sync(fp, pb + wr * 16 * kLdPb + j0, kLdPb);
-        wm::load_matrix_sync(fs, sb + wr * 16 * kLdPb + j0, kLdPb);
-        wm::load_matrix_sync(fpt, pb + j0 * kLdPb + wr * 16, kLdPb);
-        wm::load_matrix_sync(fst, sb + j0 * kLdPb + wr * 16, kLdPb);
-        wm::load_matrix_sync(fv, vs + j0 * kLdHb + wq * 16, kLdHb);
-        wm::load_matrix_sync(fg, gs + j0 * kLdHb + wq * 16, kLdHb);
-        wm::load_matrix_sync(fk, ks + j0 * kLdHb + wq * 16, kLdHb);
-        wm::load_matrix_sync(fq, qs + j0 * kLdHb + wq * 16, kLdHb);
-        wm::mma_sync(acc[0], fp, fv, acc[0]);    // o
-        wm::mma_sync(acc[1], fpt, fg, acc[1]);   // dv
-        wm::mma_sync(acc[2], fs, fk, acc[2]);    // dq (before the scale)
-        wm::mma_sync(acc[3], fst, fq, acc[3]);   // dk
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        wm::store_matrix_sync(outs + k * kMaxN * kLdOf + wr * 16 * kLdOf +
-                                  wq * 16,
-                              acc[k], kLdOf, wm::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = tid; i < N * dh; i += kThreads) {
-      const int t = i / dh, c = i % dh;
-      const long long r = tok(t);
-      const float* res = outs + t * kLdOf + c;
-      o[r * C + h * dh + c] = __float2bfloat16_rn(res[0]);
-      bf16* row = dqkv + r * 3 * C + h * dh + c;
-      row[2 * C] = __float2bfloat16_rn(res[kMaxN * kLdOf]);
-      row[0] = __float2bfloat16_rn(round_bf16(res[2 * kMaxN * kLdOf]) * sc);
-      row[C] = __float2bfloat16_rn(res[3 * kMaxN * kLdOf]);
-    }
-    // the next window's writes to qs..gs, sf/df, pb/sb and outs all come
-    // after at least one more barrier than this window's last reads
-  }
-
-  float* part = dbias_part +
-                (static_cast<size_t>(blockIdx.x) * d.H + h) * N * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      if (r < N && c < N) part[r * N + c] = dbias[i][j];
-    }
-}
-
 // the workspace, carved in one order for measuring and for use
 template <typename T>
 struct AttnBwdWork {
@@ -573,6 +373,7 @@ struct AttnBwdWork {
   }
 };
 
+
 struct AttnBwdArgs {
   const void *x, *dy;
   void* dx;
@@ -582,22 +383,17 @@ struct AttnBwdArgs {
   float scale;
 };
 
-#define SWIN_TRY(expr)          \
-  do {                          \
-    const int err_ = (expr);    \
-    if (err_) return err_;      \
-  } while (0)
-
-template <typename T>
-int run_attn_bwd(const AttnBwdArgs& a, const AttnBwdDims& d,
-                 cudaStream_t s) {
+// f32: the passes on the CUDA cores
+int run_attn_bwd_f32(const AttnBwdArgs& a, const AttnBwdDims& d,
+                     cudaStream_t s) {
+  using T = float;
   Carver cv{static_cast<char*>(a.work)};
   AttnBwdWork<T> w(cv, d);
   const long long T_ = d.T();
   const int C = d.C, N = d.ws * d.ws;
   const T* x = static_cast<const T*>(a.x);
   const T* dy = static_cast<const T*>(a.dy);
-  const float scale = a.scale;  // rounded to T on the device
+  const float scale = a.scale;
 
   SWIN_TRY(launch_ln_rows<T>(x, a.ln_s, a.ln_b, w.xn, w.mu, w.rstd, T_, C,
                              s));
@@ -608,34 +404,17 @@ int run_attn_bwd(const AttnBwdArgs& a, const AttnBwdDims& d,
                                 static_cast<long long>(d.Hp) * d.Wp, s));
   SWIN_TRY((gemm<T, float, true, false>(w.dyf, a.wproj, T_, C, C, C, C, 1,
                                         EpiStore<T>{w.dO, C, nullptr}, s)));
-
-  constexpr bool tc = std::is_same<T, bf16>::value;
-  const int smem = tc ? kCoreTcSmem
-                      : kCoreSmemFloats * static_cast<int>(sizeof(float));
-  cudaError_t e;
-  if constexpr (tc)
-    e = cudaFuncSetAttribute(attn_core_bwd_tc,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  else
-    e = cudaFuncSetAttribute(attn_core_bwd<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  const int smem = kCoreSmemFloats * static_cast<int>(sizeof(float));
+  const cudaError_t e = cudaFuncSetAttribute(
+      attn_core_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);
   }
-  const dim3 grid(w.groups, d.H);
-  if constexpr (tc)
-    attn_core_bwd_tc<<<grid, kThreads, smem, s>>>(
-        w.qkv, w.dO, a.bias, a.mask, w.o, w.dqkv, w.p_bias, d,
-        core_group(d), scale);
-  else
-    attn_core_bwd<T><<<grid, kThreads, smem, s>>>(
-        w.qkv, w.dO, a.bias, a.mask, w.o, w.dqkv, w.p_bias, d,
-        core_group(d), scale);
+  attn_core_bwd<T><<<dim3(w.groups, d.H), kThreads, smem, s>>>(
+      w.qkv, w.dO, a.bias, a.mask, w.o, w.dqkv, w.p_bias, d, core_group(d),
+      scale);
   SWIN_TRY(static_cast<int>(cudaGetLastError()));
-
   SWIN_TRY((gemm<T, T, false, false>(w.dyf, w.o, C, C, T_, C, C, w.s_proj,
                                      EpiPartial{w.p_wproj, C, C}, s)));
   SWIN_TRY((gemm<T, T, false, false>(w.dqkv, w.xn, 3 * C, C, T_, 3 * C, C,
@@ -656,21 +435,376 @@ int run_attn_bwd(const AttnBwdArgs& a, const AttnBwdDims& d,
                        static_cast<long long>(d.H) * N * N, s);
 }
 
-bool attn_dims_ok(const AttnBwdDims& d, int is_bf16) {
-  return d.ws * d.ws <= kMaxN && d.C % d.H == 0 && d.C / d.H <= 32 &&
-         d.C <= 32 * kMaxLane && d.Hp % d.ws == 0 && d.Wp % d.ws == 0 &&
-         (!is_bf16 || (d.C / d.H) % 16 == 0);
+// ---------------------------------------------------------------------------
+// bf16: pass 4 on wgmma (attn_core_bwd_sm90), the products on gemm_run.
+// ---------------------------------------------------------------------------
+constexpr int kCoreStages = 2;   // windows in flight
+using CoreRoles = WarpRoles<2>;  // two consumer warpgroups, a producer warp
+constexpr int kTile = kWinRows * 64;  // a 64 x 64 bf16 tile
+
+struct CoreSmem {  // at the 1024-aligned start of dynamic shared memory
+  bf16 t[kCoreStages][4][kTile];  // q, k, v, do: the group's 64 channels
+  bf16 p[2][kTile];               // per consumer warpgroup: p [query][key]
+  bf16 ds[2][kTile];              // and dsb
+  uint64_t full[kCoreStages], empty[kCoreStages];
+};
+constexpr int kCoreSmemBytes = static_cast<int>(sizeof(CoreSmem)) + 1024;
+
+struct CoreArgs {
+  bf16* o;            // [T, C]
+  bf16* dqkv;         // [T, 3C]
+  float* dbias_part;  // [slots][H][N][N]
+  const float* bias;  // [H, N, N]
+  const float* mask;  // [nW, N, N] or null
+  float scale;        // dh^-1/2
+  int Hp, Wp, C, H, ws, nW, per, groups;  // per: windows of a slot
+};
+
+// Window group (slot) blockIdx.x / groups, head group blockIdx.x % groups.
+template <int DH>
+__global__ void __launch_bounds__(CoreRoles::kThreads, 1)
+    attn_core_bwd_sm90(const __grid_constant__ CUtensorMap tqkv,
+                       const __grid_constant__ CUtensorMap tdo, CoreArgs a) {
+  constexpr int G = 64 / DH;           // heads of a group
+  constexpr int kHeadsWg = (G + 1) / 2;  // of a consumer warpgroup
+  CoreSmem& s = *reinterpret_cast<CoreSmem*>(smem_base_1k());
+  const int g = blockIdx.x % a.groups, slot = blockIdx.x / a.groups;
+  const int w0 = slot * a.per, w1 = min(a.nW, w0 + a.per);
+  const int ws = a.ws, N = ws * ws, C = a.C;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kCoreStages; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], CoreRoles::kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  if (N < kWinRows) {  // rows >= N of the stages stay zero (TMA writes N)
+    const int per_tile = (kWinRows - N) * 8;  // 16-byte pieces
+    for (int i = threadIdx.x; i < kCoreStages * 4 * per_tile;
+         i += blockDim.x) {
+      bf16* tile = s.t[0][0] + (i / per_tile) * kTile;
+      *reinterpret_cast<uint4*>(tile + N * 64 + (i % per_tile) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence_async_smem();
+  }
+  __syncthreads();
+  const int wg = warpgroup_index();
+  if (wg == 2) {  // the producer warp
+    if (threadIdx.x == CoreRoles::kProducerThread) {
+      for (int w = w0; w < w1; ++w) {
+        const int i = w - w0, st = i % kCoreStages;
+        const WindowAt win(w, a.Hp, a.Wp, ws);
+        mbar_wait(&s.empty[st], ((i / kCoreStages) & 1) ^ 1);
+        mbar_expect_tx(&s.full[st], 4 * N * 128);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          tma_load_4d(s.t[st][p], &tqkv, &s.full[st], p * C + g * 64,
+                      win.x0, win.y0, win.b);
+        tma_load_4d(s.t[st][3], &tdo, &s.full[st], g * 64, win.x0, win.y0,
+                    win.b);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x % kWgThreads, lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  const float sc = round_bf16(a.scale);
+  unsigned char* pt = reinterpret_cast<unsigned char*>(s.p[wg]);
+  unsigned char* dt = reinterpret_cast<unsigned char*>(s.ds[wg]);
+  const uint64_t dpt = sw128_desc(pt), ddt = sw128_desc(dt);
+  float dbias[kHeadsWg][32];
+#pragma unroll
+  for (int j = 0; j < kHeadsWg; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dbias[j][i] = 0.f;
+
+  for (int w = w0; w < w1; ++w) {
+    const int i = w - w0, st = i % kCoreStages;
+    const WindowAt win(w, a.Hp, a.Wp, ws);
+    const float* mask_w =
+        a.mask ? a.mask + static_cast<size_t>(win.wi) * N * N : nullptr;
+    mbar_wait_warp(&s.full[st], (i / kCoreStages) & 1);
+#pragma unroll
+    for (int j = 0; j < kHeadsWg; ++j) {
+      const int hl = wg + 2 * j, head = g * G + hl;
+      if (hl >= G || head >= a.H) continue;  // (uniform in the warpgroup)
+      const uint64_t hoff = (hl * DH * 2) >> 4;  // the head's columns
+      const uint64_t dq = sw128_desc(s.t[st][0]) + hoff,
+                     dk = sw128_desc(s.t[st][1]) + hoff,
+                     dv = sw128_desc(s.t[st][2]) + hoff,
+                     ddo = sw128_desc(s.t[st][3]) + hoff;
+      // S = q k^T, dP = do v^T (64 x 64, K = dh)
+      float sacc[32], dpacc[32];
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks) {
+        Wg<64>::ss<0, 0>(sacc, dq + ks * kDescKStep, dk + ks * kDescKStep,
+                         ks > 0);
+        Wg<64>::ss<0, 0>(dpacc, ddo + ks * kDescKStep, dv + ks * kDescKStep,
+                         ks > 0);
+      }
+      wg_commit();
+      // the rel-pos bias and the mask, loaded while the products run (0
+      // beyond N)
+      const float* bias_h = a.bias + static_cast<size_t>(head) * N * N;
+      float bh[32], mk[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = r0 + 8 * ((e >> 1) & 1), col = 8 * (e >> 2) + c0 + (e & 1);
+        const bool in = r < N && col < N;
+        bh[e] = in ? bias_h[r * N + col] : 0.f;
+        mk[e] = in && mask_w ? mask_w[r * N + col] : 0.f;
+      }
+      wg_wait<0>();
+      fence_regs(sacc);
+      fence_regs(dpacc);
+      // + bias + mask, f32 softmax (pf), ds = pf (dP - rowsum(dP pf));
+      // 0 beyond N (rows and keys)
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + 8 * (e >> 1), col = 8 * q + c0 + (e & 1);
+          float v = -INFINITY;
+          if (r < N && col < N) {
+            v = sacc[4 * q + e] + bh[4 * q + e];
+            if (mask_w) v += mk[4 * q + e];
+          }
+          sacc[4 * q + e] = v;
+          mx[e >> 1] = fmaxf(mx[e >> 1], v);
+        }
+      mx[0] = quad_max(mx[0]);
+      mx[1] = quad_max(mx[1]);
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const float m = mx[(e >> 1) & 1];
+        const float ex = m == -INFINITY ? 0.f : expf(sacc[e] - m);
+        sacc[e] = ex;
+        sum[(e >> 1) & 1] += ex;
+      }
+      sum[0] = quad_sum(sum[0]);
+      sum[1] = quad_sum(sum[1]);
+      const float inv[2] = {sum[0] > 0.f ? 1.f / sum[0] : 0.f,
+                            sum[1] > 0.f ? 1.f / sum[1] : 0.f};
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        sacc[e] *= inv[(e >> 1) & 1];
+        rs[(e >> 1) & 1] += dpacc[e] * sacc[e];
+      }
+      rs[0] = quad_sum(rs[0]);
+      rs[1] = quad_sum(rs[1]);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        dpacc[e] = sacc[e] * (dpacc[e] - rs[(e >> 1) & 1]);  // ds, f32
+        dbias[j][e] += dpacc[e];
+      }
+      uint32_t pa[4][4], sa[4][4];
+      acc_to_a(pa, sacc);   // p, rounded
+      acc_to_a(sa, dpacc);  // dsb, rounded
+      // the same p and dsb, [query][key], for the MN-major A of dv, dk
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int col = 8 * q + c0;
+        *reinterpret_cast<uint32_t*>(pt + sw128_off(r0, col)) =
+            pa[q / 2][2 * (q % 2)];
+        *reinterpret_cast<uint32_t*>(pt + sw128_off(r0 + 8, col)) =
+            pa[q / 2][2 * (q % 2) + 1];
+        *reinterpret_cast<uint32_t*>(dt + sw128_off(r0, col)) =
+            sa[q / 2][2 * (q % 2)];
+        *reinterpret_cast<uint32_t*>(dt + sw128_off(r0 + 8, col)) =
+            sa[q / 2][2 * (q % 2) + 1];
+      }
+      fence_async_smem();
+      wg_bar(wg);
+      // o = p v, dq = dsb k, dv = p^T do, dk = dsb^T q (64 x dh, K = 64)
+      float o[DH / 2], gq[DH / 2], gk[DH / 2], gv[DH / 2];
+      fence_regs(pa);
+      fence_regs(sa);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t step = kk * kDescRows16;
+        Wg<DH>::template rs<1>(o, pa[kk], dv + step, kk > 0);
+        Wg<DH>::template rs<1>(gq, sa[kk], dk + step, kk > 0);
+        Wg<DH>::template ss<1, 1>(gv, dpt + step, ddo + step, kk > 0);
+        Wg<DH>::template ss<1, 1>(gk, ddt + step, dq + step, kk > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(o);
+      fence_regs(gq);
+      fence_regs(gk);
+      fence_regs(gv);
+      wg_bar(wg);  // p and dsb are read: the next head may overwrite them
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + 8 * half;
+        if (r >= N) continue;
+        const long long tok = win.token(r, a.Hp, a.Wp, ws);
+        bf16* O = a.o + tok * C + head * DH;
+        bf16* D = a.dqkv + tok * 3 * C + head * DH;
+#pragma unroll
+        for (int q = 0; q < DH / 8; ++q) {
+          const int col = 8 * q + c0, e = 4 * q + 2 * half;
+          store_bf16x2(O + col, o[e], o[e + 1]);
+          store_bf16x2(D + col, round_bf16(gq[e]) * sc,
+                       round_bf16(gq[e + 1]) * sc);
+          store_bf16x2(D + C + col, gk[e], gk[e + 1]);
+          store_bf16x2(D + 2 * C + col, gv[e], gv[e + 1]);
+        }
+      }
+    }
+    warp_arrive(&s.empty[st]);
+  }
+#pragma unroll
+  for (int j = 0; j < kHeadsWg; ++j) {
+    const int hl = wg + 2 * j, head = g * G + hl;
+    if (hl >= G || head >= a.H) continue;
+    float* part = a.dbias_part +
+                  (static_cast<size_t>(slot) * a.H + head) * N * N;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = r0 + 8 * ((e >> 1) & 1), col = 8 * (e >> 2) + c0 + (e & 1);
+      if (r < N && col < N) part[r * N + col] = dbias[j][e];
+    }
+  }
+}
+
+// window slots of attn_core_bwd_sm90: slots x heads <= 1024, so the dbias
+// partials stay within 16 MB
+inline int core_per(const AttnBwdDims& d) {
+  const int slots = d.H >= 1024 ? 1 : 1024 / d.H;
+  return (d.nW() + slots - 1) / slots;
+}
+
+// the bf16 workspace, carved in one order for measuring and for use
+struct BwdWorkBf16 {
+  bf16 *wqkv_b, *wproj_b, *xn, *qkv, *dyf, *dO, *o, *dqkv;
+  float *mu, *rstd, *dxn, *p_wproj, *p_wqkv, *p_bproj, *p_bqkv, *p_bias,
+      *p_g, *p_b;
+  int slots_proj, slots_qkv, core_slots;
+
+  BwdWorkBf16(Carver& cv, const AttnBwdDims& d, int kchunk_proj,
+              int kchunk_qkv) {
+    const long long T_ = d.T();
+    const int C = d.C, N = d.ws * d.ws;
+    slots_proj = gemm_slots(T_, kchunk_proj);
+    slots_qkv = gemm_slots(T_, kchunk_qkv);
+    core_slots = (d.nW() + core_per(d) - 1) / core_per(d);
+    wqkv_b = cv.take<bf16>(3LL * C * C);
+    wproj_b = cv.take<bf16>(static_cast<long long>(C) * C);
+    mu = cv.take<float>(T_);
+    rstd = cv.take<float>(T_);
+    xn = cv.take<bf16>(T_ * C);
+    qkv = cv.take<bf16>(T_ * 3 * C);
+    dyf = cv.take<bf16>(T_ * C);
+    dO = cv.take<bf16>(T_ * C);
+    o = cv.take<bf16>(T_ * C);
+    dqkv = cv.take<bf16>(T_ * 3 * C);
+    dxn = cv.take<float>(T_ * C);
+    p_wproj = cv.take<float>(static_cast<size_t>(slots_proj) * C * C);
+    p_wqkv = cv.take<float>(static_cast<size_t>(slots_qkv) * 3 * C * C);
+    p_bproj = cv.take<float>(colsum_part_floats(T_, C));
+    p_bqkv = cv.take<float>(colsum_part_floats(T_, 3 * C));
+    p_bias = cv.take<float>(static_cast<size_t>(core_slots) * d.H * N * N);
+    p_g = cv.take<float>(ln_bwd_part_floats(T_, C));
+    p_b = cv.take<float>(ln_bwd_part_floats(T_, C));
+  }
+};
+
+template <int DH>
+int launch_core_sm90(const BwdWorkBf16& w, const AttnBwdArgs& a,
+                     const AttnBwdDims& d, cudaStream_t s) {
+  const int C = d.C, groups = (d.H + 64 / DH - 1) / (64 / DH);
+  CUtensorMap tqkv, tdo;
+  SWIN_TRY(make_map_window(&tqkv, w.qkv, d.B, d.Hp, d.Wp, 3 * C, d.ws));
+  SWIN_TRY(make_map_window(&tdo, w.dO, d.B, d.Hp, d.Wp, C, d.ws));
+  static std::atomic<unsigned long long> smem_set{0};
+  SWIN_TRY(smem_limit_once(
+      smem_set, reinterpret_cast<const void*>(attn_core_bwd_sm90<DH>),
+      kCoreSmemBytes));
+  const CoreArgs ca{w.o,  w.dqkv, w.p_bias, a.bias,     a.mask,
+                    a.scale, d.Hp, d.Wp,   C,          d.H,
+                    d.ws, d.nW(), core_per(d), groups};
+  attn_core_bwd_sm90<DH><<<w.core_slots * groups, CoreRoles::kThreads,
+                           kCoreSmemBytes, s>>>(tqkv, tdo, ca);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int run_attn_bwd_bf16(const AttnBwdArgs& a, const AttnBwdDims& d,
+                      int kchunk_proj, int kchunk_qkv, cudaStream_t s) {
+  Carver cv{static_cast<char*>(a.work)};
+  const BwdWorkBf16 w(cv, d, kchunk_proj, kchunk_qkv);
+  const int T_ = static_cast<int>(d.T());
+  const int C = d.C, N = d.ws * d.ws;
+  const int kc1 = (C + kGemmK - 1) / kGemmK * kGemmK;  // one slot of K = C
+  const int kc3 = (3 * C + kGemmK - 1) / kGemmK * kGemmK;
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* dy = static_cast<const bf16*>(a.dy);
+
+  SWIN_TRY(launch_cast_weights<K1b>(a.wqkv, a.wproj, w.wqkv_b, w.wproj_b, C,
+                                    s));
+  SWIN_TRY(launch_ln_rows_bf16<K1b>(x, a.ln_s, a.ln_b, w.xn, w.mu, w.rstd,
+                                    T_, C, s));
+  SWIN_TRY((gemm_run<false, false>(w.xn, C, w.wqkv_b, C, T_, 3 * C, C, kc1,
+                                   EpiQkvBf16{w.qkv, a.bqkv, C, a.scale},
+                                   s)));
+  SWIN_TRY(launch_scale_rows_bf16(dy, a.dp, w.dyf, T_, C,
+                                  static_cast<long long>(d.Hp) * d.Wp, s));
+  SWIN_TRY((gemm_run<false, true>(w.dyf, C, w.wproj_b, C, T_, C, C, kc1,
+                                  EpiOutBf16{w.dO, C, nullptr}, s)));
+  SWIN_TRY(C / d.H == 32 ? launch_core_sm90<32>(w, a, d, s)
+                         : launch_core_sm90<16>(w, a, d, s));
+  SWIN_TRY((gemm_run<true, true>(w.dyf, C, w.o, C, C, C, T_, kchunk_proj,
+                                 EpiSlot{w.p_wproj, C, C}, s)));
+  SWIN_TRY((gemm_run<true, true>(w.dqkv, 3 * C, w.xn, C, 3 * C, C, T_,
+                                 kchunk_qkv, EpiSlot{w.p_wqkv, 3 * C, C},
+                                 s)));
+  SWIN_TRY((gemm_run<false, true>(w.dqkv, 3 * C, w.wqkv_b, C, T_, C, 3 * C,
+                                  kc3, EpiOutF32{w.dxn, C}, s)));
+  SWIN_TRY(launch_ln_bwd_rows(x, dy, w.dxn, w.mu, w.rstd, a.ln_s,
+                              static_cast<bf16*>(a.dx), w.p_g, w.p_b,
+                              a.dln_s, a.dln_b, T_, C, s));
+  SWIN_TRY(launch_colsum_bf16(w.dyf, w.p_bproj, a.dbproj, T_, C, s));
+  SWIN_TRY(launch_colsum_bf16(w.dqkv, w.p_bqkv, a.dbqkv, T_, 3 * C, s));
+  SWIN_TRY(launch_reduce(w.p_wproj, a.dwproj, w.slots_proj,
+                         static_cast<long long>(C) * C, s));
+  SWIN_TRY(launch_reduce(w.p_wqkv, a.dwqkv, w.slots_qkv, 3LL * C * C, s));
+  return launch_reduce(w.p_bias, a.dbias, w.core_slots,
+                       static_cast<long long>(d.H) * N * N, s);
+}
+
+bool attn_dims_ok(const AttnBwdDims& d, int is_bf16, int kchunk_proj,
+                  int kchunk_qkv) {
+  if (d.B < 1 || d.ws < 1 || d.ws * d.ws > kMaxN || d.H < 1 ||
+      d.C % d.H != 0 || d.C / d.H > 32 || d.C > 32 * kMaxLane ||
+      d.Hp % d.ws != 0 || d.Wp % d.ws != 0)
+    return false;
+  if (!is_bf16) return true;
+  const int dh = d.C / d.H;
+  return (dh == 16 || dh == 32) && d.C % 8 == 0 && d.T() < (1LL << 31) &&
+         kchunk_proj >= kGemmK && kchunk_proj % kGemmK == 0 &&
+         kchunk_qkv >= kGemmK && kchunk_qkv % kGemmK == 0;
 }
 
 }  // namespace swin
 
+// kchunk_proj / kchunk_qkv: tokens of a slot of the split-K dWproj and
+// dWqkv products (bf16; ops/swin_block.py split_k_plan), ignored in f32.
 extern "C" long long swin_attn_bwd_workspace(int B, int Hp, int Wp, int C,
-                                             int H, int ws, int is_bf16) {
+                                             int H, int ws, int is_bf16,
+                                             int kchunk_proj,
+                                             int kchunk_qkv) {
   const swin::AttnBwdDims d{B, Hp, Wp, C, H, ws};
-  if (!swin::attn_dims_ok(d, is_bf16)) return 0;
+  if (!swin::attn_dims_ok(d, is_bf16, kchunk_proj, kchunk_qkv)) return 0;
   swin::Carver cv{nullptr};
   if (is_bf16) {
-    swin::AttnBwdWork<swin::bf16> w(cv, d);
+    swin::BwdWorkBf16 w(cv, d, kchunk_proj, kchunk_qkv);
   } else {
     swin::AttnBwdWork<float> w(cv, d);
   }
@@ -684,15 +818,15 @@ extern "C" int swin_attn_bwd(
     const float* mask, const float* dp, float* dln_s, float* dln_b,
     float* dwqkv, float* dbqkv, float* dwproj, float* dbproj, float* dbias,
     void* work, float scale, int B, int Hp, int Wp, int C, int H, int ws,
-    int is_bf16, void* stream) {
+    int is_bf16, int kchunk_proj, int kchunk_qkv, void* stream) {
   const swin::AttnBwdDims d{B, Hp, Wp, C, H, ws};
-  if (!swin::attn_dims_ok(d, is_bf16))
+  if (!swin::attn_dims_ok(d, is_bf16, kchunk_proj, kchunk_qkv))
     return static_cast<int>(cudaErrorInvalidValue);
   const swin::AttnBwdArgs a{x,     dy,    dx,     ln_s,  ln_b,   wqkv,
                             bqkv,  wproj, bproj,  bias,  mask,   dp,
                             dln_s, dln_b, dwqkv,  dbqkv, dwproj, dbproj,
                             dbias, work,  scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? swin::run_attn_bwd<swin::bf16>(a, d, s)
-                 : swin::run_attn_bwd<float>(a, d, s);
+  return is_bf16 ? swin::run_attn_bwd_bf16(a, d, kchunk_proj, kchunk_qkv, s)
+                 : swin::run_attn_bwd_f32(a, d, s);
 }

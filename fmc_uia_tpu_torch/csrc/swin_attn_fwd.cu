@@ -1,43 +1,52 @@
-// Fused Swin attention branch, forward, for sm_90a.
+// Fused Swin attention branch, forward (K1f), for sm_90a.
 //
 // Replaces the TPU kernel fmc_uia_tpu/ops/swin_block_pallas.py
 // fused_attention_branch -> _fused_branch_fwd_impl -> _fwd_kernel
 // (_branch_math): out = x + dp * proj(MHSA_window(LN1(x))) on the rolled,
 // padded x [B, Hp, Wp, C].
 //
-// Design. The TPU kernel runs one program per row of windows and holds a
-// whole row's LN output, qkv and attention output in VMEM (tens of MB).
-// A Hopper block has 227 KB of shared memory: at C = 1024 one window's bf16
-// LN output alone is 128 KB and its qkv 384 KB. So the work is split:
+// Design (bf16). The TPU kernel runs one program per row of windows and
+// holds a whole row's LN output, qkv and attention output in VMEM (tens of
+// MB); a Hopper block has 227 KB. Every tensor stays in the [B, Hp, Wp, C]
+// grid layout, so no window partition is ever copied:
 //
-//   attn_window_head: one block per (window, head). It takes the f32 LN
-//     stats of the window's N <= 64 tokens, streams the head's 3*dh columns
-//     of Wqkv in K chunks (normalizing the x chunk on the fly), keeps
-//     q_h, k_h, v_h (64 x 32 each) in shared memory, runs scores + rel-pos
-//     bias + mask, the f32 softmax and p @ v there, and writes o_h into a
-//     scratch [B, Hp, Wp, C] in the window-unpartitioned layout.
-//   attn_proj_residual: a tiled product o @ Wproj^T + bproj with the
-//     residual epilogue x + dp * y.
+//   cast_weights: Wqkv and Wproj rounded once per launch into a bf16
+//     workspace that TMA reads (the port's params are f32).
+//   ln_rows_bf16: xn = LN1(x), f32 statistics, once per token, rounded.
+//   qkv_window_attn: one block per (pair of windows, head group of
+//     G = 64 / dh heads). A producer warp streams each window's xn rows (a
+//     64-channel x ws x ws box of a rank-4 tensor map: exactly one m64
+//     tile, rows >= N zero) and the group's q, k and v rows of the Wqkv
+//     copy (three 64-row boxes at rows p C + 64 g: one 192-row tile, see
+//     swin_attn_sm90.cuh), which the two windows share, through a ring of
+//     stages; consumer
+//     warpgroup w runs window w's [q | k | v] = xn Wqkv^T as wgmma
+//     m64n192k16, adds the bias and rounds (q times dh^-1/2) into three
+//     swizzled 64 x 64 tiles in shared memory, then per head
+//     S = q k^T (m64n64, K-major operands at the head's column offset),
+//     the rel-pos bias and shift mask, the f32 softmax in registers, and
+//     O = P V (m64n{dh}, P from the accumulators, V MN-major: no
+//     transposed copy), written into o [B, Hp, Wp, C].
+//   gemm_run (sm90_gemm.cuh): y = o Wproj^T + bproj and x + dp * y in its
+//     epilogue, 128 x 128 tiles of tokens x channels.
 //
-// Each of the two comes in two versions: f32 multiplies with FMAs on the
-// CUDA cores; bf16 (attn_window_head_tc, attn_proj_residual_tc) runs every
-// product on the tensor cores (WMMA m16n16k16, bf16 in, f32 accumulate)
-// on the same rounded operands.
+// At the flagship's stage 2 (C = 512, B = 8) that is 64 pairs x 8 groups
+// = 512 blocks of the window kernel. The Wqkv stream is the kernel's
+// largest read (192 x C per block, from L2): a pair of windows halves it.
 //
-// What bounds it: at the flagship shapes the branch does 8*T*C^2 + 4*T*N*C
-// operations on 2*T*C*sizeof(T) bytes of activations, far above the
-// card's bytes-to-operations balance, so operations bound it. Not done
-// yet: every head's block re-reads the window and re-normalizes it, and
-// streams its Wqkv rows from L2; no cp.async/TMA pipeline overlaps those
-// loads with the products; no wgmma.
+// The f32 version (attn_window_head, attn_proj_residual) runs every
+// multiply as an FMA on the CUDA cores, one block per (window, head); it
+// is off the bf16 main path and held against the same plain version.
+//
+// What bounds it: 8*T*C^2 + 4*T*N*C operations on 2*T*C*sizeof(T) bytes of
+// activations, far above the card's bytes-to-operations balance, so
+// operations bound it.
 //
 // Rounding points (as _branch_math): xn after the f32 LN, qkv after the
 // bias, q * dh^-1/2, p after the f32 softmax, o after p @ v, y after the
 // proj bias, dp * y, and the residual sum.
 
-#include <mma.h>
-
-#include "swin_common.cuh"
+#include "swin_attn_sm90.cuh"
 
 namespace swin {
 
@@ -319,355 +328,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16: the same two kernels with every product on the tensor cores (WMMA
-// m16n16k16, bf16 operands, f32 accumulators). The operands are the values
-// _branch_math rounds to bf16, at the same points.
-// ---------------------------------------------------------------------------
-namespace wm = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using FragBc = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
-using FragBr = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
-
-constexpr int kTcKC = 64;             // K chunk of the qkv product
-constexpr int kLdX = kTcKC + 8;       // bf16 pitch of the LN / Wqkv chunks
-constexpr int kLdAcc = 3 * 32 + 4;    // f32 pitch of the qkv accumulators
-constexpr int kLdH = 32 + 8;          // bf16 pitch of q/k/v (dh <= 32)
-constexpr int kLdSf = kMaxN + 4;      // f32 pitch of the scores
-constexpr int kLdP = kMaxN + 8;       // bf16 pitch of p
-constexpr int kLdO = 32 + 4;          // f32 pitch of the head's output
-// byte offsets in attn_window_head_tc's shared memory; the chunk buffers
-// (phase A) and the score/p/o buffers (phase C) share one region
-constexpr int kOffQ = 2 * kMaxN * 4;
-constexpr int kOffR = kOffQ + 3 * kMaxN * kLdH * 2;
-constexpr int kOffW = kOffR + kMaxN * kLdX * 2;
-constexpr int kOffAcc = kOffW + 3 * 32 * kLdX * 2;
-constexpr int kEndA = kOffAcc + kMaxN * kLdAcc * 4;
-constexpr int kOffP = kOffR + kMaxN * kLdSf * 4;
-constexpr int kOffO = kOffP + kMaxN * kLdP * 2;
-constexpr int kEndC = kOffO + kMaxN * kLdO * 4;
-constexpr int kSmemTc = kEndA > kEndC ? kEndA : kEndC;
-
-__global__ void __launch_bounds__(kThreads)
-    attn_window_head_tc(AttnArgs a) {
-  extern __shared__ __align__(128) unsigned char sm[];
-  const int ws = a.ws, N = ws * ws, C = a.C, dh = C / a.H;
-  const int nWw = a.Wp / ws, nWin = (a.Hp / ws) * nWw;
-  const int b = blockIdx.x / nWin;
-  const int wi = blockIdx.x % nWin;
-  const int wy = wi / nWw, wx = wi % nWw;
-  const int h = blockIdx.y;
-  const bf16* x = static_cast<const bf16*>(a.x);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp % 4;  // the warp's 16-row tile
-
-  float* mu = reinterpret_cast<float*>(sm);
-  float* rstd = mu + kMaxN;
-  bf16* qs = reinterpret_cast<bf16*>(sm + kOffQ);
-  bf16* ks = qs + kMaxN * kLdH;
-  bf16* vs = ks + kMaxN * kLdH;
-  bf16* xs = reinterpret_cast<bf16*>(sm + kOffR);
-  bf16* wsm = reinterpret_cast<bf16*>(sm + kOffW);
-  float* acc_s = reinterpret_cast<float*>(sm + kOffAcc);
-  float* sc = reinterpret_cast<float*>(sm + kOffR);
-  bf16* ps = reinterpret_cast<bf16*>(sm + kOffP);
-  float* os = reinterpret_cast<float*>(sm + kOffO);
-
-  auto tok_off = [&](int t) -> size_t {
-    const int r = wy * ws + t / ws, c = wx * ws + t % ws;
-    return ((static_cast<size_t>(b) * a.Hp + r) * a.Wp + c) * C;
-  };
-
-  // 1. f32 LN statistics, one warp per token, 8 channels per load
-  for (int t = warp; t < N; t += kThreads / 32) {
-    const size_t off = tok_off(t);
-    float s = 0.f, s2 = 0.f;
-    for (int c = lane * 8; c < C; c += 32 * 8) {
-      float f[8];
-      unpack8(ld16(x + off + c), f);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s += f[j];
-        s2 += f[j] * f[j];
-      }
-    }
-    s = warp_sum(s);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      const float m = s / C;
-      mu[t] = m;
-      rstd[t] = 1.f / sqrtf(s2 / C - m * m + kLnEps);
-    }
-  }
-  __syncthreads();
-
-  // 2. [q_h | k_h | v_h] = LN(x) @ Wqkv[head rows]^T on the tensor cores:
-  //    64 x 3dh in 16 x 16 tiles, warp (wr, warp / 4) takes column tiles
-  //    warp / 4, warp / 4 + 2, warp / 4 + 4. Chunks are staged in 16-byte
-  //    vectors; the next chunk's loads are in flight during the products.
-  constexpr int kXV = kMaxN * kTcKC / 8 / kThreads;   // x vectors / thread
-  constexpr int kWV = 3 * 32 * kTcKC / 4 / kThreads;  // Wqkv vectors
-  const int nq = 3 * dh, tn = nq / 16;
-  uint4 xr[kXV];
-  float4 wr4[kWV];
-  auto load_chunk = [&](int k0) {
-#pragma unroll
-    for (int it = 0; it < kXV; ++it) {
-      const int i = tid + it * kThreads;
-      const int t = i / (kTcKC / 8), c = k0 + (i % (kTcKC / 8)) * 8;
-      xr[it] = (t < N && c < C) ? ld16(x + tok_off(t) + c)
-                                : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int it = 0; it < kWV; ++it) {
-      const int i = tid + it * kThreads;
-      const int j = i / (kTcKC / 4), c = k0 + (i % (kTcKC / 4)) * 4;
-      wr4[it] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (j < nq && c < C) {
-        const int row = (j / dh) * C + h * dh + j % dh;
-        wr4[it] = ldf4(a.wqkv + static_cast<size_t>(row) * C + c);
-      }
-    }
-  };
-  auto store_chunk = [&](int k0) {
-#pragma unroll
-    for (int it = 0; it < kXV; ++it) {
-      const int i = tid + it * kThreads;
-      const int t = i / (kTcKC / 8), kk = (i % (kTcKC / 8)) * 8;
-      const int c = k0 + kk;
-      float f[8];
-      unpack8(xr[it], f);
-      if (t < N && c < C) {
-        const float4 s0 = ldf4(a.ln_s + c), s1 = ldf4(a.ln_s + c + 4);
-        const float4 b0 = ldf4(a.ln_b + c), b1 = ldf4(a.ln_b + c + 4);
-        const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          f[j] = (f[j] - mu[t]) * rstd[t] * sv[j] + bv[j];
-      }
-      store8(xs + t * kLdX + kk, f);
-    }
-#pragma unroll
-    for (int it = 0; it < kWV; ++it) {
-      const int i = tid + it * kThreads;
-      const int j = i / (kTcKC / 4), kk = (i % (kTcKC / 4)) * 4;
-      store4(wsm + j * kLdX + kk, wr4[it]);
-    }
-  };
-
-  FragC acc[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) wm::fill_fragment(acc[j], 0.f);
-  load_chunk(0);
-  for (int k0 = 0; k0 < C; k0 += kTcKC) {
-    store_chunk(k0);
-    __syncthreads();
-    if (k0 + kTcKC < C) load_chunk(k0 + kTcKC);
-    const int kn = min(kTcKC, C - k0);
-    for (int kk = 0; kk < kn; kk += 16) {
-      FragA fa;
-      wm::load_matrix_sync(fa, xs + wr * 16 * kLdX + kk, kLdX);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int ct = warp / 4 + 2 * j;
-        if (ct < tn) {
-          FragBc fb;
-          wm::load_matrix_sync(fb, wsm + ct * 16 * kLdX + kk, kLdX);
-          wm::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int ct = warp / 4 + 2 * j;
-    if (ct < tn)
-      wm::store_matrix_sync(acc_s + wr * 16 * kLdAcc + ct * 16, acc[j],
-                            kLdAcc, wm::mem_row_major);
-  }
-  __syncthreads();
-
-  // 3. + bqkv, round; q also scaled and rounded (rows >= N hold finite
-  //    bias values and are never read into a kept output)
-  const float scale = round_bf16(a.scale);
-  for (int i = tid; i < kMaxN * nq; i += kThreads) {
-    const int t = i / nq, col = i % nq;
-    const int part = col / dh, d = col % dh;
-    const float v =
-        round_bf16(acc_s[t * kLdAcc + col] + a.bqkv[part * C + h * dh + d]);
-    bf16* dst = part == 0 ? qs : (part == 1 ? ks : vs);
-    dst[t * kLdH + d] = __float2bfloat16_rn(part == 0 ? v * scale : v);
-  }
-  __syncthreads();
-
-  // 4. scores = q k^T (64 x 64, K = dh): warp (wr, warp / 4) takes column
-  //    tiles 2 * (warp / 4) and 2 * (warp / 4) + 1
-  {
-    FragC sacc[2];
-    wm::fill_fragment(sacc[0], 0.f);
-    wm::fill_fragment(sacc[1], 0.f);
-    for (int d0 = 0; d0 < dh; d0 += 16) {
-      FragA fa;
-      wm::load_matrix_sync(fa, qs + wr * 16 * kLdH + d0, kLdH);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragBc fb;
-        wm::load_matrix_sync(fb, ks + ((warp / 4) * 2 + j) * 16 * kLdH + d0,
-                             kLdH);
-        wm::mma_sync(sacc[j], fa, fb, sacc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wm::store_matrix_sync(sc + wr * 16 * kLdSf + ((warp / 4) * 2 + j) * 16,
-                            sacc[j], kLdSf, wm::mem_row_major);
-  }
-  __syncthreads();
-
-  // 5. + rel-pos bias + mask, f32 softmax, p rounded (0 beyond N)
-  const float* bias_h = a.bias + static_cast<size_t>(h) * N * N;
-  const float* mask_w =
-      a.mask ? a.mask + static_cast<size_t>(wi) * N * N : nullptr;
-  for (int r = warp; r < N; r += kThreads / 32) {
-    float v0 = -INFINITY, v1 = -INFINITY;
-    if (lane < N) {
-      v0 = sc[r * kLdSf + lane] + bias_h[r * N + lane];
-      if (mask_w) v0 += mask_w[r * N + lane];
-    }
-    if (lane + 32 < N) {
-      v1 = sc[r * kLdSf + lane + 32] + bias_h[r * N + lane + 32];
-      if (mask_w) v1 += mask_w[r * N + lane + 32];
-    }
-    const float m = warp_max(fmaxf(v0, v1));
-    const float e0 = lane < N ? expf(v0 - m) : 0.f;
-    const float e1 = lane + 32 < N ? expf(v1 - m) : 0.f;
-    const float s = warp_sum(e0 + e1);
-    ps[r * kLdP + lane] = __float2bfloat16_rn(e0 / s);
-    ps[r * kLdP + lane + 32] = __float2bfloat16_rn(e1 / s);
-  }
-  __syncthreads();
-
-  // 6. o_h = p @ v_h (64 x dh, K = 64), rounded, written unpartitioned
-  if (warp < 4 * (dh / 16)) {
-    FragC oacc;
-    wm::fill_fragment(oacc, 0.f);
-    for (int j0 = 0; j0 < kMaxN; j0 += 16) {
-      FragA fa;
-      FragBr fb;
-      wm::load_matrix_sync(fa, ps + wr * 16 * kLdP + j0, kLdP);
-      wm::load_matrix_sync(fb, vs + j0 * kLdH + (warp / 4) * 16, kLdH);
-      wm::mma_sync(oacc, fa, fb, oacc);
-    }
-    wm::store_matrix_sync(os + wr * 16 * kLdO + (warp / 4) * 16, oacc, kLdO,
-                          wm::mem_row_major);
-  }
-  __syncthreads();
-  bf16* o = static_cast<bf16*>(a.o);
-  for (int i = tid; i < N * dh; i += kThreads) {
-    const int t = i / dh, d = i % dh;
-    o[tok_off(t) + h * dh + d] = __float2bfloat16_rn(os[t * kLdO + d]);
-  }
-}
-
-constexpr int kPK = 64;          // K chunk of the proj product
-constexpr int kLdPA = kPK + 8;   // bf16 pitch of its operand tiles
-constexpr int kLdPC = 64 + 4;    // f32 pitch of its 64 x 64 result
-
-// two blocks per SM: <= 128 registers
-__global__ void __launch_bounds__(kThreads, 2)
-    attn_proj_residual_tc(AttnArgs a) {
-  __shared__ __align__(128) bf16 As[64 * kLdPA];
-  __shared__ __align__(128) bf16 Bs[64 * kLdPA];
-  __shared__ __align__(128) float Cs[64 * kLdPC];
-  const int C = a.C;
-  const long long M = static_cast<long long>(a.B) * a.Hp * a.Wp;
-  const long long m0 = static_cast<long long>(blockIdx.x) * 64;
-  const int n0 = blockIdx.y * 64;
-  const bf16* o = static_cast<const bf16*>(a.o);
-  const bf16* x = static_cast<const bf16*>(a.x);
-  bf16* out = static_cast<bf16*>(a.out);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wr = warp % 4, wc = (warp / 4) * 2;
-
-  // operand tiles in 16-byte vectors, the next chunk in flight
-  constexpr int kAV = 64 * kPK / 8 / kThreads;
-  constexpr int kBV = 64 * kPK / 4 / kThreads;
-  uint4 ar[kAV];
-  float4 br[kBV];
-  auto load_chunk = [&](int k0) {
-#pragma unroll
-    for (int it = 0; it < kAV; ++it) {
-      const int i = tid + it * kThreads;
-      const int r = i / (kPK / 8), k = k0 + (i % (kPK / 8)) * 8;
-      const long long m = m0 + r;
-      ar[it] = (m < M && k < C) ? ld16(o + static_cast<size_t>(m) * C + k)
-                                : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int it = 0; it < kBV; ++it) {
-      const int i = tid + it * kThreads;
-      const int r = i / (kPK / 4), k = k0 + (i % (kPK / 4)) * 4;
-      const int n = n0 + r;
-      br[it] = (n < C && k < C)
-                   ? ldf4(a.wproj + static_cast<size_t>(n) * C + k)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-
-  FragC acc[2];
-  wm::fill_fragment(acc[0], 0.f);
-  wm::fill_fragment(acc[1], 0.f);
-  load_chunk(0);
-  for (int k0 = 0; k0 < C; k0 += kPK) {
-#pragma unroll
-    for (int it = 0; it < kAV; ++it) {
-      const int i = tid + it * kThreads;
-      *reinterpret_cast<uint4*>(As + (i / (kPK / 8)) * kLdPA +
-                                (i % (kPK / 8)) * 8) = ar[it];
-    }
-#pragma unroll
-    for (int it = 0; it < kBV; ++it) {
-      const int i = tid + it * kThreads;
-      store4(Bs + (i / (kPK / 4)) * kLdPA + (i % (kPK / 4)) * 4, br[it]);
-    }
-    __syncthreads();
-    if (k0 + kPK < C) load_chunk(k0 + kPK);
-    const int kn = min(kPK, C - k0);
-    for (int kk = 0; kk < kn; kk += 16) {
-      FragA fa;
-      wm::load_matrix_sync(fa, As + wr * 16 * kLdPA + kk, kLdPA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragBc fb;
-        wm::load_matrix_sync(fb, Bs + (wc + j) * 16 * kLdPA + kk, kLdPA);
-        wm::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wm::store_matrix_sync(Cs + wr * 16 * kLdPC + (wc + j) * 16, acc[j], kLdPC,
-                          wm::mem_row_major);
-  __syncthreads();
-
-  const long long hw = static_cast<long long>(a.Hp) * a.Wp;
-  for (int i = tid; i < 64 * 64; i += kThreads) {
-    const int r = i / 64, c = i % 64;
-    const long long m = m0 + r;
-    const int n = n0 + c;
-    if (m >= M || n >= C) continue;
-    const float dpv = round_bf16(a.dp ? a.dp[m / hw] : 1.f);
-    const float y = round_bf16(Cs[r * kLdPC + c] + a.bproj[n]);
-    const size_t idx = static_cast<size_t>(m) * C + n;
-    out[idx] = __float2bfloat16_rn(__bfloat162float(x[idx]) +
-                                   round_bf16(dpv * y));
-  }
-}
 
 int launch_f32(const AttnArgs& a, cudaStream_t stream) {
   const int nW = a.B * (a.Hp / a.ws) * (a.Wp / a.ws);
@@ -682,43 +342,332 @@ int launch_f32(const AttnArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bf16(const AttnArgs& a, cudaStream_t stream) {
-  if (a.C % 16 != 0 || (a.C / a.H) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_window_head_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemTc);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so the next launch reads its own
-    return static_cast<int>(err);
+
+// ---------------------------------------------------------------------------
+// bf16: cast_weights, ln_rows, qkv_window_attn, then the proj GEMM.
+// ---------------------------------------------------------------------------
+constexpr int kQkvN = 3 * 64;   // [q | k | v] of a head group
+constexpr int kQkvStages = 3;   // xn / Wqkv chunks in flight
+constexpr int kQkvWin = 2;      // windows of a block, one a warpgroup
+using QkvRoles = WarpRoles<kQkvWin>;  // and one producer warp
+
+struct QkvSmem {  // at the 1024-aligned start of dynamic shared memory
+  bf16 a[kQkvStages][kQkvWin][kWinRows * 64];  // xn: the windows' rows
+  bf16 b[kQkvStages][kQkvN * 64];  // the group's Wqkv rows, 64 channels;
+                                   // b[w] holds warpgroup w's q | k | v
+  uint64_t full[kQkvStages], empty[kQkvStages];
+};
+static_assert(kQkvStages >= kQkvWin, "q | k | v of each warpgroup in b");
+constexpr int kQkvSmemBytes = static_cast<int>(sizeof(QkvSmem)) + 1024;
+
+struct QkvAttnArgs {
+  bf16* o;              // [B, Hp, Wp, C]: attention output before proj
+  const float* bqkv;    // [3C]
+  const float* bias;    // [H, N, N] expanded rel-pos bias
+  const float* mask;    // [nW, N, N] additive mask, or null
+  float scale;          // dh^-1/2
+  int Hp, Wp, C, H, ws, groups, nW;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(QkvRoles::kThreads, 1)
+    qkv_window_attn(const __grid_constant__ CUtensorMap txn,
+                    const __grid_constant__ CUtensorMap tw, QkvAttnArgs a) {
+  constexpr int G = 64 / DH;  // heads of a group
+  QkvSmem& s = *reinterpret_cast<QkvSmem*>(smem_base_1k());
+  const int g = blockIdx.x % a.groups;
+  const int w0 = (blockIdx.x / a.groups) * kQkvWin;  // the block's windows
+  const int ws = a.ws, N = ws * ws, C = a.C;
+  const int nk = (C + 63) / 64;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kQkvStages; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], QkvRoles::kConsumerWarps);
+    }
+    fence_barrier_init();
   }
-  const int nW = a.B * (a.Hp / a.ws) * (a.Wp / a.ws);
-  attn_window_head_tc<<<dim3(nW, a.H), kThreads, kSmemTc, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long M = static_cast<long long>(a.B) * a.Hp * a.Wp;
-  attn_proj_residual_tc<<<dim3(static_cast<unsigned>((M + 63) / 64),
-                               (a.C + 63) / 64),
-                          kThreads, 0, stream>>>(a);
+  if (N < kWinRows) {  // rows >= N of the xn stages stay zero (TMA writes N)
+    const int per_tile = (kWinRows - N) * 8;  // 16-byte pieces
+    for (int i = threadIdx.x; i < kQkvStages * kQkvWin * per_tile;
+         i += blockDim.x) {
+      bf16* tile = s.a[0][0] + (i / per_tile) * kWinRows * 64;
+      *reinterpret_cast<uint4*>(tile + N * 64 + (i % per_tile) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence_async_smem();
+  }
+  __syncthreads();
+  const int wg = warpgroup_index();
+  if (wg == kQkvWin) {  // the producer warp
+    if (threadIdx.x == QkvRoles::kProducerThread) {
+      for (int i = 0; i < nk; ++i) {
+        const int st = i % kQkvStages;
+        mbar_wait(&s.empty[st], ((i / kQkvStages) & 1) ^ 1);
+        mbar_expect_tx(&s.full[st], (kQkvWin * N + kQkvN) * 128);
+        for (int j = 0; j < kQkvWin; ++j) {  // past the last: its copy
+          const WindowAt wj(min(w0 + j, a.nW - 1), a.Hp, a.Wp, ws);
+          tma_load_4d(s.a[st][j], &txn, &s.full[st], i * 64, wj.x0, wj.y0,
+                      wj.b);
+        }
+        for (int p = 0; p < 3; ++p)  // q, k, v rows of the group's heads
+          tma_load_2d(s.b[st] + p * 64 * 64, &tw, &s.full[st], i * 64,
+                      p * C + g * 64);
+      }
+    }
+    return;
+  }
+  // consumer warpgroup wg: window w0 + wg
+  const WindowAt win(min(w0 + wg, a.nW - 1), a.Hp, a.Wp, ws);
+
+  // [q | k | v] = xn Wqkv_g^T: 64 x 192, f32
+  // (no other instruction touches acc until the last wait, as in gemm_sm90)
+  float acc[kQkvN / 2];
+  for (int i = 0; i < nk; ++i) {
+    const int st = i % kQkvStages;
+    mbar_wait_warp(&s.full[st], (i / kQkvStages) & 1);
+    const uint64_t da = sw128_desc(s.a[st][wg]), db = sw128_desc(s.b[st]);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      Wg<kQkvN>::ss<0, 0>(acc, da + ks * kDescKStep, db + ks * kDescKStep,
+                          i > 0 || ks > 0);
+    wg_commit();
+    wg_wait<1>();
+    if (i > 0) warp_arrive(&s.empty[(i - 1) % kQkvStages]);
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+  // both warpgroups' products are done: the stages are free
+  asm volatile("bar.sync 3, %0;\n" ::"n"(kQkvWin * kWgThreads) : "memory");
+  if (w0 + wg >= a.nW) return;  // an odd last window: nothing to write
+
+  // + bias, rounded; q times the rounded scale, rounded: three swizzled
+  // 64 x 64 tiles (q, k, v of the group's heads) in b[wg]
+  unsigned char* t = reinterpret_cast<unsigned char*>(s.b[wg]);
+  const int tid = threadIdx.x % kWgThreads, lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  const float sc = round_bf16(a.scale);
+#pragma unroll
+  for (int i = 0; i < kQkvN / 8; ++i) {
+    const int part = i / 8, col = 8 * (i % 8) + c0, ch = g * 64 + col;
+    // channels >= C: the heads that pad H to a multiple of G (never read)
+    const float* bp = a.bqkv + part * C + ch;
+    const float b0 = ch < C ? bp[0] : 0.f, b1 = ch + 1 < C ? bp[1] : 0.f;
+    float v[4] = {round_bf16(acc[4 * i] + b0), round_bf16(acc[4 * i + 1] + b1),
+                  round_bf16(acc[4 * i + 2] + b0),
+                  round_bf16(acc[4 * i + 3] + b1)};
+    if (part == 0)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] *= sc;
+    unsigned char* tp = t + part * kWinRows * 128;
+    store_bf16x2(reinterpret_cast<bf16*>(tp + sw128_off(r0, col)), v[0],
+                 v[1]);
+    store_bf16x2(reinterpret_cast<bf16*>(tp + sw128_off(r0 + 8, col)), v[2],
+                 v[3]);
+  }
+  fence_async_smem();
+  wg_bar(wg);
+
+  const uint64_t dq = sw128_desc(t), dk = sw128_desc(t + kWinRows * 128),
+                 dv = sw128_desc(t + 2 * kWinRows * 128);
+  for (int h = 0; h < G; ++h) {
+    const int head = g * G + h;
+    if (head >= a.H) break;
+    const uint64_t hoff = (h * DH * 2) >> 4;  // the head's columns
+    // S = q k^T (64 x 64, K = dh)
+    float sacc[32];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      Wg<64>::ss<0, 0>(sacc, dq + hoff + ks * kDescKStep,
+                       dk + hoff + ks * kDescKStep, ks > 0);
+    wg_commit();
+    // the rel-pos bias and the mask, loaded while the product runs (0 for
+    // rows >= N, which are finite and never written)
+    const float* bias_h = a.bias + static_cast<size_t>(head) * N * N;
+    const float* mask_w =
+        a.mask ? a.mask + static_cast<size_t>(win.wi) * N * N : nullptr;
+    float bh[32], mk[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = r0 + 8 * ((e >> 1) & 1), col = 8 * (e >> 2) + c0 + (e & 1);
+      const bool in = r < N && col < N;
+      bh[e] = in ? bias_h[r * N + col] : 0.f;
+      mk[e] = in && mask_w ? mask_w[r * N + col] : 0.f;
+    }
+    wg_wait<0>();
+    fence_regs(sacc);
+    // + rel-pos bias + mask, f32 softmax over the N keys
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * i + c0 + (e & 1);
+        float v = -INFINITY;
+        if (col < N) {
+          v = sacc[4 * i + e] + bh[4 * i + e];
+          if (mask_w) v += mk[4 * i + e];
+        }
+        sacc[4 * i + e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ex = expf(sacc[4 * i + e] - mx[e >> 1]);
+        sacc[4 * i + e] = ex;
+        sum[e >> 1] += ex;
+      }
+    sum[0] = quad_sum(sum[0]);
+    sum[1] = quad_sum(sum[1]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[4 * i + e] /= sum[e >> 1];
+    uint32_t p[4][4];
+    acc_to_a(p, sacc);  // p rounded to bf16
+    // O = P V_h (64 x dh, K = 64 keys; V MN-major)
+    float o[DH / 2];
+    fence_regs(p);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wg<DH>::template rs<1>(o, p[kk], dv + hoff + kk * kDescRows16, kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    bf16* O = a.o + head * DH;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      const int col = 8 * i + c0;
+      if (r0 < N)
+        store_bf16x2(O + win.token(r0, a.Hp, a.Wp, ws) * C + col, o[4 * i],
+                     o[4 * i + 1]);
+      if (r0 + 8 < N)
+        store_bf16x2(O + win.token(r0 + 8, a.Hp, a.Wp, ws) * C + col,
+                     o[4 * i + 2], o[4 * i + 3]);
+    }
+  }
+}
+
+// out = x + round(round(dp) * round(o Wproj^T + bproj)), rounded
+struct EpiResidual {
+  const bf16* x;
+  bf16* out;
+  const float* bproj;
+  const float* dp;
+  int C;
+  long long hw;
+  __device__ void operator()(int m, int n, int, const float (&v)[8]) const {
+    const float dpv = round_bf16(dp ? dp[m / hw] : 1.f);
+    const long long idx = static_cast<long long>(m) * C + n;
+    float xs[8], w[8];
+    unpack8(ld16(x + idx), xs);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      w[j] = xs[j] + round_bf16(dpv * round_bf16(v[j] + bproj[n + j]));
+    store_bf16x8(out + idx, w);
+  }
+};
+
+// the workspace, carved in one order for measuring and for use
+struct FwdWork {
+  bf16 *wqkv_b, *wproj_b, *xn, *o;
+  float *mu, *rstd;
+  void* o_f32;
+  FwdWork(Carver& cv, int B, int Hp, int Wp, int C, int H, int is_bf16) {
+    const long long T = static_cast<long long>(B) * Hp * Wp;
+    if (!is_bf16) {  // the f32 kernels' attention output
+      o_f32 = cv.take<float>(T * C);
+      return;
+    }
+    wqkv_b = cv.take<bf16>(3LL * C * C);
+    wproj_b = cv.take<bf16>(static_cast<size_t>(C) * C);
+    xn = cv.take<bf16>(T * C);
+    o = cv.take<bf16>(T * C);
+    mu = cv.take<float>(T);
+    rstd = cv.take<float>(T);
+  }
+  static int head_groups(int C, int H) {
+    const int G = 64 / (C / H);
+    return (H + G - 1) / G;
+  }
+};
+
+template <int DH>
+int launch_qkv_window_attn(const CUtensorMap& txn, const CUtensorMap& tw,
+                           const QkvAttnArgs& qa, int nW, cudaStream_t s) {
+  static std::atomic<unsigned long long> smem_set{0};
+  SWIN_TRY(smem_limit_once(
+      smem_set, reinterpret_cast<const void*>(qkv_window_attn<DH>),
+      kQkvSmemBytes));
+  qkv_window_attn<DH><<<(nW + kQkvWin - 1) / kQkvWin * qa.groups,
+                        QkvRoles::kThreads, kQkvSmemBytes, s>>>(txn, tw, qa);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(const AttnArgs& a, const FwdWork& w, cudaStream_t s) {
+  const int C = a.C, dh = C / a.H, groups = FwdWork::head_groups(C, a.H);
+  const int T = a.B * a.Hp * a.Wp;
+  const bf16* x = static_cast<const bf16*>(a.x);
+  SWIN_TRY(launch_cast_weights<K1f>(a.wqkv, a.wproj, w.wqkv_b, w.wproj_b, C,
+                                    s));
+  SWIN_TRY(launch_ln_rows_bf16<K1f>(x, a.ln_s, a.ln_b, w.xn, w.mu, w.rstd, T,
+                                    C, s));
+  CUtensorMap txn, tw;
+  SWIN_TRY(make_map_window(&txn, w.xn, a.B, a.Hp, a.Wp, C, a.ws));
+  SWIN_TRY(make_map_2d(&tw, w.wqkv_b, C, 3 * C, C, 64));
+  const int nW = a.B * (a.Hp / a.ws) * (a.Wp / a.ws);
+  const QkvAttnArgs qa{w.o, a.bqkv, a.bias, a.mask, a.scale, a.Hp,
+                       a.Wp, C, a.H, a.ws, groups, nW};
+  SWIN_TRY(dh == 32 ? launch_qkv_window_attn<32>(txn, tw, qa, nW, s)
+                    : launch_qkv_window_attn<16>(txn, tw, qa, nW, s));
+  return gemm_run<false, false>(
+      w.o, C, w.wproj_b, C, T, C, C, (C + kGemmK - 1) / kGemmK * kGemmK,
+      EpiResidual{x, static_cast<bf16*>(a.out), a.bproj, a.dp, C,
+                  static_cast<long long>(a.Hp) * a.Wp},
+      s);
+}
+
+bool fwd_dims_ok(int B, int Hp, int Wp, int C, int H, int ws, int is_bf16) {
+  if (B < 1 || ws < 1 || ws * ws > kMaxN || H < 1 || C % H != 0 ||
+      C / H > 32 || Hp % ws != 0 || Wp % ws != 0)
+    return false;
+  return !is_bf16 || ((C / H == 16 || C / H == 32) && C % 8 == 0);
 }
 
 }  // namespace swin
 
-extern "C" int swin_attn_fwd(const void* x, void* out, void* o_scratch,
+extern "C" long long swin_attn_fwd_workspace(int B, int Hp, int Wp, int C,
+                                             int H, int ws, int is_bf16) {
+  if (!swin::fwd_dims_ok(B, Hp, Wp, C, H, ws, is_bf16)) return 0;
+  swin::Carver cv{nullptr};
+  swin::FwdWork w(cv, B, Hp, Wp, C, H, is_bf16);
+  return static_cast<long long>(cv.off);
+}
+
+// work: swin_attn_fwd_workspace bytes.
+extern "C" int swin_attn_fwd(const void* x, void* out, void* work,
                              const float* ln_s, const float* ln_b,
                              const float* wqkv, const float* bqkv,
                              const float* wproj, const float* bproj,
                              const float* bias, const float* mask,
-                             const float* dp, float scale, int B, int Hp,
-                             int Wp, int C, int H, int ws, int is_bf16,
-                             void* stream) {
-  if (ws * ws > swin::kMaxN || C % H != 0 || C / H > 32 || Hp % ws != 0 ||
-      Wp % ws != 0)
+                             const float* dp, float scale,
+                             int B, int Hp, int Wp, int C, int H, int ws,
+                             int is_bf16, void* stream) {
+  if (!swin::fwd_dims_ok(B, Hp, Wp, C, H, ws, is_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
-  swin::AttnArgs a{x,    out,  o_scratch, ln_s, ln_b, wqkv, bqkv, wproj,
-                   bproj, bias, mask,      dp,   scale, B,   Hp,   Wp,
-                   C,     H,    ws};
+  swin::Carver cv{static_cast<char*>(work)};
+  const swin::FwdWork w(cv, B, Hp, Wp, C, H, is_bf16);
+  swin::AttnArgs a{x,     out,  is_bf16 ? nullptr : w.o_f32,
+                   ln_s,  ln_b, wqkv, bqkv, wproj, bproj, bias, mask, dp,
+                   scale, B,    Hp,   Wp,   C,     H,     ws};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? swin::launch_bf16(a, s) : swin::launch_f32(a, s);
+  return is_bf16 ? swin::launch_bf16(a, w, s)
+                 : swin::launch_f32(a, s);
 }

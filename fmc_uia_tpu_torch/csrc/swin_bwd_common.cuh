@@ -1,4 +1,5 @@
-// Building blocks of the Swin branch backward kernels (K1b, K2b), sm_90a:
+// Building blocks of the Swin branch backward kernels (K2b, and K1b in f32;
+// the bf16 K1b runs on sm90_gemm.cuh and swin_attn_sm90.cuh), sm_90a:
 // a tiled matrix product with split-K, the f32 LayerNorm forward and
 // backward over token rows, row scaling, column sums and a fixed-order
 // reduction of per-block partial sums.

@@ -1,6 +1,7 @@
 // Helpers shared by the ViT global-attention kernels (K4f, K4b): the
 // [B, H, N, dh] layouts they read, quad reductions and the f32 kernels'
-// row helpers (the bf16 kernels' Hopper pieces: vit_flash_sm90.cuh).
+// row helpers (the bf16 kernels' Hopper pieces: sm90_common.cuh and
+// vit_flash_sm90.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,7 +9,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace vitfa {
+
+using namespace sm90;  // smem_u32, pack_bf16 and the Hopper pieces
 
 typedef __nv_bfloat16 bf16;
 
@@ -28,15 +33,6 @@ struct Layout {
 __device__ __forceinline__ long long head_off(const Layout& l, int b,
                                               int h) {
   return b * l.b + h * l.h;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float quad_max(float v) {

@@ -18,6 +18,7 @@ as a divide of the branch output, the two roundings of the JAX DropPath.
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence
 
 import numpy as np
@@ -318,7 +319,14 @@ def build_swin(name: str, config=None, dtype=torch.float32) -> SwinEncoder:
     """The port's Swin: the attention half always runs the fused branch;
     ``model.encoder.fused_mlp`` (default on) routes the C <= 256 MLP halves
     through the fused MLP branch; ``model.encoder.drop_path_rate`` (default
-    0.1) sets the stochastic depth of train mode."""
+    0.1) sets the stochastic depth of train mode.
+
+    Raises ``NotImplementedError`` where the JAX package would take a path
+    the port lacks: ``fused_block: false``, or a ``fused_stages`` list that
+    leaves out a stage (those stages would run the unfused XLA attention,
+    with bf16 scores under ``softmax_bf16``); and, with the fused MLP on,
+    ``FMC_FUSED_MLP_MAX_C`` set to other than 256 (the fused MLP kernels
+    take C <= 256)."""
     if name not in _SWIN_VARIANTS:
         raise ValueError(
             f"Unknown swin variant {name!r}; have {sorted(_SWIN_VARIANTS)}")
@@ -333,7 +341,23 @@ def build_swin(name: str, config=None, dtype=torch.float32) -> SwinEncoder:
                 "model.encoder.fused_block=false (the unfused XLA attention "
                 "path) is not ported; the port always runs the fused "
                 "attention branch (ROADMAP: port queue)")
+        stages = config.get("model.encoder.fused_stages")
+        missing = (sorted(set(range(len(kwargs["depths"])))
+                          - {int(st) for st in stages})
+                   if stages is not None else [])
+        if missing:
+            raise NotImplementedError(
+                f"model.encoder.fused_stages={list(stages)} leaves stages "
+                f"{missing} to the unfused XLA attention path, which is not "
+                "ported; the port runs the fused attention branch on every "
+                "stage (ROADMAP queue 1 item 8)")
         fused_mlp = bool(config.get("model.encoder.fused_mlp", True))
+    max_c = os.environ.get("FMC_FUSED_MLP_MAX_C")
+    if fused_mlp and max_c is not None and int(max_c) != FUSED_MLP_MAX_C:
+        raise NotImplementedError(
+            f"FMC_FUSED_MLP_MAX_C={max_c}: the port's fused MLP kernels "
+            f"take C <= {FUSED_MLP_MAX_C} only, the JAX package's gate "
+            "(ROADMAP queue 2b item 3, K2f/K2b)")
     return SwinEncoder(window_size=window, ln_bf16=ln_bf16,
                        fused_mlp=fused_mlp, drop_path_rate=drop_path,
                        dtype=dtype, **kwargs)

@@ -20,7 +20,15 @@ compute dtype (``x.dtype``) at the same points as the JAX kernel. Each
 wrapper counts its launches in ``.launches``.
 
 Weights are the port's f32 params in PyTorch layout (``[out, in]``); the
-kernels round them to the compute dtype themselves.
+kernels round them to the compute dtype themselves (bf16: into a bf16
+workspace that TMA reads, once per launch).
+
+The bf16 attention kernels run on Hopper's TMA and wgmma
+(``csrc/sm90_gemm.cuh``, ``csrc/swin_attn_sm90.cuh``). What they take from
+the host is computed here, where the CPU tests hold it: the window box of
+the [B, Hp, Wp, C] tensor maps (``window_tma_layout``), the head groups
+of the window kernels (``head_groups``) and the token slots of K1b's
+split-K weight gradients (``split_k_plan``).
 """
 
 from __future__ import annotations
@@ -216,6 +224,70 @@ def _check_dy(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return dy
 
 
+# the Hopper GEMM's tile (csrc/sm90_gemm.cuh kGemmM, kGemmN, kGemmK) and
+# the split-K budget: at most 256 slot tiles of 128 x 128 f32 partials
+# (16 MB), at least 1024 tokens a slot
+GEMM_M, GEMM_N, GEMM_K = 128, 128, 64
+SPLIT_TILES, SPLIT_MIN_K = 256, 1024
+
+
+def window_tma_layout(t: torch.Tensor, ws: int):
+    """The rank-4 TMA map the bf16 K1 kernels encode for a [B, Hp, Wp, C]
+    bf16 grid (``make_map_window``): dims innermost first (C, Wp, Hp, B),
+    the byte strides of Wp, Hp and B, and the box (64, ws, ws, 1) that
+    brings one window's N = ws^2 tokens as N rows of 64 channels. Raises
+    ``ValueError`` on what TMA cannot take: not bf16, a channel axis that
+    is not contiguous, a base or a stride that is not a multiple of 16
+    bytes (C % 8 != 0), a stride of 2^40 bytes or more, or a grid that
+    windows of ws do not tile."""
+    if t.dim() != 4:
+        raise ValueError(f"TMA grid: [B, Hp, Wp, C], got {tuple(t.shape)}")
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"TMA grid: bfloat16, got {t.dtype}")
+    B, Hp, Wp, C = t.shape
+    if not 1 <= ws <= 8 or Hp % ws or Wp % ws:
+        raise ValueError(f"TMA grid: windows of {ws} do not tile "
+                         f"({Hp}, {Wp})")
+    if t.stride(-1) != 1:
+        raise ValueError(f"TMA grid: channel stride {t.stride(-1)} != 1")
+    if t.data_ptr() % 16:
+        raise ValueError(f"TMA grid: base address {t.data_ptr():#x} not "
+                         "16-byte aligned")
+    es = t.element_size()
+    strides = tuple(st * es for st in (t.stride(2), t.stride(1),
+                                       t.stride(0)))
+    for name, sb in zip(("Wp", "Hp", "B"), strides):
+        if sb % 16 or not 0 < sb < 2 ** 40:
+            raise ValueError(f"TMA grid: {name} stride of {sb} bytes (a "
+                             "multiple of 16 below 2^40 needed)")
+    return (C, Wp, Hp, B), strides, (64, ws, ws, 1)
+
+
+def head_groups(C: int, num_heads: int):
+    """(G, groups): heads per group (64 / dh, so that a group's q, k or v
+    is 64 channels: group g's are channels p C + 64 g .. + 63 of qkv, p =
+    0, 1, 2) and groups (heads padded up to a multiple of G)."""
+    dh = C // num_heads
+    if dh not in (16, 32):
+        raise ValueError(f"head dim {dh}: the bf16 kernels take 16 or 32")
+    G = 64 // dh
+    return G, -(-num_heads // G)
+
+
+def split_k_plan(M: int, N: int, K: int):
+    """The token slots of a split-K weight gradient (M x N over K tokens),
+    as ``gemm_run`` runs it: (kchunk, slots). Slot z covers tokens
+    [z kchunk, min(K, (z + 1) kchunk)); kchunk is a multiple of GEMM_K;
+    slots x tiles stays within SPLIT_TILES (the partials within 16 MB)
+    and a slot holds at least SPLIT_MIN_K tokens where K allows. The
+    slots are added in index order (reduce_slots)."""
+    tiles = -(-M // GEMM_M) * -(-N // GEMM_N)
+    s = max(1, min(SPLIT_TILES // tiles, -(-K // SPLIT_MIN_K)))
+    per = -(-K // s)  # tokens a slot, then rounded up to whole chunks
+    kchunk = -(-per // GEMM_K) * GEMM_K
+    return kchunk, -(-K // kchunk)
+
+
 def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -237,9 +309,9 @@ def _attn_kernel_args(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
         raise ValueError(f"padded grid ({Hp},{Wp}) not divisible by {ws}")
     if C % num_heads or C // num_heads > 32:
         raise ValueError(f"C={C}, heads={num_heads}: need head dim <= 32")
-    if x.dtype == torch.bfloat16 and (C % 16 or (C // num_heads) % 16):
-        raise ValueError(f"bf16 kernel: C={C} and head dim "
-                         f"{C // num_heads} must be multiples of 16")
+    if x.dtype == torch.bfloat16:
+        head_groups(C, num_heads)  # head dim 16 or 32
+        window_tma_layout(x, ws)   # the workspace grids are laid out as x
     dev = x.device
     args = [_f32_on(t, dev, shape, what) for t, shape, what in (
         (ln_scale, (C,), "ln_scale"), (ln_bias, (C,), "ln_bias"),
@@ -254,6 +326,17 @@ def _attn_kernel_args(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     return args, mask, dp
 
 
+_workspace_bytes = {}
+
+
+def _workspace(lib, *dims) -> int:
+    """Bytes of ``lib``'s scratch for ``dims``, asked once per shape."""
+    key = (lib, dims)
+    if key not in _workspace_bytes:
+        _workspace_bytes[key] = build.load(lib, lib + "_workspace")(*dims)
+    return _workspace_bytes[key]
+
+
 def _attention_forward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                        bias_hnn, mask, num_heads: int, dp=None):
     if x.device.type == "cpu":
@@ -265,13 +348,15 @@ def _attention_forward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                                        num_heads, dp)
     B, Hp, Wp, C = x.shape
     ws = math.isqrt(bias_hnn.shape[-1])
+    bf = int(x.dtype == torch.bfloat16)
     out = torch.empty_like(x)
-    scratch = torch.empty_like(x)
+    nbytes = _workspace("swin_attn_fwd", B, Hp, Wp, C, num_heads, ws, bf)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     rc = build.load("swin_attn_fwd")(
-        x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        x.data_ptr(), out.data_ptr(), work.data_ptr(),
         *[t.data_ptr() for t in args], _ptr(mask), _ptr(dp),
-        (C // num_heads) ** -0.5, B, Hp, Wp, C, num_heads, ws,
-        int(x.dtype == torch.bfloat16), _stream(x))
+        (C // num_heads) ** -0.5, B, Hp, Wp, C, num_heads, ws, bf,
+        _stream(x))
     if rc != 0:
         raise RuntimeError(f"swin_attn_fwd launch failed: CUDA error {rc}")
     attention_branch.launches += 1
@@ -303,15 +388,17 @@ def attention_branch_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
         (C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,),
         (num_heads, N, N))]
     dx = torch.empty_like(x)
-    nbytes = build.load("swin_attn_bwd", "swin_attn_bwd_workspace")(
-        B, Hp, Wp, C, num_heads, ws, bf)
+    T = B * Hp * Wp
+    kchunks = (split_k_plan(C, C, T)[0], split_k_plan(3 * C, C, T)[0])
+    nbytes = _workspace("swin_attn_bwd", B, Hp, Wp, C, num_heads, ws, bf,
+                        *kchunks)
     work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     rc = build.load("swin_attn_bwd")(
         x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         *[t.data_ptr() for t in args], _ptr(mask), _ptr(dp),
         *[g.data_ptr() for g in grads], work.data_ptr(),
         (C // num_heads) ** -0.5, B, Hp, Wp, C, num_heads, ws, bf,
-        _stream(x))
+        *kchunks, _stream(x))
     if rc != 0:
         raise RuntimeError(f"swin_attn_bwd launch failed: CUDA error {rc}")
     attention_branch_backward.launches += 1

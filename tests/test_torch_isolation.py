@@ -180,3 +180,46 @@ def test_unported_vit_paths_raise():
             model={"encoder": {"name": name}}).config)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, device="cpu")
+
+
+def _swin_cfg(**enc):
+    enc = dict({"name": "swin_nano", "window_size": 8}, **enc)
+    return Config(config_dict=make_tiny_config(
+        model={"encoder": enc}).config)
+
+
+def _structure(enc):
+    return ([(n, tuple(p.shape)) for n, p in enc.named_parameters()],
+            [m.fused_mlp for m in enc.modules() if hasattr(m, "fused_mlp")])
+
+
+def test_fused_stages_leaving_out_a_stage_raises():
+    from fmc_uia_tpu_torch.models.encoders.swin import build_swin
+
+    for stages in ([0, 1], [1, 2, 3], []):
+        with pytest.raises(NotImplementedError,
+                           match="fused_stages.*ROADMAP queue 1 item 8"):
+            build_swin("swin_nano", _swin_cfg(fused_stages=stages))
+
+
+def test_fused_stages_all_or_none_builds_the_same_encoder():
+    from fmc_uia_tpu_torch.models.encoders.swin import build_swin
+
+    base = build_swin("swin_nano", _swin_cfg())
+    for stages in (None, [0, 1, 2, 3], [3, 2, 1, 0]):
+        enc = build_swin("swin_nano", _swin_cfg(fused_stages=stages))
+        assert _structure(enc) == _structure(base)
+
+
+def test_fused_mlp_max_c_other_than_256_raises(monkeypatch):
+    from fmc_uia_tpu_torch.models.encoders.swin import build_swin
+
+    monkeypatch.setenv("FMC_FUSED_MLP_MAX_C", "512")
+    with pytest.raises(NotImplementedError,
+                       match="FMC_FUSED_MLP_MAX_C=512.*ROADMAP"):
+        build_swin("swin_nano", _swin_cfg())
+    # the gate only matters where the fused MLP is on, as in the JAX package
+    build_swin("swin_nano", _swin_cfg(fused_mlp=False))
+    monkeypatch.setenv("FMC_FUSED_MLP_MAX_C", "256")
+    assert _structure(build_swin("swin_nano", _swin_cfg())) == _structure(
+        build_swin("swin_nano", _swin_cfg(fused_stages=[0, 1, 2, 3])))
