@@ -8,35 +8,44 @@ pass):
 
 1. env — the card's name and power limit, and the kernels' build time
    (nvcc, from ``fmc_uia_tpu_torch/csrc``), ptxas' registers, spills and
-   wgmma serialisation notes, and the HGMMA / UTMALDG / HMMA counts of the
-   SASS (``cuobjdump``) of the K4 kernels and of the K1 functions that run
-   a product (``K1_PRODUCTS``): a bf16 one without HGMMA and UTMALDG
-   fails, and so does any HMMA (a WMMA product) in the K1 libraries.
+   wgmma serialisation notes (C7512 / C7515), and the HGMMA / UTMALDG /
+   HMMA counts of the SASS (``cuobjdump``) of the K4 kernels and of the K1
+   and K2 functions that run a product (``PRODUCTS``): a bf16 one without
+   HGMMA and UTMALDG fails, and so does any HMMA (a WMMA product) in the
+   K1 and K2 libraries.
 2. kernels — each hand-written forward kernel (K1f, K2f) against its
    plain PyTorch version on the card, in f32 (TF32 off) and bf16, at the
-   swin_b 512² stage shapes of a batch of 8 (shifted and unshifted), a
-   padded grid, a window-7 case and a head-dim-16 case; max error against
-   the stated tolerance (scaled to the branch, not to the residual);
-   CUDA-event medians of one call of the kernel, the plain version and
-   the bound; for K1f also ``ms_10``, per call of 10 back-to-back calls
-   (device time without the host's launch gaps), and for bf16 K1f the
-   library chain (``k1_chain``: layer_norm, linear, SDPA with the bias and
-   mask as attn_mask, linear, residual) as ``chain_ms`` and
-   ``chain_ms_10``, for information only, and the host time of one K1f
-   call with the card idle (``host_ms``).
+   swin_b 512² stage shapes of a batch of 8 (K1f: four stages, shifted
+   and unshifted, a padded grid, a window-7 case and a head-dim-16 case;
+   K2f: stages 0 and 1, swin_t's widths C = 96 and 192, C = 32, 64, 160
+   and 224, so that every instance the library builds runs, and a ragged
+   case of 147 tokens whose dp changes inside a 128-token tile); max error
+   against the stated tolerance (scaled to the branch, not to the
+   residual); at the stage shapes CUDA-event medians of one call of the
+   kernel, the plain version and the bound; in bf16 also ``ms_10``, per
+   call of 10 back-to-back calls (device time without the host's launch
+   gaps), the library chain (``k1_chain``: layer_norm, linear, SDPA with
+   the bias and mask as attn_mask, linear, residual; ``k2_chain``:
+   layer_norm, linear, gelu(tanh), linear, residual) as ``chain_ms`` and
+   ``chain_ms_10``, for information only, and the host time of one call
+   with the card idle (``host_ms``).
 2b. backward kernels — K1b and K2b against their plain backward versions,
    f32 and bf16, at the stage shapes of the B=24 train step (K1b at all
    four stages, shifted and unshifted, a padded grid and a window-7 case;
-   K2b at stages 0/1): dx per element (one ulp of its own magnitude plus
-   1e-4 / 4 bf16 ulps of max|dx - dy|), every weight/bias grad within
-   1e-3 (f32) / 2e-2 (bf16) of its largest magnitude; kernel, plain and
-   bound ms (one call; K1b also ``ms_10`` and ``host_ms`` as K1f), and
-   the chain's autograd backward as K1b's ``chain_ms`` and
-   ``chain_ms_10``.
-   bf16 K1b at stage 2 (shifted and not) runs twice on the same inputs
-   and every output must agree bitwise. On the same inputs K1f and K2f are held against their plain
-   forward versions as in phase 2, since the train step runs them at
-   these shapes.
+   K2b at K2f's cases, the stages at B=24): dx per element (one ulp of its
+   own magnitude plus 1e-4 / 4 bf16 ulps of max|dx - dy|), every
+   weight/bias grad within 1e-3 (f32) / 2e-2 (bf16) of its largest
+   magnitude; at the stage shapes kernel, plain and bound ms (one call),
+   and in bf16 ``ms_10``, ``host_ms`` and the chain's autograd backward as
+   ``chain_ms`` and ``chain_ms_10``; for bf16 K2b also ``floor_ms``, the
+   bytes its passes move (``k2b_pass_bytes``) at the HBM rate (printed
+   and kept per case, not in the kernels line), and its workspace against
+   ``mlp_bwd_plan``'s (the host's mirror of the carving, which sizes the
+   buffer; a difference fails). bf16 K1b at stage 2 (shifted and not)
+   and bf16 K2b at stage 0 run twice on the same inputs and every output
+   must agree bitwise. On the same inputs K1f and K2f are held against
+   their plain forward versions as in phase 2, since the train step runs
+   them at these shapes.
 2c. K3 — the fused photometric preprocessing kernel
    against its plain version at B=24, 512², f32 and bf16: sigma = 0 with
    alpha/beta that saturate both clips (bitwise); p = 1 for both ops with
@@ -80,8 +89,10 @@ pass):
    step per type; a timed round-robin of at least 10 s (img/s, ms per step
    per type from CUDA events, peak memory), the launch counters zeroed just
    before it and required to rise by 24/24/4/4 (K1f/K1b/K2f/K2b) per step,
-   every loss finite; one profiled step per type (device-time shares by
-   kernel group, ``chiprun_out/profile_train_step.txt``); ten steps on one
+   every loss finite; the host ms of enqueueing one step per type with
+   the card idle; one profiled step per type (device-time shares by
+   kernel group, K1f, K2f, K2b and K1b apart by kernel name and pass tag,
+   ``chiprun_out/profile_train_step.txt``); ten steps on one
    fixed batch per type (a bright square to segment, detect or locate; a
    bright or dark image to classify), whose last three losses must average
    below the first; one step's grads in f32 on the card against f32 on the
@@ -123,6 +134,14 @@ The line before the card's name is ``{"kernels": [...]}`` (K1f/K2f
 launches from phase 4, K1b/K2b from phase 5, K3 from phase 6, K4f from
 phase 7, K4b from phase 8); the last line is ``{"ok": true, "device":
 {...}}``. Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --staged-train
+
+runs phase 5's staged flagship training alone (warm-up, the timed
+round-robin, the enqueue ms and one profiled round; no checks beyond the
+launch counts and finite losses) and prints one JSON line. Copied into
+the root of another tree of the port, it times that tree the same way,
+so that two trees compare within one call on one card.
 """
 
 from __future__ import annotations
@@ -235,21 +254,25 @@ def check_branch(out, ref, x, dtype, what):
                 excess_err=excess, tol=tol)
 
 
-# the bf16 K1 functions that run a product: each must use wgmma and TMA
+# the bf16 K1 and K2 functions that run a product: each must use wgmma and
+# TMA, and their libraries hold no WMMA / mma.sync product
 K1_PRODUCTS = {"swin_attn_fwd": ("qkv_window_attn", "gemm_sm90"),
                "swin_attn_bwd": ("attn_core_bwd_sm90", "gemm_sm90")}
+K2_PRODUCTS = {"swin_mlp_fwd": ("mlp_fwd_sm90",),
+               "swin_mlp_bwd": ("mlp_dual_sm90", "gemm_sm90")}
+PRODUCTS = {**K1_PRODUCTS, **K2_PRODUCTS}
 
 
 def check_sass(build):
-    """The bf16 K4 kernels, and every bf16 K1 function that runs a product
-    (``K1_PRODUCTS``), as built must run their products on wgmma (HGMMA)
-    and their loads by TMA (UTMALDG), and the K1 libraries must hold no
-    WMMA / mma.sync product (HMMA) any more: counts per kernel from
+    """The bf16 K4 kernels, and every bf16 K1 and K2 function that runs a
+    product (``PRODUCTS``), as built must run their products on wgmma
+    (HGMMA) and their loads by TMA (UTMALDG), and the K1 and K2 libraries
+    must hold no WMMA / mma.sync product (HMMA): counts per kernel from
     ``cuobjdump -sass`` of the built libraries."""
     tool = os.path.join(os.path.dirname(os.path.dirname(build._nvcc())),
                         "bin", "cuobjdump")
     counts = {}
-    for k in ("vit_flash_fwd", "vit_flash_bwd", *K1_PRODUCTS):
+    for k in ("vit_flash_fwd", "vit_flash_bwd", *PRODUCTS):
         out = subprocess.run([tool, "-sass", str(build.lib_path(k))],
                              capture_output=True, text=True, timeout=120)
         if out.returncode != 0:
@@ -265,8 +288,8 @@ def check_sass(build):
                     mine[fn][op] += op in line
         for fn, c in mine.items():
             counts[f"{k}:{fn}"] = c
-            if k in K1_PRODUCTS:
-                product = any(p in fn for p in K1_PRODUCTS[k])
+            if k in PRODUCTS:
+                product = any(p in fn for p in PRODUCTS[k])
                 if product or c["HGMMA"] or c["HMMA"]:
                     log(f"  sass {k} {fn}: {c}")
                 if c["HMMA"]:
@@ -278,11 +301,9 @@ def check_sass(build):
                 log(f"  sass {fn}: {c}")
                 if "bf16" in fn and not (c["HGMMA"] and c["UTMALDG"]):
                     fail(f"{fn}: no HGMMA or UTMALDG in its SASS")
-        for k1, names in K1_PRODUCTS.items():
-            if k == k1:
-                for p in names:
-                    if not any(p in fn for fn in mine):
-                        fail(f"{k}: no {p} kernel in its SASS")
+        for p in PRODUCTS.get(k, ()):
+            if not any(p in fn for fn in mine):
+                fail(f"{k}: no {p} kernel in its SASS")
     return counts
 
 
@@ -317,28 +338,10 @@ def k1_chain(x, w, mask, dp, H, ws):
     return fn, params
 
 
-def k1_chain_bwd_ms(x, w, mask, dp, H, ws, dy):
-    """ms of the chain's autograd backward alone (one retained forward):
-    one call, and per call of K1_CALLS back-to-back calls."""
-    import torch
-
-    fn, params = k1_chain(x, w, mask, dp, H, ws)
-    leaves = [t.detach().requires_grad_() for t in (x, *params)]
-    out = fn(*leaves)
-
-    def bwd():
-        return torch.autograd.grad(out, leaves, dy, retain_graph=True)
-
-    ms = (cuda_ms(bwd, reps=10, warmup=2),
-          cuda_ms(bwd, reps=10, warmup=0, calls=K1_CALLS))
-    del out, leaves
-    return ms
-
-
 # ---------------------------------------------------------------------------
 # phase 2: kernels
 # ---------------------------------------------------------------------------
-K1_CALLS = 10        # back-to-back calls of K1's ``ms_10``/``chain_ms_10``
+BURST_CALLS = 10     # back-to-back calls of ``ms_10`` / ``chain_ms_10``
 
 
 def attn_cases():
@@ -402,13 +405,64 @@ def mlp_inputs(B, grid, C, dtype, gen, dev):
     return x, w, dp
 
 
-def k1_times(rec) -> str:
-    """K1's times: one call and per call of K1_CALLS back-to-back calls."""
-    out = (f"  {rec['ms']:.3f} ms, {rec['ms_10']:.3f} ms of {K1_CALLS} "
+def mlp_cases(batch):
+    """(label, B, grid, C) of K2f/K2b: the flagship's two fused stages at
+    ``batch`` (swin_b 512²: 128² x 128, 64² x 256), swin_t's widths (224²:
+    56² x 96, 28² x 192), the other widths the bf16 kernels take (C % 32
+    up to 256: 32 and 64, one 64-wide k-chunk; 160 and 224), and a ragged
+    case: 147 tokens (the last 128-token tile holds 19), dp changing
+    inside the first tile (samples of 49)."""
+    return [("stage0", batch, 128, 128), ("stage1", batch, 64, 256),
+            ("swin_t_s0", 2, 56, 96), ("swin_t_s1", 2, 28, 192),
+            ("c32", 2, 16, 32), ("c64", 2, 16, 64), ("c160", 2, 14, 160),
+            ("c224", 1, 14, 224), ("ragged", 3, 7, 128)]
+
+
+def k2_chain(x, w, dp):
+    """K2f as a chain of PyTorch library calls, for information only (never
+    on the port's path): F.layer_norm -> F.linear -> F.gelu(tanh) ->
+    F.linear -> x + dp * y, in x's dtype with the weights cast beforehand.
+    Returns (fn, params): fn(x, *params)."""
+    import torch.nn.functional as F
+
+    B, C, dt = x.shape[0], x.shape[-1], x.dtype
+    params = [w[k].to(dt) for k in ("ln_scale", "ln_bias", "w1", "b1", "w2",
+                                    "b2")]
+    dpv = dp.to(dt).view(B, 1, 1, 1)
+
+    def fn(x, ls, lb, w1, b1, w2, b2):
+        xn = F.layer_norm(x, (C,), ls, lb, eps=1e-6)
+        h = F.gelu(F.linear(xn, w1, b1), approximate="tanh")
+        return x + dpv * F.linear(h, w2, b2)
+
+    return fn, params
+
+
+def chain_bwd_ms(fn, params, x, dy):
+    """ms of a chain's autograd backward alone (one retained forward): one
+    call, and per call of BURST_CALLS back-to-back calls."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in (x, *params)]
+    out = fn(*leaves)
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, dy, retain_graph=True)
+
+    ms = (cuda_ms(bwd, reps=10, warmup=2),
+          cuda_ms(bwd, reps=10, warmup=0, calls=BURST_CALLS))
+    del out, leaves
+    return ms
+
+
+def burst_times(rec) -> str:
+    """K1's and K2's times: one call and per call of BURST_CALLS
+    back-to-back calls."""
+    out = (f"  {rec['ms']:.3f} ms, {rec['ms_10']:.3f} ms of {BURST_CALLS} "
            f"(plain {rec['plain_ms']:.3f}, bound {rec['bound_ms']:.4f}")
     if "chain_ms" in rec:
         out += (f", chain {rec['chain_ms']:.3f}, {rec['chain_ms_10']:.3f} "
-                f"of {K1_CALLS}; host {rec['host_ms']:.3f} a call")
+                f"of {BURST_CALLS}; host {rec['host_ms']:.3f} a call")
     return out + ")"
 
 
@@ -452,7 +506,7 @@ def check_kernels(dev, records):
                 # host's launch gaps (K1f's kernels are short)
                 rec["ms_10"] = cuda_ms(
                     lambda: sb.attention_branch(x, *args, dp=dp),
-                    warmup=0, calls=K1_CALLS)
+                    warmup=0, calls=BURST_CALLS)
                 rec["plain_ms"] = cuda_ms(
                     lambda: sb.attention_branch_reference(x, *args, dp=dp),
                     reps=20, warmup=1)
@@ -463,44 +517,62 @@ def check_kernels(dev, records):
                 fn, params = k1_chain(x, w, mask, dp, H, ws)
                 rec["chain_ms"] = cuda_ms(lambda: fn(x, *params))
                 rec["chain_ms_10"] = cuda_ms(lambda: fn(x, *params),
-                                             warmup=0, calls=K1_CALLS)
+                                             warmup=0, calls=BURST_CALLS)
                 rec["host_ms"] = host_call_ms(
                     lambda: sb.attention_branch(x, *args, dp=dp))
                 del fn, params
             records.append(rec)
             log(f"  K1f {label:12s} {rec['dtype']:8s} {rec['shape']} "
-                + err_text(chk) + (k1_times(rec) if "ms" in rec else ""))
+                + err_text(chk) + (burst_times(rec) if "ms" in rec else ""))
             if dtype == torch.bfloat16 and label.startswith("stage"):
                 summary["attention_branch"].append(rec)
-    for s, (grid, C) in enumerate(((128, 128), (64, 256))):
+    for label, B, grid, C in mlp_cases(BATCH):
         for dtype in (torch.float32, torch.bfloat16):
-            x, w, dp = mlp_inputs(BATCH, grid, C, dtype, gen, dev)
+            x, w, dp = mlp_inputs(B, grid, C, dtype, gen, dev)
             args = (w["ln_scale"], w["ln_bias"], w["w1"], w["b1"], w["w2"],
                     w["b2"])
             out = sb.mlp_branch(x, *args, dp=dp)
             ref = sb.mlp_branch_reference(x, *args, dp=dp)
-            chk = check_branch(out, ref, x, dtype, f"mlp_branch stage{s}")
-            T = BATCH * grid * grid
-            esz = x.element_size()
-            flops = 16 * T * C * C
-            nbytes = 2 * T * C * esz + 4 * (8 * C * C + 7 * C)
-            peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-            rec = dict(kernel="mlp_branch", case=f"stage{s}",
+            chk = check_branch(out, ref, x, dtype, f"mlp_branch {label}")
+            rec = dict(kernel="mlp_branch", case=label,
                        dtype=str(dtype).split(".")[-1],
-                       shape=[BATCH, grid, grid, C], **chk,
-                       ms=cuda_ms(lambda: sb.mlp_branch(x, *args, dp=dp)),
-                       plain_ms=cuda_ms(
-                           lambda: sb.mlp_branch_reference(x, *args, dp=dp),
-                           reps=20, warmup=1),
-                       bound_ms=1e3 * max(flops / peak, nbytes / HBM_BPS),
-                       bound_by=("operations" if flops / peak
-                                 >= nbytes / HBM_BPS else "bytes"))
+                       shape=[B, grid, grid, C], **chk)
+            if label.startswith("stage"):
+                T = B * grid * grid
+                esz = x.element_size()
+                flops = 16 * T * C * C
+                nbytes = 2 * T * C * esz + 4 * (8 * C * C + 7 * C)
+                peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+                rec["ms"] = cuda_ms(lambda: sb.mlp_branch(x, *args, dp=dp))
+                rec["plain_ms"] = cuda_ms(
+                    lambda: sb.mlp_branch_reference(x, *args, dp=dp),
+                    reps=20, warmup=1)
+                rec["bound_ms"] = 1e3 * max(flops / peak, nbytes / HBM_BPS)
+                rec["bound_by"] = ("operations" if flops / peak
+                                   >= nbytes / HBM_BPS else "bytes")
+            if dtype == torch.bfloat16 and label.startswith("stage"):
+                rec["ms_10"] = cuda_ms(
+                    lambda: sb.mlp_branch(x, *args, dp=dp), warmup=0,
+                    calls=BURST_CALLS)
+                fn, params = k2_chain(x, w, dp)
+                rec["chain_ms"] = cuda_ms(lambda: fn(x, *params))
+                rec["chain_ms_10"] = cuda_ms(lambda: fn(x, *params),
+                                             warmup=0, calls=BURST_CALLS)
+                rec["host_ms"] = host_call_ms(
+                    lambda: sb.mlp_branch(x, *args, dp=dp))
+                del fn, params
             records.append(rec)
-            log(f"  K2f stage{s}       {rec['dtype']:8s} {rec['shape']} "
-                + err_text(chk) + f"  {rec['ms']:.3f} ms (plain "
-                f"{rec['plain_ms']:.3f}, bound {rec['bound_ms']:.4f})")
-            if dtype == torch.bfloat16:
+            times = ""
+            if "ms_10" in rec:
+                times = burst_times(rec)
+            elif "ms" in rec:
+                times = (f"  {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f},"
+                         f" bound {rec['bound_ms']:.4f})")
+            log(f"  K2f {label:12s} {rec['dtype']:8s} {rec['shape']} "
+                + err_text(chk) + times)
+            if dtype == torch.bfloat16 and label.startswith("stage"):
                 summary["mlp_branch"].append(rec)
+            del x, w, args, out, ref
     return summary
 
 
@@ -540,6 +612,27 @@ def check_grads(names, got, ref, dtype, what):
     return out
 
 
+def k2b_pass_bytes(T, C, Ch, plan):
+    """Bytes K2b's bf16 passes move, each buffer read or written once a
+    pass (csrc/swin_mlp_bwd.cu): the weight casts; LN rows and dy * dp;
+    the dual product (xn, dyc in; gc, dh1c and db1's slots out); dW2, dW1
+    (their operands in, slot partials out) and dxn; the LN pullback (x,
+    dy, dxn in; dx out); db2's column sums; the slot reductions."""
+    act, hid = T * C, T * Ch
+    weights = 2 * Ch * C * (4 + 2) + 2 * Ch * C * 2  # casts; dual, dxn
+    parts_w = (plan["slots_w1"] + plan["slots_w2"]) * Ch * C * 4
+    parts_b1 = plan["tiles"] * Ch * 4
+    return (weights
+            + 2 * act * 2 + 8 * T               # ln rows: x -> xn, mu, rstd
+            + 2 * act * 2                       # dyc
+            + 2 * act * 2 + 2 * hid * 2 + parts_b1   # dual product
+            + (act + hid) * 2 * 2 + parts_w     # dW2, dW1
+            + hid * 2 + act * 4                 # dxn
+            + 3 * act * 2 + act * 4 + 8 * T     # LN pullback
+            + act * 2                           # db2
+            + parts_w + parts_b1 + (2 * Ch * C + Ch) * 4)  # reductions
+
+
 ATTN_GRADS = ("dln_scale", "dln_bias", "dwqkv", "dbqkv", "dwproj", "dbproj",
               "dbias")
 MLP_GRADS = ("dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
@@ -551,6 +644,7 @@ def check_bwd_kernels(dev, records):
     (the train step runs the forward kernels at these shapes too)."""
     import torch
 
+    from fmc_uia_tpu_torch.ops import build
     from fmc_uia_tpu_torch.ops import swin_block as sb
 
     gen = torch.Generator().manual_seed(1)
@@ -572,8 +666,11 @@ def check_bwd_kernels(dev, records):
         got = fn()
         ref = ref_fn()
         torch.cuda.synchronize()
-        repeat = (kname == "attention_branch_backward"
-                  and dtype == torch.bfloat16 and label.startswith("stage2"))
+        # bf16 K1b at stage 2 and K2b at stage 0: the same inputs again
+        repeat = dtype == torch.bfloat16 and (
+            (kname == "attention_branch_backward"
+             and label.startswith("stage2"))
+            or (kname == "mlp_branch_backward" and label == "stage0"))
         if repeat:  # the same inputs again: every output bitwise equal
             again = fn()
             bad = [n for n, u, v in zip(("dx",) + names, got, again)
@@ -595,9 +692,9 @@ def check_bwd_kernels(dev, records):
         if timed:
             peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
             rec["ms"] = cuda_ms(fn, reps=10, warmup=2)
-            if chain is not None:  # K1b, as K1f
+            if chain is not None:  # K1b and K2b, as K1f and K2f
                 rec["ms_10"] = cuda_ms(fn, reps=10, warmup=0,
-                                       calls=K1_CALLS)
+                                       calls=BURST_CALLS)
             rec["plain_ms"] = cuda_ms(ref_fn, reps=3, warmup=1)
             rec["bound_ms"] = 1e3 * max(flops / peak, nbytes / HBM_BPS)
             rec["bound_by"] = ("operations" if flops / peak
@@ -611,7 +708,7 @@ def check_bwd_kernels(dev, records):
         if not timed:
             times = ""
         elif "ms_10" in rec:
-            times = k1_times(rec)
+            times = burst_times(rec)
         else:
             times = (f"  {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f}, "
                      f"bound {rec['bound_ms']:.4f})")
@@ -647,33 +744,52 @@ def check_bwd_kernels(dev, records):
                           x, *args, dy, dp=dp),
                       ATTN_GRADS, flops, nbytes, label.startswith("stage"),
                       [B, hp, hp, C],
-                      chain=lambda: k1_chain_bwd_ms(x, w, mask, dp, H, ws,
-                                                    dy))
+                      chain=lambda: chain_bwd_ms(
+                          *k1_chain(x, w, mask, dp, H, ws), x, dy))
             if label.startswith("stage") and dtype == torch.bfloat16:
                 summary["attention_branch_backward"].append(rec)
             del x, dy, w, args
-    for s, (grid, C) in enumerate(((128, 128), (64, 256))):
+    for label, B, grid, C in mlp_cases(TRAIN_BATCH):
         for dtype in (torch.float32, torch.bfloat16):
-            x, w, dp = mlp_inputs(TRAIN_BATCH, grid, C, dtype, gen, dev)
+            x, w, dp = mlp_inputs(B, grid, C, dtype, gen, dev)
             dy = torch.randn(x.shape, generator=gen).to(dev, dtype)
             args = (w["ln_scale"], w["ln_bias"], w["w1"], w["b1"], w["w2"],
                     w["b2"])
-            run_fwd("mlp_branch", f"stage{s}", dtype, x,
+            run_fwd("mlp_branch", label, dtype, x,
                     lambda: sb.mlp_branch(x, *args, dp=dp),
                     lambda: sb.mlp_branch_reference(x, *args, dp=dp),
-                    [TRAIN_BATCH, grid, grid, C])
-            T = TRAIN_BATCH * grid * grid
+                    [B, grid, grid, C])
+            T = B * grid * grid
+            Ch = 4 * C
             esz = x.element_size()
             flops = 40 * T * C * C  # fc1 recompute + 4 products of 8 C^2
             nbytes = 3 * T * C * esz + 2 * 4 * (8 * C * C + 7 * C)
-            rec = run("mlp_branch_backward", f"stage{s}", dtype, x, dy,
+            plan = sb.mlp_bwd_plan(T, C, Ch)
+            if dtype == torch.bfloat16:  # the Python mirror of the carving
+                got_ws = build.load("swin_mlp_bwd", "swin_mlp_bwd_workspace")(
+                    T, C, Ch, 1, plan["kchunk_w1"], plan["kchunk_w2"])
+                if got_ws != plan["workspace"]:
+                    fail(f"K2b {label}: workspace {got_ws} bytes != the "
+                         f"plan's {plan['workspace']}")
+            rec = run("mlp_branch_backward", label, dtype, x, dy,
                       lambda: sb.mlp_branch_backward(x, *args, dy, dp=dp),
                       lambda: sb.mlp_branch_backward_reference(
                           x, *args, dy, dp=dp),
-                      MLP_GRADS, flops, nbytes, True,
-                      [TRAIN_BATCH, grid, grid, C])
+                      MLP_GRADS, flops, nbytes, label.startswith("stage"),
+                      [B, grid, grid, C],
+                      chain=lambda: chain_bwd_ms(*k2_chain(x, w, dp), x,
+                                                 dy))
             if dtype == torch.bfloat16:
-                summary["mlp_branch_backward"].append(rec)
+                # the design's bytes, each buffer once a pass (PERF.md's
+                # K2b row; a yardstick of this design, not the bound)
+                rec["floor_ms"] = 1e3 * k2b_pass_bytes(T, C, Ch,
+                                                       plan) / HBM_BPS
+                rec["workspace"] = plan["workspace"]
+                log(f"    K2b {label} bf16: its passes' bytes at the HBM "
+                    f"rate {rec['floor_ms']:.4f} ms; workspace "
+                    f"{plan['workspace']} bytes")
+                if label.startswith("stage"):
+                    summary["mlp_branch_backward"].append(rec)
             del x, dy, w, args
     return summary
 
@@ -1165,10 +1281,12 @@ KERNEL_GROUPS = (    # kernel-name fragments of the profile's shares
     ("K4b", ("vitfa::dkv_", "vitfa::dq_", "vitfa::rowdot")),
     ("K1f", ("qkv_window_attn", "EpiResidual", "<swin::K1f",
              "attn_window_head", "attn_proj_residual")),
-    ("K2f", ("mlp_fwd",)),
-    ("K1b+K2b", ("swin::gemm_", "sm90::gemm_sm90", "attn_core_bwd",
-                 "swin::ln_rows", "swin::ln_bwd", "scale_rows", "colsum",
-                 "reduce_slots", "cast_weights")),
+    ("K2f", ("mlp_fwd", "<swin::K2f")),
+    # K2b's casts, row passes, GEMMs and reductions carry its tag
+    ("K2b", ("mlp_dual", "swin::K2b")),
+    ("K1b", ("swin::gemm_", "sm90::gemm_sm90", "attn_core_bwd",
+             "swin::ln_rows", "swin::ln_bwd", "scale_rows", "colsum",
+             "reduce_slots", "cast_weights")),
     ("library gemm/conv", ("nvjet", "gemm", "conv", "cudnn", "cutlass",
                            "xmma", "wgrad", "dgrad", "fprop", "sm90_")),
 )
@@ -1306,11 +1424,32 @@ def dino_preset():
                 config=dino_patch8_config_dict, per_step=per_step)
 
 
-def train_phase(name, smi, report, out_dir, preset):
+def step_enqueue_ms(trainer, batches, reps=5):
+    """Median host ms of one ``train_batch`` call per type with the card
+    idle: the step's host work (its launches, and any wait it makes on
+    the card), beside the device ms the profile gives."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for t, b in batches.items():
+        vals = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_batch(b, 0)
+            vals.append(1e3 * (time.perf_counter() - t0))
+        out[t] = float(np.median(vals))
+    torch.cuda.synchronize()
+    return out
+
+
+def train_phase(name, smi, report, out_dir, preset, full=True):
     """A preset's Trainer at B=24 in bf16: a warm-up step per type, a
-    timed round-robin, the launch counts, a falling loss on a fixed batch,
-    one profiled round, and f32 grads on the card against the CPU's.
-    Returns the timed run's launch counts."""
+    timed round-robin, the launch counts, the host ms of enqueueing a
+    step, one profiled round, and (``full``) a falling loss on a fixed
+    batch and f32 grads on the card against the CPU's. Returns the timed
+    run's launch counts."""
     import numpy as np
     import torch
 
@@ -1377,7 +1516,15 @@ def train_phase(name, smi, report, out_dir, preset):
         f"peak memory {peak / 2**30:.2f} GiB; launches {launches}; losses "
         f"finite | {name} | {smi}")
 
+    enq = step_enqueue_ms(trainer, batches)
+    report[key]["enqueue_ms_idle_gpu"] = enq
+    log(f"{tag} host ms to enqueue one step per type, card idle (median "
+        f"of 5): { {k: round(v, 2) for k, v in enq.items()} }; wall ms a "
+        f"step in the timed run {1e3 * wall / steps:.2f}")
+
     profile_train_round(trainer, batches, out_dir, report, key)
+    if not full:
+        return launches
 
     falls = {}
     fixed = learnable_batches(registry, TRAIN_BATCH, IMAGE, seed=2)
@@ -1773,10 +1920,44 @@ def dino_serving_phase(name, smi, report):
     return launches
 
 
+def staged_train_main() -> int:
+    """``--staged-train``: phase 5's timed part on the flagship alone,
+    for this script's tree; one JSON line of its numbers."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from fmc_uia_tpu_torch.ops import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    report = {}
+    smi = nvidia_smi_line()
+    train_phase(torch.cuda.get_device_name(0), smi, report, out_dir,
+                swin_preset(), full=False)
+    r = report["train"]
+    print(json.dumps({"tree": HERE, "img_s": r["img_s"], "steps": r["steps"],
+                      "wall_ms_per_step": 1e3 * r["wall_s"] / r["steps"],
+                      "ms_per_step_by_type": r["ms_per_step_by_type"],
+                      "enqueue_ms_idle_gpu": r["enqueue_ms_idle_gpu"],
+                      "device_ms_per_round":
+                          r["profile"]["device_ms_per_round"],
+                      "share": r["profile"]["share"],
+                      "peak_bytes": r["peak_bytes"], "card": smi}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
 
+    if sys.argv[1:] == ["--staged-train"]:
+        return staged_train_main()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; nothing to drive",
               file=sys.stderr)
@@ -1820,7 +2001,7 @@ def main() -> int:
             # K1's reports name their kernels: which one a count belongs to
             if any(w in line for w in ("registers", "spill", "C7512",
                                        "C7515")) or (
-                    k in K1_PRODUCTS and "Compiling entry" in line):
+                    k in PRODUCTS and "Compiling entry" in line):
                 log(f"  ptxas {k}: {line.strip()}")
     report["sass"] = check_sass(build)
 
@@ -2003,7 +2184,7 @@ def main() -> int:
         else:
             weights = {"stage0": 2, "stage1": 2}
         keys = ["ms", "plain_ms", "bound_ms"]
-        if all("chain_ms" in r for r in recs):  # K1: information only
+        if all("chain_ms" in r for r in recs):  # K1, K2: information only
             keys += ["ms_10", "chain_ms", "chain_ms_10", "host_ms"]
         tot = {k: sum(weights[r["case"]] * r[k] for r in recs) for k in keys}
         by = {r["bound_by"] for r in recs}

@@ -1,5 +1,5 @@
 // A bf16 TMA + wgmma GEMM for sm_90a, and the Hopper pieces around it that
-// the Swin attention branch kernels (K1f, K1b) share: wgmma of every width
+// the Swin branch kernels (K1f, K1b, K2f, K2b) share: wgmma of every width
 // they use, in both operand majors; TMA loads of 2-D and 4-D boxes; the
 // host-side tensor maps of a row-major matrix and of a window of a
 // [B, Hp, Wp, C] grid.
@@ -340,7 +340,8 @@ struct GemmDims {
   int M, N, K, kchunk;  // kchunk: depth of a slot, a multiple of kGemmK
 };
 
-template <bool A_MN, bool B_MN, class Epi>
+// Tag names the pass that launches it (a profile tells them apart).
+template <bool A_MN, bool B_MN, class Epi, class Tag>
 __global__ void __launch_bounds__(GemmRoles::kThreads, 1)
     gemm_sm90(const __grid_constant__ CUtensorMap ta,
               const __grid_constant__ CUtensorMap tb, GemmDims g, Epi epi) {
@@ -512,8 +513,9 @@ inline int gemm_slots(long long K, int kchunk) {
 }
 
 // C = A B into epi over M x N, K split into slots of kchunk (kchunk >= K:
-// one slot). A and B are bf16 with 16-byte aligned bases and pitches.
-template <bool A_MN, bool B_MN, class Epi>
+// one slot). A and B are bf16 with 16-byte aligned bases and pitches. Tag:
+// the launching pass, in the kernel's name only.
+template <bool A_MN, bool B_MN, class Tag = void, class Epi>
 int gemm_run(const bf16_t* A, long long lda, const bf16_t* B, long long ldb,
              int M, int N, int K, int kchunk, Epi epi, cudaStream_t stream) {
   if (M < 1 || N < 1 || K < 1 || N % 8 || kchunk % kGemmK ||
@@ -529,14 +531,15 @@ int gemm_run(const bf16_t* A, long long lda, const bf16_t* B, long long ldb,
   static std::atomic<unsigned long long> smem_set{0};
   if (rc == 0)
     rc = smem_limit_once(
-        smem_set, reinterpret_cast<const void*>(gemm_sm90<A_MN, B_MN, Epi>),
+        smem_set,
+        reinterpret_cast<const void*>(gemm_sm90<A_MN, B_MN, Epi, Tag>),
         kGemmSmemBytes);
   if (rc != 0) return rc;
   const dim3 grid((M + kGemmM - 1) / kGemmM, (N + kGemmN - 1) / kGemmN,
                   gemm_slots(K, kchunk));
-  gemm_sm90<A_MN, B_MN, Epi><<<grid, GemmRoles::kThreads, kGemmSmemBytes,
-                               stream>>>(ta, tb, GemmDims{M, N, K, kchunk},
-                                         epi);
+  gemm_sm90<A_MN, B_MN, Epi, Tag><<<grid, GemmRoles::kThreads,
+                                    kGemmSmemBytes, stream>>>(
+      ta, tb, GemmDims{M, N, K, kchunk}, epi);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -80,24 +80,22 @@ inline int core_group(const AttnBwdDims& d) {
   return static_cast<int>(g < 1 ? 1 : g);
 }
 
-template <typename T>
-struct EpiQkv {  // qkv = round(acc + b); q: round(round(q) * scale)
-  T* out;
+struct EpiQkv {  // qkv = acc + b; q: q * scale
+  float* out;
   const float* b;
   int C;
   float scale;
   __device__ void operator()(long long m, int n, int, float v) const {
-    v = rnd<T>(v + b[n]);
-    out[m * 3 * C + n] = from_f<T>(n < C ? v * rnd<T>(scale) : v);
+    v += b[n];
+    out[m * 3 * C + n] = n < C ? v * scale : v;
   }
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    attn_core_bwd(const T* __restrict__ qkv, const T* __restrict__ dO,
+    attn_core_bwd(const float* __restrict__ qkv, const float* __restrict__ dO,
                   const float* __restrict__ bias,
-                  const float* __restrict__ mask, T* __restrict__ o,
-                  T* __restrict__ dqkv, float* __restrict__ dbias_part,
+                  const float* __restrict__ mask, float* __restrict__ o,
+                  float* __restrict__ dqkv, float* __restrict__ dbias_part,
                   AttnBwdDims d, int group, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;  // [kMaxN][kLdQ] each
@@ -109,7 +107,7 @@ __global__ void __launch_bounds__(kThreads)
   const int ws = d.ws, N = ws * ws, C = d.C, dh = C / d.H;
   const int nWw = d.Wp / ws, nWin = (d.Hp / ws) * nWw;
   const int h = blockIdx.y;
-  const float sc = rnd<T>(scale);
+  const float sc = scale;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid & 15, ty = tid >> 4;
   const float* bias_h = bias + static_cast<size_t>(h) * N * N;
@@ -136,11 +134,11 @@ __global__ void __launch_bounds__(kThreads)
       float q = 0.f, k = 0.f, v = 0.f, g = 0.f;
       if (t < N && c < dh) {
         const long long r = tok(t);
-        const T* row = qkv + r * 3 * C + h * dh + c;
-        q = to_f(row[0]);
-        k = to_f(row[C]);
-        v = to_f(row[2 * C]);
-        g = to_f(dO[r * C + h * dh + c]);
+        const float* row = qkv + r * 3 * C + h * dh + c;
+        q = row[0];
+        k = row[C];
+        v = row[2 * C];
+        g = dO[r * C + h * dh + c];
       }
       qs[t * kLdQ + c] = q;
       ks[t * kLdQ + c] = k;
@@ -239,8 +237,8 @@ __global__ void __launch_bounds__(kThreads)
         float pr[4], pc[4], vv[2], gv[2];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          pr[i] = rnd<T>(ps[(ty + 16 * i) * kLdS + j]);  // p[row][j]
-          pc[i] = rnd<T>(ps[j * kLdS + ty + 16 * i]);    // p[j][row]
+          pr[i] = ps[(ty + 16 * i) * kLdS + j];  // p[row][j]
+          pc[i] = ps[j * kLdS + ty + 16 * i];    // p[j][row]
         }
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
@@ -264,8 +262,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int q = 0; q < 2; ++q) {
           const int c = tx + 16 * q;
           if (c >= dh) continue;
-          o[r * C + h * dh + c] = from_f<T>(oacc[i][q]);
-          dqkv[r * 3 * C + 2 * C + h * dh + c] = from_f<T>(vacc[i][q]);
+          o[r * C + h * dh + c] = oacc[i][q];
+          dqkv[r * 3 * C + 2 * C + h * dh + c] = vacc[i][q];
         }
       }
     }
@@ -296,8 +294,8 @@ __global__ void __launch_bounds__(kThreads)
         float sr[4], sc[4], kv[2], qv[2];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          sr[i] = rnd<T>(ds[(ty + 16 * i) * kLdS + j]);  // ds[row][j]
-          sc[i] = rnd<T>(ds[j * kLdS + ty + 16 * i]);    // ds[j][row]
+          sr[i] = ds[(ty + 16 * i) * kLdS + j];  // ds[row][j]
+          sc[i] = ds[j * kLdS + ty + 16 * i];    // ds[j][row]
         }
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
@@ -321,9 +319,9 @@ __global__ void __launch_bounds__(kThreads)
         for (int q = 0; q < 2; ++q) {
           const int c = tx + 16 * q;
           if (c >= dh) continue;
-          T* row = dqkv + r * 3 * C + h * dh + c;
-          row[0] = from_f<T>(rnd<T>(qacc[i][q]) * sc);
-          row[C] = from_f<T>(kacc[i][q]);
+          float* row = dqkv + r * 3 * C + h * dh + c;
+          row[0] = qacc[i][q] * sc;
+          row[C] = kacc[i][q];
         }
       }
     }
@@ -341,11 +339,10 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 // the workspace, carved in one order for measuring and for use
-template <typename T>
 struct AttnBwdWork {
   float *mu, *rstd, *p_wproj, *p_bproj, *p_wqkv, *p_bqkv, *p_bias, *p_g,
       *p_b, *dxn;
-  T *xn, *qkv, *dyf, *dO, *o, *dqkv;
+  float *xn, *qkv, *dyf, *dO, *o, *dqkv;
   int s_proj, s_qkv, groups;
 
   AttnBwdWork(Carver& cv, const AttnBwdDims& d) {
@@ -356,12 +353,12 @@ struct AttnBwdWork {
     groups = (d.nW() + core_group(d) - 1) / core_group(d);
     mu = cv.take<float>(T_);
     rstd = cv.take<float>(T_);
-    xn = cv.take<T>(T_ * C);
-    qkv = cv.take<T>(T_ * 3 * C);
-    dyf = cv.take<T>(T_ * C);
-    dO = cv.take<T>(T_ * C);
-    o = cv.take<T>(T_ * C);
-    dqkv = cv.take<T>(T_ * 3 * C);
+    xn = cv.take<float>(T_ * C);
+    qkv = cv.take<float>(T_ * 3 * C);
+    dyf = cv.take<float>(T_ * C);
+    dO = cv.take<float>(T_ * C);
+    o = cv.take<float>(T_ * C);
+    dqkv = cv.take<float>(T_ * 3 * C);
     dxn = cv.take<float>(T_ * C);
     p_wproj = cv.take<float>(static_cast<size_t>(s_proj) * C * C);
     p_wqkv = cv.take<float>(static_cast<size_t>(s_qkv) * 3 * C * C);
@@ -386,47 +383,43 @@ struct AttnBwdArgs {
 // f32: the passes on the CUDA cores
 int run_attn_bwd_f32(const AttnBwdArgs& a, const AttnBwdDims& d,
                      cudaStream_t s) {
-  using T = float;
   Carver cv{static_cast<char*>(a.work)};
-  AttnBwdWork<T> w(cv, d);
+  AttnBwdWork w(cv, d);
   const long long T_ = d.T();
   const int C = d.C, N = d.ws * d.ws;
-  const T* x = static_cast<const T*>(a.x);
-  const T* dy = static_cast<const T*>(a.dy);
+  const float* x = static_cast<const float*>(a.x);
+  const float* dy = static_cast<const float*>(a.dy);
   const float scale = a.scale;
 
-  SWIN_TRY(launch_ln_rows<T>(x, a.ln_s, a.ln_b, w.xn, w.mu, w.rstd, T_, C,
-                             s));
-  SWIN_TRY((gemm<T, float, true, true>(
-      w.xn, a.wqkv, T_, 3 * C, C, C, C, 1, EpiQkv<T>{w.qkv, a.bqkv, C, scale},
-      s)));
-  SWIN_TRY(launch_scale_rows<T>(dy, a.dp, w.dyf, T_, C,
-                                static_cast<long long>(d.Hp) * d.Wp, s));
-  SWIN_TRY((gemm<T, float, true, false>(w.dyf, a.wproj, T_, C, C, C, C, 1,
-                                        EpiStore<T>{w.dO, C, nullptr}, s)));
+  SWIN_TRY(launch_ln_rows(x, a.ln_s, a.ln_b, w.xn, w.mu, w.rstd, T_, C, s));
+  SWIN_TRY((gemm<true, true>(w.xn, a.wqkv, T_, 3 * C, C, C, C, 1,
+                             EpiQkv{w.qkv, a.bqkv, C, scale}, s)));
+  SWIN_TRY(launch_scale_rows(dy, a.dp, w.dyf, T_, C,
+                             static_cast<long long>(d.Hp) * d.Wp, s));
+  SWIN_TRY((gemm<true, false>(w.dyf, a.wproj, T_, C, C, C, C, 1,
+                              EpiF32{w.dO, C}, s)));
   const int smem = kCoreSmemFloats * static_cast<int>(sizeof(float));
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_core_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attn_core_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);
   }
-  attn_core_bwd<T><<<dim3(w.groups, d.H), kThreads, smem, s>>>(
+  attn_core_bwd<<<dim3(w.groups, d.H), kThreads, smem, s>>>(
       w.qkv, w.dO, a.bias, a.mask, w.o, w.dqkv, w.p_bias, d, core_group(d),
       scale);
   SWIN_TRY(static_cast<int>(cudaGetLastError()));
-  SWIN_TRY((gemm<T, T, false, false>(w.dyf, w.o, C, C, T_, C, C, w.s_proj,
-                                     EpiPartial{w.p_wproj, C, C}, s)));
-  SWIN_TRY((gemm<T, T, false, false>(w.dqkv, w.xn, 3 * C, C, T_, 3 * C, C,
-                                     w.s_qkv, EpiPartial{w.p_wqkv, 3 * C, C},
-                                     s)));
-  SWIN_TRY((gemm<T, float, true, false>(w.dqkv, a.wqkv, T_, C, 3 * C, 3 * C,
-                                        C, 1, EpiF32{w.dxn, C}, s)));
-  SWIN_TRY(launch_ln_bwd<T>(x, dy, w.dxn, w.mu, w.rstd, a.ln_s,
-                            static_cast<T*>(a.dx), w.p_g, w.p_b, a.dln_s,
-                            a.dln_b, T_, C, s));
-  SWIN_TRY(launch_colsum<T>(w.dyf, w.p_bproj, a.dbproj, T_, C, s));
-  SWIN_TRY(launch_colsum<T>(w.dqkv, w.p_bqkv, a.dbqkv, T_, 3 * C, s));
+  SWIN_TRY((gemm<false, false>(w.dyf, w.o, C, C, T_, C, C, w.s_proj,
+                               EpiPartial{w.p_wproj, C, C}, s)));
+  SWIN_TRY((gemm<false, false>(w.dqkv, w.xn, 3 * C, C, T_, 3 * C, C, w.s_qkv,
+                               EpiPartial{w.p_wqkv, 3 * C, C}, s)));
+  SWIN_TRY((gemm<true, false>(w.dqkv, a.wqkv, T_, C, 3 * C, 3 * C, C, 1,
+                              EpiF32{w.dxn, C}, s)));
+  SWIN_TRY(launch_ln_bwd(x, dy, w.dxn, w.mu, w.rstd, a.ln_s,
+                         static_cast<float*>(a.dx), w.p_g, w.p_b, a.dln_s,
+                         a.dln_b, T_, C, s));
+  SWIN_TRY(launch_colsum(w.dyf, w.p_bproj, a.dbproj, T_, C, s));
+  SWIN_TRY(launch_colsum(w.dqkv, w.p_bqkv, a.dbqkv, T_, 3 * C, s));
   SWIN_TRY(launch_reduce(w.p_wproj, a.dwproj, gemm_used_splits(T_, w.s_proj),
                          static_cast<long long>(C) * C, s));
   SWIN_TRY(launch_reduce(w.p_wqkv, a.dwqkv, gemm_used_splits(T_, w.s_qkv),
@@ -747,36 +740,42 @@ int run_attn_bwd_bf16(const AttnBwdArgs& a, const AttnBwdDims& d,
   const bf16* x = static_cast<const bf16*>(a.x);
   const bf16* dy = static_cast<const bf16*>(a.dy);
 
-  SWIN_TRY(launch_cast_weights<K1b>(a.wqkv, a.wproj, w.wqkv_b, w.wproj_b, C,
-                                    s));
+  SWIN_TRY(launch_cast_weights<K1b>(a.wqkv, 3LL * C * C, a.wproj,
+                                    static_cast<long long>(C) * C, w.wqkv_b,
+                                    w.wproj_b, s));
   SWIN_TRY(launch_ln_rows_bf16<K1b>(x, a.ln_s, a.ln_b, w.xn, w.mu, w.rstd,
                                     T_, C, s));
-  SWIN_TRY((gemm_run<false, false>(w.xn, C, w.wqkv_b, C, T_, 3 * C, C, kc1,
-                                   EpiQkvBf16{w.qkv, a.bqkv, C, a.scale},
-                                   s)));
-  SWIN_TRY(launch_scale_rows_bf16(dy, a.dp, w.dyf, T_, C,
-                                  static_cast<long long>(d.Hp) * d.Wp, s));
-  SWIN_TRY((gemm_run<false, true>(w.dyf, C, w.wproj_b, C, T_, C, C, kc1,
-                                  EpiOutBf16{w.dO, C, nullptr}, s)));
+  SWIN_TRY((gemm_run<false, false, K1b>(
+      w.xn, C, w.wqkv_b, C, T_, 3 * C, C, kc1,
+      EpiQkvBf16{w.qkv, a.bqkv, C, a.scale}, s)));
+  SWIN_TRY(launch_scale_rows_bf16<K1b>(
+      dy, a.dp, w.dyf, T_, C, static_cast<long long>(d.Hp) * d.Wp, s));
+  SWIN_TRY((gemm_run<false, true, K1b>(w.dyf, C, w.wproj_b, C, T_, C, C,
+                                       kc1, EpiOutBf16{w.dO, C, nullptr},
+                                       s)));
   SWIN_TRY(C / d.H == 32 ? launch_core_sm90<32>(w, a, d, s)
                          : launch_core_sm90<16>(w, a, d, s));
-  SWIN_TRY((gemm_run<true, true>(w.dyf, C, w.o, C, C, C, T_, kchunk_proj,
-                                 EpiSlot{w.p_wproj, C, C}, s)));
-  SWIN_TRY((gemm_run<true, true>(w.dqkv, 3 * C, w.xn, C, 3 * C, C, T_,
-                                 kchunk_qkv, EpiSlot{w.p_wqkv, 3 * C, C},
-                                 s)));
-  SWIN_TRY((gemm_run<false, true>(w.dqkv, 3 * C, w.wqkv_b, C, T_, C, 3 * C,
-                                  kc3, EpiOutF32{w.dxn, C}, s)));
-  SWIN_TRY(launch_ln_bwd_rows(x, dy, w.dxn, w.mu, w.rstd, a.ln_s,
-                              static_cast<bf16*>(a.dx), w.p_g, w.p_b,
-                              a.dln_s, a.dln_b, T_, C, s));
-  SWIN_TRY(launch_colsum_bf16(w.dyf, w.p_bproj, a.dbproj, T_, C, s));
-  SWIN_TRY(launch_colsum_bf16(w.dqkv, w.p_bqkv, a.dbqkv, T_, 3 * C, s));
-  SWIN_TRY(launch_reduce(w.p_wproj, a.dwproj, w.slots_proj,
-                         static_cast<long long>(C) * C, s));
-  SWIN_TRY(launch_reduce(w.p_wqkv, a.dwqkv, w.slots_qkv, 3LL * C * C, s));
-  return launch_reduce(w.p_bias, a.dbias, w.core_slots,
-                       static_cast<long long>(d.H) * N * N, s);
+  SWIN_TRY((gemm_run<true, true, K1b>(w.dyf, C, w.o, C, C, C, T_,
+                                      kchunk_proj,
+                                      EpiSlot{w.p_wproj, C, C}, s)));
+  SWIN_TRY((gemm_run<true, true, K1b>(w.dqkv, 3 * C, w.xn, C, 3 * C, C, T_,
+                                      kchunk_qkv,
+                                      EpiSlot{w.p_wqkv, 3 * C, C}, s)));
+  SWIN_TRY((gemm_run<false, true, K1b>(w.dqkv, 3 * C, w.wqkv_b, C, T_, C,
+                                       3 * C, kc3, EpiOutF32{w.dxn, C},
+                                       s)));
+  SWIN_TRY(launch_ln_bwd_rows<K1b>(x, dy, w.dxn, w.mu, w.rstd, a.ln_s,
+                                   static_cast<bf16*>(a.dx), w.p_g, w.p_b,
+                                   a.dln_s, a.dln_b, T_, C, s));
+  SWIN_TRY(launch_colsum_bf16<K1b>(w.dyf, w.p_bproj, a.dbproj, T_, C, s));
+  SWIN_TRY(
+      launch_colsum_bf16<K1b>(w.dqkv, w.p_bqkv, a.dbqkv, T_, 3 * C, s));
+  SWIN_TRY(launch_reduce<K1b>(w.p_wproj, a.dwproj, w.slots_proj,
+                              static_cast<long long>(C) * C, s));
+  SWIN_TRY(
+      launch_reduce<K1b>(w.p_wqkv, a.dwqkv, w.slots_qkv, 3LL * C * C, s));
+  return launch_reduce<K1b>(w.p_bias, a.dbias, w.core_slots,
+                            static_cast<long long>(d.H) * N * N, s);
 }
 
 bool attn_dims_ok(const AttnBwdDims& d, int is_bf16, int kchunk_proj,
@@ -806,7 +805,7 @@ extern "C" long long swin_attn_bwd_workspace(int B, int Hp, int Wp, int C,
   if (is_bf16) {
     swin::BwdWorkBf16 w(cv, d, kchunk_proj, kchunk_qkv);
   } else {
-    swin::AttnBwdWork<float> w(cv, d);
+    swin::AttnBwdWork w(cv, d);
   }
   return static_cast<long long>(cv.off);
 }

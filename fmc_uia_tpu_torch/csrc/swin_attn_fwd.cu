@@ -615,8 +615,9 @@ int launch_bf16(const AttnArgs& a, const FwdWork& w, cudaStream_t s) {
   const int C = a.C, dh = C / a.H, groups = FwdWork::head_groups(C, a.H);
   const int T = a.B * a.Hp * a.Wp;
   const bf16* x = static_cast<const bf16*>(a.x);
-  SWIN_TRY(launch_cast_weights<K1f>(a.wqkv, a.wproj, w.wqkv_b, w.wproj_b, C,
-                                    s));
+  SWIN_TRY(launch_cast_weights<K1f>(a.wqkv, 3LL * C * C, a.wproj,
+                                    static_cast<long long>(C) * C, w.wqkv_b,
+                                    w.wproj_b, s));
   SWIN_TRY(launch_ln_rows_bf16<K1f>(x, a.ln_s, a.ln_b, w.xn, w.mu, w.rstd, T,
                                     C, s));
   CUtensorMap txn, tw;
@@ -627,7 +628,7 @@ int launch_bf16(const AttnArgs& a, const FwdWork& w, cudaStream_t s) {
                        a.Wp, C, a.H, a.ws, groups, nW};
   SWIN_TRY(dh == 32 ? launch_qkv_window_attn<32>(txn, tw, qa, nW, s)
                     : launch_qkv_window_attn<16>(txn, tw, qa, nW, s));
-  return gemm_run<false, false>(
+  return gemm_run<false, false, K1f>(
       w.o, C, w.wproj_b, C, T, C, C, (C + kGemmK - 1) / kGemmK * kGemmK,
       EpiResidual{x, static_cast<bf16*>(a.out), a.bproj, a.dp, C,
                   static_cast<long long>(a.Hp) * a.Wp},

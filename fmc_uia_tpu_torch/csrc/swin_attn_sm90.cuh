@@ -1,10 +1,10 @@
-// Pieces shared by the bf16 Swin attention branch kernels, forward (K1f,
-// swin_attn_fwd.cu) and backward (K1b, swin_attn_bwd.cu): the bf16 weight
-// copies that TMA reads, the qkv epilogue, the row-wise passes (LayerNorm
-// and its pullback, dy * dp, column sums) in 8- and 16-byte vectors, and
-// the window geometry of a block. The row passes compute what
-// swin_bwd_common.cuh's scalar ones compute; those stay for K2b and the
-// f32 kernels.
+// Pieces shared by the bf16 Swin branch kernels, attention (K1f,
+// swin_attn_fwd.cu; K1b, swin_attn_bwd.cu) and MLP (K2f, swin_mlp_fwd.cu;
+// K2b, swin_mlp_bwd.cu): the bf16 weight copies that TMA reads, the qkv
+// epilogue, the row-wise passes (LayerNorm and its pullback, dy * dp,
+// column sums) in 8- and 16-byte vectors, and the window geometry of a
+// block. The row passes compute what swin_bwd_common.cuh's scalar ones
+// compute; those stay for the f32 kernels.
 //
 // Head groups. The window kernels take G = 64 / dh heads at a time (dh 16
 // or 32), so that a group's q, k or v is one 64-channel (128-byte) TMA box
@@ -13,8 +13,8 @@
 // stacked in shared memory have the 128-byte-swizzle layout of one
 // 192-row box, so K1f's [q | k | v] of a group is one m64n192 product.
 //
-// The kernels both passes launch take the pass as a tag (K1f, K1b), so a
-// profile tells their launches apart.
+// The kernels several passes launch take the pass as a tag (K1f, K1b, K2f,
+// K2b), so a profile tells their launches apart.
 #pragma once
 
 #include "sm90_gemm.cuh"
@@ -23,11 +23,14 @@
 namespace swin {
 
 using namespace sm90;
+using bf16 = __nv_bfloat16;
 
 constexpr int kWinRows = 64;  // a window of at most 8 x 8 tokens: one m64
 
-struct K1f {};  // the tags of the forward and the backward pass
+struct K1f {};  // the tags of the forward and the backward passes
 struct K1b {};
+struct K2f {};
+struct K2b {};
 
 #define SWIN_TRY(expr)          \
   do {                          \
@@ -46,29 +49,29 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// wqkv [3C, C] and wproj [C, C] rounded to bf16 into wqkv_b and wproj_b,
-// one thread per 4 elements
+// Two f32 weights, a (na elements) and b (nb), rounded to bf16 into ab and
+// bb, one thread per 4 elements (na, nb multiples of 4): Wqkv and Wproj of
+// K1, W1 and W2 of K2.
 template <class Pass>
-__global__ void cast_weights(const float* __restrict__ wqkv,
-                             const float* __restrict__ wproj,
-                             bf16* __restrict__ wqkv_b,
-                             bf16* __restrict__ wproj_b, int C) {
+__global__ void cast_weights(const float* __restrict__ a,
+                             const float* __restrict__ b,
+                             bf16* __restrict__ ab, bf16* __restrict__ bb,
+                             long long na, long long nb) {
   const long long i =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  const long long nqkv = 3LL * C * C;
-  if (i >= nqkv + static_cast<long long>(C) * C) return;
-  if (i < nqkv)
-    store4(wqkv_b + i, ldf4(wqkv + i));
+  if (i >= na + nb) return;
+  if (i < na)
+    store4(ab + i, ldf4(a + i));
   else
-    store4(wproj_b + i - nqkv, ldf4(wproj + i - nqkv));
+    store4(bb + i - na, ldf4(b + i - na));
 }
 
 template <class Pass>
-int launch_cast_weights(const float* wqkv, const float* wproj, bf16* wqkv_b,
-                        bf16* wproj_b, int C, cudaStream_t s) {
-  const long long n4 = 4LL * C * C / 4;
+int launch_cast_weights(const float* a, long long na, const float* b,
+                        long long nb, bf16* ab, bf16* bb, cudaStream_t s) {
+  const long long n4 = (na + nb) / 4;
   cast_weights<Pass><<<static_cast<unsigned>((n4 + kThreads - 1) / kThreads),
-                       kThreads, 0, s>>>(wqkv, wproj, wqkv_b, wproj_b, C);
+                       kThreads, 0, s>>>(a, b, ab, bb, na, nb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -89,9 +92,10 @@ struct EpiQkvBf16 {
   }
 };
 
-// ---- row-wise passes of the bf16 K1b, in 8- and 16-byte vectors -----------
+// ---- row-wise passes of the bf16 K1b and K2b, in 8- and 16-byte vectors ----
 // out = round(dy * dp[row / hw]) (dp unrounded f32, null = 1): 8 elements
 // a thread (C % 8 == 0)
+template <class Pass>
 __global__ void scale_rows_bf16(const bf16* __restrict__ dy,
                                 const float* __restrict__ dp,
                                 bf16* __restrict__ out, long long n8, int C,
@@ -111,6 +115,7 @@ __global__ void scale_rows_bf16(const bf16* __restrict__ dy,
 // 64 columns (8 threads of 8) x 32 row lanes; lane y adds rows y, y + 32,
 // .. of the chunk in order, then the 32 lane sums are added in lane order
 // (N % 8 == 0).
+template <class Pass>
 __global__ void __launch_bounds__(kThreads)
     colsum_bf16(const bf16* __restrict__ a, float* __restrict__ part,
                 long long rows, int N, long long rows_per_chunk) {
@@ -138,23 +143,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-inline int launch_scale_rows_bf16(const bf16* dy, const float* dp, bf16* out,
-                                  long long rows, int C, long long hw,
-                                  cudaStream_t s) {
+template <class Pass>
+int launch_scale_rows_bf16(const bf16* dy, const float* dp, bf16* out,
+                           long long rows, int C, long long hw,
+                           cudaStream_t s) {
   const long long n8 = rows * C / 8;
-  scale_rows_bf16<<<static_cast<unsigned>((n8 + kThreads - 1) / kThreads),
-                    kThreads, 0, s>>>(dy, dp, out, n8, C, hw);
+  scale_rows_bf16<Pass><<<static_cast<unsigned>((n8 + kThreads - 1) /
+                                                kThreads),
+                          kThreads, 0, s>>>(dy, dp, out, n8, C, hw);
   return static_cast<int>(cudaGetLastError());
 }
 
-inline int launch_colsum_bf16(const bf16* a, float* part, float* out,
-                              long long rows, int N, cudaStream_t s) {
+template <class Pass>
+int launch_colsum_bf16(const bf16* a, float* part, float* out,
+                       long long rows, int N, cudaStream_t s) {
   const long long per = rows_per_slot(rows, 512);
   const int slots = slots_for(rows, per);
-  colsum_bf16<<<dim3((N + 63) / 64, slots), kThreads, 0, s>>>(a, part, rows,
-                                                              N, per);
+  colsum_bf16<Pass><<<dim3((N + 63) / 64, slots), kThreads, 0, s>>>(
+      a, part, rows, N, per);
   const int err = static_cast<int>(cudaGetLastError());
-  return err ? err : launch_reduce(part, out, slots, N, s);
+  return err ? err : launch_reduce<Pass>(part, out, slots, N, s);
 }
 
 // ln_rows in vectors: f32 LayerNorm statistics (flax's fast variance) and
@@ -239,7 +247,7 @@ int launch_ln_rows_bf16(const bf16* x, const float* ln_s, const float* ln_b,
 // 4 (lane + 32 k), k < CPL: C <= 128 CPL): ln_bwd's arithmetic, with each
 // lane's dLN scale / bias sums over the block's rows kept in registers and
 // then added in warp order into the block's slot, as ln_bwd adds them.
-template <int CPL>
+template <class Pass, int CPL>
 __global__ void __launch_bounds__(kThreads)
     ln_bwd_rows(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                 const float* __restrict__ dxn, const float* __restrict__ mu,
@@ -327,7 +335,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int CPL>
+template <class Pass, int CPL>
 int launch_ln_bwd_rows_cpl(const bf16* x, const bf16* dy, const float* dxn,
                            const float* mu, const float* rstd,
                            const float* ln_s, bf16* dx, float* dg_part,
@@ -337,15 +345,16 @@ int launch_ln_bwd_rows_cpl(const bf16* x, const bf16* dy, const float* dxn,
   // the limit of the widest C this instance takes (C <= 128 CPL)
   static std::atomic<unsigned long long> smem_set{0};
   SWIN_TRY(smem_limit_once(
-      smem_set, reinterpret_cast<const void*>(ln_bwd_rows<CPL>),
+      smem_set, reinterpret_cast<const void*>(ln_bwd_rows<Pass, CPL>),
       kWarps * 2 * 128 * CPL * static_cast<int>(sizeof(float))));
-  ln_bwd_rows<CPL><<<slots, kThreads, smem, s>>>(
+  ln_bwd_rows<Pass, CPL><<<slots, kThreads, smem, s>>>(
       x, dy, dxn, mu, rstd, ln_s, dx, dg_part, db_part, rows, C, per);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ln_bwd_rows into slots, then the slots reduced in order (as ln_bwd)
-inline int launch_ln_bwd_rows(const bf16* x, const bf16* dy,
+template <class Pass>
+int launch_ln_bwd_rows(const bf16* x, const bf16* dy,
                               const float* dxn, const float* mu,
                               const float* rstd, const float* ln_s, bf16* dx,
                               float* dg_part, float* db_part, float* dg,
@@ -357,19 +366,23 @@ inline int launch_ln_bwd_rows(const bf16* x, const bf16* dy,
   const int cpl = (C + 127) / 128;
   int err;
   if (cpl <= 1)
-    err = launch_ln_bwd_rows_cpl<1>(x, dy, dxn, mu, rstd, ln_s, dx, dg_part,
-                                    db_part, rows, C, per, slots, smem, s);
+    err = launch_ln_bwd_rows_cpl<Pass, 1>(x, dy, dxn, mu, rstd, ln_s, dx,
+                                          dg_part, db_part, rows, C, per,
+                                          slots, smem, s);
   else if (cpl <= 2)
-    err = launch_ln_bwd_rows_cpl<2>(x, dy, dxn, mu, rstd, ln_s, dx, dg_part,
-                                    db_part, rows, C, per, slots, smem, s);
+    err = launch_ln_bwd_rows_cpl<Pass, 2>(x, dy, dxn, mu, rstd, ln_s, dx,
+                                          dg_part, db_part, rows, C, per,
+                                          slots, smem, s);
   else if (cpl <= 4)
-    err = launch_ln_bwd_rows_cpl<4>(x, dy, dxn, mu, rstd, ln_s, dx, dg_part,
-                                    db_part, rows, C, per, slots, smem, s);
+    err = launch_ln_bwd_rows_cpl<Pass, 4>(x, dy, dxn, mu, rstd, ln_s, dx,
+                                          dg_part, db_part, rows, C, per,
+                                          slots, smem, s);
   else
-    err = launch_ln_bwd_rows_cpl<8>(x, dy, dxn, mu, rstd, ln_s, dx, dg_part,
-                                    db_part, rows, C, per, slots, smem, s);
-  if (!err) err = launch_reduce(dg_part, dg, slots, C, s);
-  if (!err) err = launch_reduce(db_part, db, slots, C, s);
+    err = launch_ln_bwd_rows_cpl<Pass, 8>(x, dy, dxn, mu, rstd, ln_s, dx,
+                                          dg_part, db_part, rows, C, per,
+                                          slots, smem, s);
+  if (!err) err = launch_reduce<Pass>(dg_part, dg, slots, C, s);
+  if (!err) err = launch_reduce<Pass>(db_part, db, slots, C, s);
   return err;
 }
 

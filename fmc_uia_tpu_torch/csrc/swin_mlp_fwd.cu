@@ -1,39 +1,46 @@
-// Fused Swin MLP branch, forward, for sm_90a.
+// Fused Swin MLP branch, forward (K2f), for sm_90a.
 //
 // Replaces the TPU kernel fmc_uia_tpu/ops/swin_block_pallas.py
 // fused_mlp_branch -> _fused_mlp_fwd_impl -> _mlp_fwd_kernel (_mlp_math):
 // out = x + dp * fc2(gelu_tanh(fc1(LN2(x)))) on tokens x [T, C].
 //
-// Design. One block per tile of 64 tokens. The f32 LN runs into shared
-// memory, the fc2 accumulator y [64, C] stays on chip in f32, and the 4C
-// hidden width is streamed in chunks of 32 units: h = gelu_tanh(xn @
-// W1[chunk]^T + b1[chunk]) (rounded), then y += h @ W2[:, chunk]^T. The
-// 4C-wide hidden activation never reaches device memory. Tokens need not
-// stay within one sample: dp is read per token row from a [B] vector, so
-// the ragged last tile is simply masked (the TPU version's fallback for
-// "no tile fits" has no counterpart).
+// Design (bf16, mlp_fwd_sm90). As on the TPU, the 4C-wide hidden
+// activation never leaves the chip. cast_weights rounds W1 and W2 to bf16
+// once a call (TMA reads bf16; the port's params are f32). Then one block
+// per 128 tokens: two consumer warpgroups of 64 rows and a producer warp.
+//   * The consumers compute the f32 LN of their rows and write xn, rounded,
+//     into shared memory in the 128-byte swizzle wgmma reads (64-column
+//     atoms; a C of 96 or 192 leaves the last atom half unused: the
+//     products stop at k = C).
+//   * The producer streams, by TMA through a ring of stages, W1's rows
+//     [j0, j0 + 64) x C and W2's matching 64 columns (C rows), both K-major
+//     as they lie in the bf16 copies.
+//   * Per hidden chunk, in SW-wide pieces: S = xn W1^T (wgmma from shared
+//     memory, K = C), + b1, tanh-GELU (tanhf), rounded to bf16 into the A
+//     fragments of y += h W2^T (wgmma with A from registers); y, 64 x C f32
+//     a warpgroup (C / 2 registers a thread), stays in registers.
+//   * Epilogue: y staged through shared memory; round(y + b2), dp per token
+//     row (a tile may cross samples, and the last tile is masked), the
+//     residual add, 16-byte stores.
+// Every C % 32 == 0 up to 256 has its own instance (the widths of y's
+// wgmma sum to C: 192 + 64, 128 + 32, ...).
 //
-//   mlp_fwd: f32 FMAs on the CUDA cores, y in shared memory
-//     (203 KB at C = 256, the largest width the Swin block sends here).
-//   mlp_fwd_tc: bf16 operands on the tensor cores (WMMA), y in registers
-//     (84 KB of shared memory at C = 256).
+// The f32 version (mlp_fwd) runs the same dataflow on the CUDA cores, 64
+// tokens a block, y in shared memory (203 KB at C = 256); it is off the
+// bf16 main path and held against the same plain version.
 //
 // What bounds it: 16*T*C^2 operations on 2*T*C*sizeof(T) bytes, so
-// operations. Neither version yet overlaps the weight-chunk loads with the
-// products (no cp.async/TMA pipeline) or uses wgmma; each block re-reads
-// all of W1 and W2 from L2.
+// operations; the GELU's tanhf runs on the CUDA cores beside them.
 //
 // Rounding points (as _mlp_math): xn after the f32 LN, h after the
 // tanh-GELU of the f32 fc1 + b1, y after the fc2 bias, dp * y, and the
 // residual sum.
 
-#include <mma.h>
-
-#include "swin_common.cuh"
+#include "swin_attn_sm90.cuh"
 
 namespace swin {
 
-constexpr int kTM = 64;    // tokens per block
+constexpr int kTM = 64;    // tokens per block (f32)
 constexpr int kHC = 32;    // hidden units per chunk
 constexpr int kLdT = 65;   // pitch of k-major token tiles
 constexpr int kLdW1 = 33;  // pitch of the W1 chunk (k-major)
@@ -212,233 +219,332 @@ __global__ void __launch_bounds__(kThreads) mlp_fwd(MlpArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the same block on the tensor cores (WMMA m16n16k16, bf16 operands,
-// f32 accumulators). xn and the chunk operands are bf16 in shared memory;
-// the y accumulator [64, C] lives in registers as WMMA fragments (warp
-// (r, q) owns row tile r and column tiles q, q + 2, ...), so C % 32 == 0 and
-// C <= 256 here.
+// bf16: TMA + wgmma
 // ---------------------------------------------------------------------------
-namespace wm = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using FragBc = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
+constexpr int kFwdM = 128;  // tokens a block: two consumer warpgroups
+constexpr int kFwdJ = 64;   // hidden units a chunk (a stage of the ring)
+using FwdRoles = WarpRoles<2>;
 
-constexpr int kTcHC = 32;           // hidden units per chunk
-constexpr int kLdHs = kTcHC + 8;    // bf16 pitch of h and of the W2 chunk
-constexpr int kLdHf = kTcHC + 4;    // f32 pitch of the fc1 accumulators
-constexpr int kMaxYTiles = 8;       // column tiles per warp at C = 256
+template <int C>
+struct FwdCfg {
+  static_assert(C % 32 == 0 && C >= 32 && C <= 256, "C % 32, <= 256");
+  static constexpr int KC = (C + 63) / 64;          // 64-column atoms
+  static constexpr int kXnBytes = KC * kFwdM * 128;  // the xn tile
+  static constexpr int kW1Bytes = KC * kFwdJ * 128;  // W1 rows j0 .. + 63
+  static constexpr int kW2Bytes = C * 128;           // W2's 64 columns
+  static constexpr int kStageBytes = kW1Bytes + kW2Bytes;
+  static constexpr int kFit = (200 * 1024 - kXnBytes) / kStageBytes;
+  static constexpr int kStages = kFit > 4 ? 4 : kFit;
+  // y = P0 + P1 columns, each a wgmma width (P1 = 0, 32 or 64)
+  static constexpr int P0 = C >= 192 ? 192 : C >= 128 ? 128 : C >= 64 ? 64
+                                                                      : 32;
+  static constexpr int P1 = C - P0;
+  // S is taken SW hidden units at a time: fewer registers beside a wide y
+  static constexpr int SW = C >= 192 ? 32 : 64;
+  static constexpr int kLdY = C + 4;  // f32 pitch of the epilogue's tile
+  static constexpr int kSmemBytes =
+      kXnBytes + kStages * kStageBytes + 2 * kStages * 8 + 1024;
+  static_assert(kStages >= 2, "a ring of at least two stages");
+  static_assert(2 * 64 * kLdY * 4 <= kXnBytes + kStages * kStageBytes,
+                "the epilogue's tiles must fit in xn and the stages");
+};
 
-__host__ __device__ inline size_t mlp_tc_smem_bytes(int C) {
-  const size_t ldx = C + 8;
-  return 2 * kTM * 4                        // mu, rstd
-         + kTM * ldx * 2                    // xn (bf16)
-         + kTcHC * ldx * 2                  // W1 chunk, col-major B
-         + static_cast<size_t>(C) * kLdHs * 2  // W2 chunk, col-major B
-         + kTM * kLdHf * 4                  // fc1 accumulators (f32)
-         + kTM * kLdHs * 2;                 // h (bf16)
-}
+struct FwdArgs {
+  const bf16* x;
+  bf16* out;
+  const float *ln_s, *ln_b, *b1, *b2, *dp;
+  int T, Ch;
+  long long hw;
+};
 
-// two blocks per SM: at most 128 registers a thread
-__global__ void __launch_bounds__(kThreads, 2) mlp_fwd_tc(MlpArgs a) {
-  extern __shared__ __align__(128) unsigned char sm[];
-  const int C = a.C, Ch = a.Ch, ldx = C + 8, ldy = C + 4;
-  const long long t0 = static_cast<long long>(blockIdx.x) * kTM;
-  const bf16* x = static_cast<const bf16*>(a.x);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp % 4, wq = warp / 4;
-  const int nyt = C / 32;
-
-  float* mu = reinterpret_cast<float*>(sm);
-  float* rstd = mu + kTM;
-  bf16* xn = reinterpret_cast<bf16*>(sm + 2 * kTM * 4);
-  bf16* w1s = xn + kTM * ldx;
-  bf16* w2s = w1s + kTcHC * ldx;
-  float* hf = reinterpret_cast<float*>(w2s + C * kLdHs);
-  bf16* hb = reinterpret_cast<bf16*>(hf + kTM * kLdHf);
-  float* ybuf = reinterpret_cast<float*>(sm + 2 * kTM * 4);  // after the loop
-
-  // 1. f32 LN statistics, one warp per token, 8 channels per load
-  for (int t = warp; t < kTM; t += kThreads / 32) {
-    const long long tok = t0 + t;
-    float s = 0.f, s2 = 0.f;
-    if (tok < a.T) {
-      for (int c = lane * 8; c < C; c += 32 * 8) {
-        float f[8];
-        unpack8(ld16(x + static_cast<size_t>(tok) * C + c), f);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s += f[j];
-          s2 += f[j] * f[j];
-        }
-      }
+template <int C>
+__global__ void __launch_bounds__(FwdRoles::kThreads, 1)
+    mlp_fwd_sm90(const __grid_constant__ CUtensorMap tw1,
+                 const __grid_constant__ CUtensorMap tw2, FwdArgs a) {
+  using K = FwdCfg<C>;
+  unsigned char* sm = smem_base_1k();
+  unsigned char* xn = sm;  // KC atoms of 128 rows x 128 bytes
+  unsigned char* ring = sm + K::kXnBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + K::kStages *
+                                               K::kStageBytes);
+  uint64_t* empty = full + K::kStages;
+  const int t0 = blockIdx.x * kFwdM;
+  // hidden chunks, from a block-dependent first one: neighbouring blocks
+  // read different weight chunks from L2 at any time
+  const int nj = a.Ch / kFwdJ, j0 = blockIdx.x % nj;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < K::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], FwdRoles::kConsumerWarps);
     }
-    s = warp_sum(s);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      const float m = s / C;
-      mu[t] = m;
-      rstd[t] = 1.f / sqrtf(s2 / C - m * m + kLnEps);
-    }
+    fence_barrier_init();
   }
   __syncthreads();
+  const int wg = warpgroup_index();
+  if (wg == 2) {  // the producer warp
+    if (threadIdx.x == FwdRoles::kProducerThread) {
+      for (int j = 0; j < nj; ++j) {
+        const int st = j % K::kStages;
+        unsigned char* w1 = ring + st * K::kStageBytes;
+        mbar_wait(&empty[st], ((j / K::kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], K::kStageBytes);
+        const int jc = ((j + j0) % nj) * kFwdJ;
+        for (int kc = 0; kc < K::KC; ++kc)  // columns >= C read as zeros
+          tma_load_2d(w1 + kc * kFwdJ * 128, &tw1, &full[st], kc * 64, jc);
+        tma_load_2d(w1 + K::kW1Bytes, &tw2, &full[st], jc, 0);
+      }
+    }
+    return;
+  }
+  const int tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
 
-  // 2. xn (rounded), row-major, in 16-byte vectors
-  for (int i = tid; i < kTM * C / 8; i += kThreads) {
-    const int t = i / (C / 8), c = (i % (C / 8)) * 8;
-    const long long tok = t0 + t;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (tok < a.T) {
-      unpack8(ld16(x + static_cast<size_t>(tok) * C + c), f);
+  // 1. LN of the warpgroup's 64 rows (16 a warp), f32 statistics, xn
+  //    rounded into the swizzled tile; lane l holds channels 8 l .. 8 l + 7
+  {
+    const int c = 8 * lane;
+    const bool on = c < C;
+    float sc[8], bi[8];
+    if (on) {
       const float4 s0 = ldf4(a.ln_s + c), s1 = ldf4(a.ln_s + c + 4);
       const float4 b0 = ldf4(a.ln_b + c), b1 = ldf4(a.ln_b + c + 4);
       const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
       const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        f[j] = (f[j] - mu[t]) * rstd[t] * sv[j] + bv[j];
+      for (int e = 0; e < 8; ++e) {
+        sc[e] = sv[e];
+        bi[e] = bv[e];
+      }
     }
-    store8(xn + t * ldx + c, f);
+    // the warp's 16 rows are loaded first, so their loads overlap
+    const int rw = wg * 64 + warp * 16;
+    uint4 raw[16];
+#pragma unroll
+    for (int rr = 0; rr < 16; ++rr)
+      raw[rr] = on && t0 + rw + rr < a.T
+                    ? ld16(a.x + static_cast<long long>(t0 + rw + rr) * C + c)
+                    : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = rw + rr;
+      float v[8];
+      unpack8(raw[rr], v);
+      float s = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += v[e];
+        s2 += v[e] * v[e];
+      }
+      s = warp_sum(s);
+      s2 = warp_sum(s2);
+      const float m = s / C;
+      const float rs = 1.f / sqrtf(s2 / C - m * m + kLnEps);
+      if (!on) continue;
+      float o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        o[e] = t0 + r < a.T ? (v[e] - m) * rs * sc[e] + bi[e] : 0.f;
+      store8(reinterpret_cast<bf16*>(xn + (c >> 6) * kFwdM * 128 +
+                                     sw128_off(r, c & 63)),
+             o);
+    }
   }
+  fence_async_smem();
+  wg_bar(wg);
 
-  FragC yacc[kMaxYTiles];
+  // 2. the hidden chunks; no instruction but wgmma touches y until the end
+  constexpr int SW = K::SW;
+  const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  float y0[K::P0 / 2], y1[K::P1 ? K::P1 / 2 : 2];
+  uint32_t ha[SW / 16][4];
+  for (int j = 0; j < nj; ++j) {
+    const int st = j % K::kStages;
+    unsigned char* w1 = ring + st * K::kStageBytes;
+    unsigned char* w2 = w1 + K::kW1Bytes;
+    mbar_wait_warp(&full[st], (j / K::kStages) & 1);
 #pragma unroll
-  for (int q = 0; q < kMaxYTiles; ++q) wm::fill_fragment(yacc[q], 0.f);
-
-  // each chunk operand is 8*C float4 vectors: C/32 per thread (<= 8)
-  const int nv = C / 32;
-  for (int j0 = 0; j0 < Ch; j0 += kTcHC) {
-    // 3. W1 rows and W2 columns of this chunk, rounded to bf16, staged
-    //    in groups of 4 vectors per thread (loads issued before stores)
-    for (int g = 0; g < nv; g += 4) {
-      float4 wv[4];
+    for (int h = 0; h < kFwdJ / SW; ++h) {
+      // S = xn W1^T for hidden units j0 + h SW .. + SW - 1 (64 x SW, K = C)
+      float sacc[SW / 2];
+      wg_fence();
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = tid + (g + u) * kThreads;
-        const int j = i / (C / 4), c = (i % (C / 4)) * 4;
-        wv[u] = (g + u < nv && j0 + j < Ch)
-                    ? ldf4(a.w1 + static_cast<size_t>(j0 + j) * C + c)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int k = 0; k < C / 16; ++k) {
+        const int kc = k / 4, ks = k % 4;
+        Wg<SW>::template ss<0, 0>(
+            sacc,
+            sw128_desc(xn + kc * kFwdM * 128 + wg * 64 * 128) +
+                ks * kDescKStep,
+            sw128_desc(w1 + kc * kFwdJ * 128 + h * SW * 128) +
+                ks * kDescKStep,
+            k > 0);
       }
+      wg_commit();
+      wg_wait<0>();  // also the previous piece's y products
+      fence_regs(sacc);
+      fence_regs(ha);
+      // + b1, tanh-GELU; rounded to bf16 as the A fragments of fc2
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = tid + (g + u) * kThreads;
-        if (g + u < nv)
-          store4(w1s + (i / (C / 4)) * ldx + (i % (C / 4)) * 4, wv[u]);
-      }
+      for (int i = 0; i < SW / 8; ++i) {
+        const int n = ((j + j0) % nj) * kFwdJ + h * SW + 8 * i + c0;
+        const float bias[2] = {a.b1[n], a.b1[n + 1]};
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = tid + (g + u) * kThreads;
-        const int n = i / (kTcHC / 4), j = (i % (kTcHC / 4)) * 4;
-        wv[u] = (g + u < nv && j0 + j < Ch)
-                    ? ldf4(a.w2 + static_cast<size_t>(n) * Ch + j0 + j)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int e = 0; e < 4; ++e)
+          sacc[4 * i + e] = gelu_tanh(sacc[4 * i + e] + bias[e & 1]);
       }
+      acc_to_a(ha, sacc);
+      fence_regs(ha);
+      // y += h W2^T (K = SW hidden units; W2's chunk is C rows x 64)
+      wg_fence();
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = tid + (g + u) * kThreads;
-        if (g + u < nv)
-          store4(w2s + (i / (kTcHC / 4)) * kLdHs + (i % (kTcHC / 4)) * 4,
-                 wv[u]);
+      for (int kk = 0; kk < SW / 16; ++kk) {
+        const int kq = h * (SW / 16) + kk;
+        const int acc = j > 0 || kq > 0;
+        Wg<K::P0>::template rs<0>(y0, ha[kk],
+                                  sw128_desc(w2) + kq * kDescKStep, acc);
+        if constexpr (K::P1 > 0)
+          Wg<K::P1>::template rs<0>(
+              y1, ha[kk], sw128_desc(w2 + K::P0 * 128) + kq * kDescKStep,
+              acc);
       }
+      wg_commit();
     }
-    __syncthreads();
-
-    // 4. fc1: one 16 x 16 tile of the 64 x 32 chunk per warp, K = C
-    {
-      FragC hacc;
-      wm::fill_fragment(hacc, 0.f);
-      for (int k = 0; k < C; k += 16) {
-        FragA fa;
-        FragBc fb;
-        wm::load_matrix_sync(fa, xn + wr * 16 * ldx + k, ldx);
-        wm::load_matrix_sync(fb, w1s + wq * 16 * ldx + k, ldx);
-        wm::mma_sync(hacc, fa, fb, hacc);
-      }
-      wm::store_matrix_sync(hf + wr * 16 * kLdHf + wq * 16, hacc, kLdHf,
-                            wm::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = tid; i < kTM * kTcHC; i += kThreads) {
-      const int t = i / kTcHC, j = i % kTcHC;
-      const float v = j0 + j < Ch
-                          ? gelu_tanh(hf[t * kLdHf + j] + a.b1[j0 + j])
-                          : 0.f;
-      hb[t * kLdHs + j] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();
-
-    // 5. y += h @ W2c^T, K = 32
-#pragma unroll
-    for (int k = 0; k < kTcHC; k += 16) {
-      FragA fa;
-      wm::load_matrix_sync(fa, hb + wr * 16 * kLdHs + k, kLdHs);
-#pragma unroll
-      for (int q = 0; q < kMaxYTiles; ++q) {
-        if (q < nyt) {
-          FragBc fb;
-          wm::load_matrix_sync(fb, w2s + (wq + 2 * q) * 16 * kLdHs + k,
-                               kLdHs);
-          wm::mma_sync(yacc[q], fa, fb, yacc[q]);
-        }
-      }
-    }
-    __syncthreads();
+    wg_wait<0>();  // the chunk's products are done: hand its stage back
+    fence_regs(ha);
+    warp_arrive(&empty[st]);
   }
+  fence_regs(y0);
+  fence_regs(y1);
 
-  // 6. out = x + dp * round(y + b2)
+  // 3. epilogue: both warpgroups are done with xn and the ring, which hold
+  //    the f32 tiles now; a row's 8 neighbouring columns a thread
+  asm volatile("bar.sync 3, %0;\n" ::"n"(2 * kWgThreads) : "memory");
+  float* yt = reinterpret_cast<float*>(sm) + wg * 64 * K::kLdY;
 #pragma unroll
-  for (int q = 0; q < kMaxYTiles; ++q)
-    if (q < nyt)
-      wm::store_matrix_sync(ybuf + wr * 16 * ldy + (wq + 2 * q) * 16, yacc[q],
-                            ldy, wm::mem_row_major);
-  __syncthreads();
-  bf16* out = static_cast<bf16*>(a.out);
-  for (int i = tid; i < kTM * C; i += kThreads) {
-    const int t = i / C, c = i % C;
-    const long long tok = t0 + t;
+  for (int i = 0; i < K::P0 / 8; ++i) {
+    *reinterpret_cast<float2*>(yt + r0 * K::kLdY + 8 * i + c0) =
+        make_float2(y0[4 * i], y0[4 * i + 1]);
+    *reinterpret_cast<float2*>(yt + (r0 + 8) * K::kLdY + 8 * i + c0) =
+        make_float2(y0[4 * i + 2], y0[4 * i + 3]);
+  }
+  if constexpr (K::P1 > 0) {
+#pragma unroll
+    for (int i = 0; i < K::P1 / 8; ++i) {
+      const int col = K::P0 + 8 * i + c0;
+      *reinterpret_cast<float2*>(yt + r0 * K::kLdY + col) =
+          make_float2(y1[4 * i], y1[4 * i + 1]);
+      *reinterpret_cast<float2*>(yt + (r0 + 8) * K::kLdY + col) =
+          make_float2(y1[4 * i + 2], y1[4 * i + 3]);
+    }
+  }
+  wg_bar(wg);
+  for (int q = tid; q < 64 * (C / 8); q += kWgThreads) {
+    const int r = q / (C / 8), c = (q % (C / 8)) * 8;
+    const int tok = t0 + wg * 64 + r;
     if (tok >= a.T) continue;
-    const float yv = round_bf16(ybuf[t * ldy + c] + a.b2[c]);
     const float dpv = round_bf16(a.dp ? a.dp[tok / a.hw] : 1.f);
-    const size_t idx = static_cast<size_t>(tok) * C + c;
-    out[idx] = __float2bfloat16_rn(__bfloat162float(x[idx]) +
-                                   round_bf16(dpv * yv));
+    const long long idx = static_cast<long long>(tok) * C + c;
+    const float4 lo = *reinterpret_cast<const float4*>(yt + r * K::kLdY + c);
+    const float4 hi =
+        *reinterpret_cast<const float4*>(yt + r * K::kLdY + c + 4);
+    const float yv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const float4 b0 = ldf4(a.b2 + c), b1 = ldf4(a.b2 + c + 4);
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    float xs[8], o[8];
+    unpack8(ld16(a.x + idx), xs);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      o[e] = xs[e] + round_bf16(dpv * round_bf16(yv[e] + bv[e]));
+    store8(a.out + idx, o);
   }
 }
 
-size_t smem_bytes(int C, int is_bf16) {
-  return is_bf16 ? mlp_tc_smem_bytes(C) : mlp_smem_floats(C) * sizeof(float);
+template <int C>
+int launch_fwd_sm90(const CUtensorMap& tw1, const CUtensorMap& tw2,
+                    const FwdArgs& a, cudaStream_t s) {
+  static std::atomic<unsigned long long> smem_set{0};
+  SWIN_TRY(smem_limit_once(smem_set,
+                           reinterpret_cast<const void*>(mlp_fwd_sm90<C>),
+                           FwdCfg<C>::kSmemBytes));
+  mlp_fwd_sm90<C><<<(a.T + kFwdM - 1) / kFwdM, FwdRoles::kThreads,
+                    FwdCfg<C>::kSmemBytes, s>>>(tw1, tw2, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-int launch_mlp(const MlpArgs& a, int is_bf16, cudaStream_t stream) {
-  if (is_bf16 && (a.C % 32 != 0 || a.C / 32 > kMaxYTiles))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_bytes(a.C, is_bf16);
-  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  cudaError_t err =
-      is_bf16 ? cudaFuncSetAttribute(mlp_fwd_tc, attr, static_cast<int>(bytes))
-              : cudaFuncSetAttribute(mlp_fwd, attr,
-                                     static_cast<int>(bytes));
+// the bf16 workspace: the bf16 copies of W1 and W2
+struct FwdWork {
+  bf16 *w1b, *w2b;
+  FwdWork(Carver& cv, int C, int Ch) {
+    w1b = cv.take<bf16>(static_cast<size_t>(Ch) * C);
+    w2b = cv.take<bf16>(static_cast<size_t>(C) * Ch);
+  }
+};
+
+int launch_mlp_bf16(const MlpArgs& a, void* work, cudaStream_t s) {
+  const int C = a.C, Ch = a.Ch;
+  Carver cv{static_cast<char*>(work)};
+  const FwdWork w(cv, C, Ch);
+  const long long nw = static_cast<long long>(Ch) * C;
+  SWIN_TRY(launch_cast_weights<K2f>(a.w1, nw, a.w2, nw, w.w1b, w.w2b, s));
+  CUtensorMap tw1, tw2;
+  SWIN_TRY(make_map_2d(&tw1, w.w1b, C, Ch, C, kFwdJ));
+  SWIN_TRY(make_map_2d(&tw2, w.w2b, Ch, C, Ch, C));
+  const FwdArgs fa{static_cast<const bf16*>(a.x), static_cast<bf16*>(a.out),
+                   a.ln_s, a.ln_b, a.b1, a.b2, a.dp,
+                   static_cast<int>(a.T), Ch, a.hw};
+  switch (C) {
+    case 32: return launch_fwd_sm90<32>(tw1, tw2, fa, s);
+    case 64: return launch_fwd_sm90<64>(tw1, tw2, fa, s);
+    case 96: return launch_fwd_sm90<96>(tw1, tw2, fa, s);
+    case 128: return launch_fwd_sm90<128>(tw1, tw2, fa, s);
+    case 160: return launch_fwd_sm90<160>(tw1, tw2, fa, s);
+    case 192: return launch_fwd_sm90<192>(tw1, tw2, fa, s);
+    case 224: return launch_fwd_sm90<224>(tw1, tw2, fa, s);
+    case 256: return launch_fwd_sm90<256>(tw1, tw2, fa, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch_mlp_f32(const MlpArgs& a, cudaStream_t stream) {
+  const size_t bytes = mlp_smem_floats(a.C) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      mlp_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
   if (err != cudaSuccess) {  // e.g. more shared memory than a block may use
     cudaGetLastError();      // clear it, so the next launch reads its own
     return static_cast<int>(err);
   }
   const unsigned blocks = static_cast<unsigned>((a.T + kTM - 1) / kTM);
-  if (is_bf16)
-    mlp_fwd_tc<<<blocks, kThreads, bytes, stream>>>(a);
-  else
-    mlp_fwd<<<blocks, kThreads, bytes, stream>>>(a);
+  mlp_fwd<<<blocks, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// what the bf16 kernel takes: C % 32 == 0 up to 256, whole hidden chunks,
+// int token indices (f32: whatever fits its shared memory, checked at
+// launch)
+bool mlp_fwd_dims_ok(long long T, int C, int Ch, int is_bf16) {
+  if (T < 1 || C < 1 || Ch < 1) return false;
+  return !is_bf16 || (C % 32 == 0 && C <= 256 && Ch % kFwdJ == 0 &&
+                      T < (1LL << 31));
 }
 
 }  // namespace swin
 
-extern "C" int swin_mlp_fwd(const void* x, void* out, const float* ln_s,
-                            const float* ln_b, const float* w1,
-                            const float* b1, const float* w2, const float* b2,
+extern "C" long long swin_mlp_fwd_workspace(int C, int Ch, int is_bf16) {
+  if (!swin::mlp_fwd_dims_ok(1, C, Ch, is_bf16) || !is_bf16) return 0;
+  swin::Carver cv{nullptr};
+  swin::FwdWork w(cv, C, Ch);
+  return static_cast<long long>(cv.off);
+}
+
+extern "C" int swin_mlp_fwd(const void* x, void* out, void* work,
+                            const float* ln_s, const float* ln_b,
+                            const float* w1, const float* b1,
+                            const float* w2, const float* b2,
                             const float* dp, long long T, int C, int Ch,
                             int hw, int is_bf16, void* stream) {
+  if (!swin::mlp_fwd_dims_ok(T, C, Ch, is_bf16))
+    return static_cast<int>(cudaErrorInvalidValue);
   swin::MlpArgs a{x, out, ln_s, ln_b, w1, b1, w2, b2, dp, T, C, Ch, hw};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return swin::launch_mlp(a, is_bf16, s);
+  return is_bf16 ? swin::launch_mlp_bf16(a, work, s)
+                 : swin::launch_mlp_f32(a, s);
 }

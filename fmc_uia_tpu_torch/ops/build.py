@@ -41,11 +41,12 @@ _F, _LLP = ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "swin_attn_fwd": [_VP] * 12 + [ctypes.c_float] + [_I] * 7 + [_VP],
     "swin_attn_fwd_workspace": [_I] * 7,
-    "swin_mlp_fwd": [_VP] * 9 + [_LL] + [_I] * 4 + [_VP],
+    "swin_mlp_fwd": [_VP] * 10 + [_LL] + [_I] * 4 + [_VP],
+    "swin_mlp_fwd_workspace": [_I] * 3,
     "swin_attn_bwd": [_VP] * 20 + [ctypes.c_float] + [_I] * 9 + [_VP],
     "swin_attn_bwd_workspace": [_I] * 9,
-    "swin_mlp_bwd": [_VP] * 17 + [_LL] + [_I] * 4 + [_VP],
-    "swin_mlp_bwd_workspace": [_LL] + [_I] * 3,
+    "swin_mlp_bwd": [_VP] * 17 + [_LL, _LL] + [_I] * 6 + [_VP],
+    "swin_mlp_bwd_workspace": [_LL] + [_I] * 5,
     "preprocess_fwd": [_VP] * 6 + [_I, _I, _LL, _I, _VP],
     # tensors, then a host array of (b, h, n) element strides per tensor
     "vit_flash_fwd": [_VP] * 5 + [_LLP, _F] + [_I] * 5 + [_VP],

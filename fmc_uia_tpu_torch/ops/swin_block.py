@@ -23,16 +23,19 @@ Weights are the port's f32 params in PyTorch layout (``[out, in]``); the
 kernels round them to the compute dtype themselves (bf16: into a bf16
 workspace that TMA reads, once per launch).
 
-The bf16 attention kernels run on Hopper's TMA and wgmma
-(``csrc/sm90_gemm.cuh``, ``csrc/swin_attn_sm90.cuh``). What they take from
-the host is computed here, where the CPU tests hold it: the window box of
-the [B, Hp, Wp, C] tensor maps (``window_tma_layout``), the head groups
-of the window kernels (``head_groups``) and the token slots of K1b's
-split-K weight gradients (``split_k_plan``).
+The bf16 kernels run on Hopper's TMA and wgmma (``csrc/sm90_gemm.cuh``,
+``csrc/swin_attn_sm90.cuh``). What they take from the host is computed
+here, where the CPU tests hold it: the window box of the [B, Hp, Wp, C]
+tensor maps (``window_tma_layout``), the head groups of the window
+kernels (``head_groups``), the token slots of K1b's and K2b's split-K
+weight gradients (``split_k_plan``), K2b's launch plan and workspace
+(``mlp_bwd_plan``) and the widths the MLP kernels take
+(``mlp_kernel_dims``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -500,10 +503,72 @@ def mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
     return dx, dg, db, dw1, db1, dw2, db2
 
 
+# K2b's dual product takes 128-token tiles: one db1 slot a tile
+MLP_TILE = 128
+
+
+def mlp_kernel_dims(C: int, Ch: int, dtype) -> None:
+    """Raise ``ValueError`` on widths the MLP kernels do not take. bf16:
+    C % 32 == 0 and C <= 256 (K2f keeps y, 64 x C in f32 a warpgroup, in
+    registers, with wgmma widths that sum to C; K2b keeps a tile's xn and
+    dyc in shared memory) and Ch % 64 == 0 (whole hidden chunks). f32:
+    C <= 1024 (the pullback's rows of 32 lanes)."""
+    if dtype == torch.bfloat16:
+        if C % 32 or not 32 <= C <= 256 or Ch % 64 or Ch < 64:
+            raise ValueError(f"bf16 MLP kernels: C={C}, Ch={Ch}: need C a "
+                             "multiple of 32 up to 256 and Ch a multiple "
+                             "of 64")
+    elif not 1 <= C <= 1024 or Ch < 1:
+        raise ValueError(f"f32 MLP kernels: C={C}, Ch={Ch}: need "
+                         "1 <= C <= 1024")
+
+
+def _rows_per_slot(rows: int, least: int) -> int:
+    return max(-(-rows // 256), least)  # swin_bwd_common.cuh rows_per_slot
+
+
+def _carve(pieces) -> int:
+    """Bytes of a workspace carved as ``Carver`` does: (count, item bytes)
+    pieces in order, each starting at a multiple of 256 bytes."""
+    off = 0
+    for n, size in pieces:
+        off = -(-off // 256) * 256 + n * size
+    return off
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_bwd_plan(T: int, C: int, Ch: int):
+    """K2b's bf16 launch plan over T tokens, as ``csrc/swin_mlp_bwd.cu``
+    runs it: the split-K slots of dW1 [Ch, C] and dW2 [C, Ch] over the
+    tokens (``split_k_plan``), db1's slots (one per 128-token tile of the
+    dual product, ``tiles``) and the workspace bytes (``MlpBwdWorkBf16``,
+    carved in the same order; the wrapper allocates them, and the launch
+    refuses a buffer smaller than its own carving). Cached per shape:
+    read it, do not change it."""
+    kchunk_w1, slots_w1 = split_k_plan(Ch, C, T)
+    kchunk_w2, slots_w2 = split_k_plan(C, Ch, T)
+    tiles = -(-T // MLP_TILE)
+    colsum = -(-T // _rows_per_slot(T, 512)) * C
+    ln_parts = -(-T // _rows_per_slot(T, 64)) * C
+    workspace = _carve([
+        (Ch * C, 2), (C * Ch, 2),      # W1, W2 in bf16
+        (T, 4), (T, 4),                # mu, rstd
+        (T * C, 2), (T * C, 2),        # xn, dyc
+        (T * Ch, 2), (T * Ch, 2),      # gc, dh1c
+        (T * C, 4),                    # dxn
+        (slots_w1 * Ch * C, 4), (slots_w2 * C * Ch, 4),
+        (tiles * Ch, 4), (colsum, 4),  # db1, db2 partials
+        (ln_parts, 4), (ln_parts, 4)])  # dLN scale, bias partials
+    return dict(kchunk_w1=kchunk_w1, slots_w1=slots_w1,
+                kchunk_w2=kchunk_w2, slots_w2=slots_w2, tiles=tiles,
+                workspace=workspace)
+
+
 def _mlp_kernel_args(x, ln_scale, ln_bias, w1, b1, w2, b2, dp):
     _check_x(x, 4)
     B, H, W, C = x.shape
     Ch = w1.shape[0]
+    mlp_kernel_dims(C, Ch, x.dtype)
     dev = x.device
     args = [_f32_on(t, dev, shape, what) for t, shape, what in (
         (ln_scale, (C,), "ln_scale"), (ln_bias, (C,), "ln_bias"),
@@ -519,16 +584,18 @@ def _mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, dp=None):
         return mlp_branch_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
     args, dp = _mlp_kernel_args(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
     B, H, W, C = x.shape
-    if x.dtype == torch.bfloat16 and (C % 32 or C > 256):
-        raise ValueError(f"bf16 kernel: C={C} must be a multiple of 32 and "
-                         "at most 256")
+    Ch = w1.shape[0]
+    bf = int(x.dtype == torch.bfloat16)
     out = torch.empty_like(x)
-    # a C whose block would need more shared memory than the card allows
-    # fails in the launcher (cudaFuncSetAttribute) and raises below
+    # bf16: the bf16 copies of W1 and W2 that TMA reads
+    work = torch.empty(_workspace("swin_mlp_fwd", C, Ch, bf),
+                       dtype=torch.uint8, device=x.device)
+    # an f32 C whose block would need more shared memory than the card
+    # allows fails in the launcher (cudaFuncSetAttribute) and raises below
     rc = build.load("swin_mlp_fwd")(
-        x.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in args],
-        _ptr(dp), B * H * W, C, w1.shape[0], H * W,
-        int(x.dtype == torch.bfloat16), _stream(x))
+        x.data_ptr(), out.data_ptr(), work.data_ptr(),
+        *[t.data_ptr() for t in args], _ptr(dp), B * H * W, C, Ch, H * W,
+        bf, _stream(x))
     if rc != 0:
         raise RuntimeError(f"swin_mlp_fwd launch failed: CUDA error {rc}")
     mlp_branch.launches += 1
@@ -546,23 +613,24 @@ def mlp_branch_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, dy, dp=None):
     dy = _check_dy(dy, x)
     B, H, W, C = x.shape
     Ch = w1.shape[0]
-    if C > 1024 or (x.dtype == torch.bfloat16 and C % 8):
-        raise ValueError(f"swin_mlp_bwd: C={C}: need C <= 1024, and a "
-                         "multiple of 8 in bf16 (16-byte rows)")
     bf = int(x.dtype == torch.bfloat16)
     dev = x.device
     grads = [torch.empty(shape, dtype=torch.float32, device=dev)
              for shape in ((C,), (C,), (Ch, C), (Ch,), (C, Ch), (C,))]
     dx = torch.empty_like(x)
     T = B * H * W
-    nbytes = build.load("swin_mlp_bwd", "swin_mlp_bwd_workspace")(
-        T, C, Ch, bf)
+    # the split-K slots of dW1 and dW2 (bf16; ignored in f32)
+    plan = mlp_bwd_plan(T, C, Ch)
+    kchunks = (plan["kchunk_w1"], plan["kchunk_w2"])
+    # bf16: the plan's bytes; the launch refuses fewer than it carves
+    nbytes = (plan["workspace"] if bf
+              else _workspace("swin_mlp_bwd", T, C, Ch, bf, *kchunks))
     work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     rc = build.load("swin_mlp_bwd")(
         x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         *[t.data_ptr() for t in args], _ptr(dp),
-        *[g.data_ptr() for g in grads], work.data_ptr(),
-        T, C, Ch, H * W, bf, _stream(x))
+        *[g.data_ptr() for g in grads], work.data_ptr(), nbytes,
+        T, C, Ch, H * W, bf, *kchunks, _stream(x))
     if rc != 0:
         raise RuntimeError(f"swin_mlp_bwd launch failed: CUDA error {rc}")
     mlp_branch_backward.launches += 1

@@ -179,7 +179,7 @@ def _mlp_port_order(grads):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("C", [32, 64, 96])
 def test_mlp_backward_matches_mlp_pullback(C, dt):
     B, grid = 2, 8
     rng = np.random.RandomState(40 + C)

@@ -158,7 +158,7 @@ def _torch_mlp_args(w):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("C", [32, 64, 96])
 def test_mlp_branch_matches_mlp_math(C, dt):
     B, grid = 2, 8
     rng = np.random.RandomState(C)
