@@ -12,7 +12,9 @@ pass):
    HMMA counts of the SASS (``cuobjdump``) of the K4 kernels and of the K1
    and K2 functions that run a product (``PRODUCTS``): a bf16 one without
    HGMMA and UTMALDG fails, and so does any HMMA (a WMMA product) in the
-   K1 and K2 libraries.
+   K1 and K2 libraries; K3's chunk kernel (``preprocess_fwd_vec``, bf16
+   and f32) without 16-byte global loads and stores (LDG.E.128,
+   STG.E.128) fails too (K3's static opcode counts are printed).
 2. kernels — each hand-written forward kernel (K1f, K2f) against its
    plain PyTorch version on the card, in f32 (TF32 off) and bf16, at the
    swin_b 512² stage shapes of a batch of 8 (K1f: four stages, shifted
@@ -47,13 +49,29 @@ pass):
    their plain forward versions as in phase 2, since the train step runs
    them at these shapes.
 2c. K3 — the fused photometric preprocessing kernel
-   against its plain version at B=24, 512², f32 and bf16: sigma = 0 with
-   alpha/beta that saturate both clips (bitwise); p = 1 for both ops with
-   the generator's draws (f32 within 1e-5, bf16 within one bf16 ulp of
-   the output: both sides draw the same Philox bits); p = 0 against
-   ``normalize_images`` (5e-7 in f32); the noise law on the kernel's own
-   output (sigma = 5 on a constant 128: mean and std within 0.05). Kernel,
-   plain, unfused ``augment_and_normalize`` and bound ms.
+   against its plain version, f32 and bf16, at B=24, 512² and at the edge
+   shapes (an odd P, [3, 17, 23, 3]; C = 1 and C = 4; B = 1; a view at
+   offset 1 into a larger buffer): sigma = 0 with alpha/beta that
+   saturate both clips (bitwise); p = 1 for both ops with the generator's
+   draws (f32 within 1e-5, bf16 within one bf16 ulp of the output: both
+   sides draw the same Philox bits; at B=24 also the train path's draws);
+   p = 0 against ``normalize_images`` (5e-7 in f32); the noise law on the
+   kernel's own output on both kernels (sigma = 5 on a constant 128: mean
+   and std within 0.05). ``preprocess_fwd`` chooses its kernel; every
+   call must take the one its shape calls for (the odd P and the view:
+   the edge kernel; the rest: the chunk kernel). Then bf16 at B=24 on
+   three cases: (a) the train path's draws (p = 0.2 / 0.1 from a fixed
+   generator seed; the images with sigma > 0 are counted), (b) p = 1, (c)
+   p = 0: one call between CUDA events (``ms``, host time included), per
+   call of 50 back-to-back calls (``ms_50``; at K3's size the wrapper's
+   host time a call is about the kernel's), the kernel's own device time
+   a launch (``device_ms``, ``torch.profiler``) and the bound, each
+   instruction class the function needs (``k3_bound``: integer
+   multiplies and ALU integer work at 64, f32 at 128, special functions
+   and conversions at 16 a clock per SM, at ``clocks.max.sm`` × the SMs;
+   noise counted for the noisy images only) against the bytes at 3.35
+   TB/s, the binding class printed; on (a) the plain and unfused
+   ``augment_and_normalize`` ms.
 2d. K4 — the ViT global-attention kernels (K4f forward, K4b backward)
    against their plain versions at the DINOv3 ViT-B/8 512² shapes (12
    heads x 64, N = 4101) in f32 (TF32 off) and bf16: K4f at B=8 (serving)
@@ -104,7 +122,7 @@ pass):
    epochs of 12 steps (validation and a checkpoint each epoch), then
    ``fit(resume=True)`` to epoch 3. The launch counters are zeroed just
    before the first ``fit`` and read just after the second: K3 once per
-   train step, K1b/K2b 24/4 per train step, K1f/K2f 24/4 per train step
+   train step, always its chunk kernel, K1b/K2b 24/4 per train step, K1f/K2f 24/4 per train step
    and evaluation batch. Prints the host ms of one frame's decode steps
    and resize, the host ms per batch (decode + resize + collate), the
    share of each epoch's loop spent waiting on the prefetch
@@ -139,9 +157,14 @@ phase 7, K4b from phase 8); the last line is ``{"ok": true, "device":
 
 runs phase 5's staged flagship training alone (warm-up, the timed
 round-robin, the enqueue ms and one profiled round; no checks beyond the
-launch counts and finite losses) and prints one JSON line. Copied into
-the root of another tree of the port, it times that tree the same way,
-so that two trees compare within one call on one card.
+launch counts and finite losses) and prints one JSON line.
+
+    python3 chip_smoke.py --k3
+
+builds K3 alone and times phase 2c's three cases (no checks), one JSON
+line. Copied into the root of another tree of the port, either mode
+times that tree the same way, so that two trees compare within one call
+on one card.
 """
 
 from __future__ import annotations
@@ -149,6 +172,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -304,7 +328,50 @@ def check_sass(build):
         for p in PRODUCTS.get(k, ()):
             if not any(p in fn for fn in mine):
                 fail(f"{k}: no {p} kernel in its SASS")
+    counts.update(check_k3_sass(build, tool))
     return counts
+
+
+def check_k3_sass(build, tool):
+    """K3's chunk kernel (``preprocess_fwd_vec``, bf16 and f32) must load
+    and store its chunks 16 bytes at a time (LDG.E.128, STG.E.128): the
+    global load / store mnemonics of each function of the library."""
+    out = subprocess.run([tool, "-sass", str(build.lib_path(
+        "preprocess_fwd"))], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump preprocess_fwd: {out.stderr.strip()}")
+    fn, mine, kinds = None, {}, {}
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            mine[fn], kinds[fn] = {}, {}
+        elif fn:
+            m = re.search(r"\b((?:LDG|STG)\.[A-Z0-9_.]+)", line)
+            if m:
+                mine[fn][m.group(1)] = mine[fn].get(m.group(1), 0) + 1
+            # the static count of each opcode (integer multiplies with
+            # their modifiers: IMAD.WIDE, IMAD.HI, IMAD.MOV), and of all
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)"
+                          r"((?:\.[A-Z0-9_]+)*)", line)
+            if m and m.group(1) != "NOP":
+                op = m.group(1) + (m.group(2) if m.group(1) == "IMAD"
+                                   else "")
+                kinds[fn][op] = kinds[fn].get(op, 0) + 1
+                kinds[fn]["all"] = kinds[fn].get("all", 0) + 1
+    vec = [f for f in mine if "preprocess_fwd_vec" in f]
+    if len(vec) != 2:
+        fail(f"preprocess_fwd: {len(vec)} preprocess_fwd_vec functions in "
+             f"its SASS, not 2 (bf16, f32): {list(mine)}")
+    for f, ops in mine.items():
+        top = dict(sorted(kinds[f].items(), key=lambda kv: -kv[1])[:16])
+        log(f"  sass preprocess_fwd {f}: {ops}; static opcodes {top}")
+    for f in vec:
+        for kind in ("LDG.E", "STG.E"):
+            if not any(op.startswith(kind) and ".128" in op
+                       for op in mine[f]):
+                fail(f"{f}: no {kind}.128 in its SASS: {mine[f]}")
+    return {f"preprocess_fwd:{f}": dict(ops, opcodes=kinds[f])
+            for f, ops in mine.items()}
 
 
 def k1_chain(x, w, mask, dp, H, ws):
@@ -797,7 +864,34 @@ def check_bwd_kernels(dev, records):
 # ---------------------------------------------------------------------------
 # phase 2c: K3
 # ---------------------------------------------------------------------------
-K3_OPS_PER_ELEMENT = 74  # Philox 49 (98 a pair), Box-Muller and the rest 25
+# sm_90 results a clock per SM (CUDA C++ Programming Guide, arithmetic
+# instructions, compute capability 9.0), by the pipe that issues them
+# (Nsight Compute's pipelines): integer multiplies (IMAD, IMAD.HI) on the
+# FMA pipe, 64; integer logic, add, shift and byte permute (LOP3, IADD3,
+# SHF, PRMT) on the ALU pipe, 64; f32 add, multiply, min and max 128;
+# special functions (lg2, sqrt, cos) 16; int <-> f32 conversions 16
+K3_RATES = {"imad": 64, "alu": 64, "f32": 128, "special": 16,
+            "conversion": 16}
+# the instructions that csrc/preprocess_fwd.cu's function needs, by
+# class: a special function or conversion once, however many instructions
+# it expands to. Every element: a byte permute into a float's mantissa
+# (alu) and its exact subtraction, multiply, add, two clips, subtract,
+# multiply (f32 7); bf16 output adds one packing conversion a pair.
+K3_PER_ELEMENT = {"alu": 1, "f32": 7}
+# an element of an image with sigma != 0: two shifts, two int -> f32
+# conversions, ten f32 operations (two scales, max, -2 x, 2 pi x, the
+# product, sigma n, the add, the clip), logf, sqrtf and cosf
+K3_PER_NOISE_ELEMENT = {"alu": 2, "f32": 10, "special": 3,
+                        "conversion": 2}
+# a Philox pair: a 32 x 32 -> 64-bit product is two multiply instructions
+# (high and low word); a round's two three-input XORs are one LOP3 each.
+# Round 0 (c1 = c2 = c3 = 0, key (seed, 0)) needs c0's product alone and
+# no XOR; round 1's c0 is the seed, whose product is the image's own, so
+# it needs c2's product and two XORs; rounds 2-9 two products and two
+# XORs. The key schedule's 9 adds are the image's own too.
+K3_PER_NOISE_PAIR = {"imad": 2 + 2 + 8 * 4, "alu": 2 + 8 * 2}
+K3_PER_NOISE_IMAGE = {"alu": 9}
+K3_DRAW_SEED = 8    # the generator of case (a), the train path's draws
 
 
 def bf16_ulps(a, b):
@@ -808,9 +902,173 @@ def bf16_ulps(a, b):
     return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi clocks.max.sm failed: {out.stderr.strip()}")
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def k3_bound(B, P, C, noisy, out_bytes, clock_hz, sms):
+    """K3's least time on these inputs: the larger of its bytes at the HBM
+    rate and each instruction class at its sm_90 rate; the noise's work is
+    counted for the ``noisy`` images (sigma > 0) only."""
+    pairs = noisy * ((P + 1) // 2)
+    ops = {c: (B * P * K3_PER_ELEMENT.get(c, 0)
+               + noisy * P * K3_PER_NOISE_ELEMENT.get(c, 0)
+               + pairs * K3_PER_NOISE_PAIR.get(c, 0)
+               + noisy * K3_PER_NOISE_IMAGE.get(c, 0)) for c in K3_RATES}
+    if out_bytes == 2:
+        ops["conversion"] += B * P / 2
+    nbytes = B * P * (1 + out_bytes) + B * 16 + 2 * C * 4
+    ms = {c: 1e3 * ops[c] / (K3_RATES[c] * sms * clock_hz) for c in ops}
+    ms["bytes"] = 1e3 * nbytes / HBM_BPS
+    by = max(ms, key=ms.get)
+    return dict(bound_ms=ms[by], bound_class=by,
+                bound_by="bytes" if by == "bytes" else "operations",
+                class_ms=ms, operations=ops, bytes=nbytes, noisy=noisy)
+
+
+def k3_device_ms(fn, calls=20):
+    """The K3 kernel's own device ms a launch (one a call), from
+    torch.profiler over ``calls`` calls of ``fn`` after a warm-up: at
+    K3's size the wrapper's host time a call is about the kernel's, so
+    events over back-to-back calls (``ms_50``) time the host as much as
+    the card. The mean is over the launches the trace recorded; fewer
+    than ``calls`` - 2 fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        dev_us = float(getattr(e, "self_device_time_total", 0.0)
+                       or getattr(e, "self_cuda_time_total", 0.0))
+        if "preprocess_fwd" in e.key and dev_us > 0:
+            us, n = us + dev_us, n + e.count
+    if not calls - 2 <= n <= calls:
+        fail(f"profile: {n} K3 launches recorded of {calls} calls")
+    return us / 1e3 / n
+
+
+def k3_inputs(dev):
+    """The images and the parameters of the timed cases at the train
+    step's shapes: (a) the train path's draws (p = 0.2 / 0.1), (b) both
+    ops on every image (p = 1), (c) no change (p = 0)."""
+    import torch
+
+    from fmc_uia_tpu_torch.ops import preprocess as pp
+
+    B, S = TRAIN_BATCH, IMAGE
+    gen = torch.Generator(device=dev).manual_seed(7)
+    img = torch.randint(0, 256, (B, S, S, 3), dtype=torch.uint8, device=dev,
+                        generator=gen)
+    cases = {
+        "draws": pp.draw_params(B, dev, torch.Generator(
+            device=dev).manual_seed(K3_DRAW_SEED)),
+        "p1": pp.draw_params(B, dev, gen, 1.0, 1.0),
+        "none": pp.draw_params(B, dev, gen, 0.0, 0.0),
+    }
+    return img, gen, cases
+
+
+def k3_timing(img, cases, mean, std, clock_hz, sms):
+    """K3 in bf16 on each timed case: ``ms``, one call between CUDA
+    events (the host's time to enqueue it included), ``ms_50``, per call
+    of 50 back-to-back calls, ``device_ms``, the kernel's own time a
+    launch (profiler), and the bound."""
+    import torch
+
+    from fmc_uia_tpu_torch.ops import preprocess as pp
+
+    B, P = img.shape[0], img[0].numel()
+    out = {}
+    for case, (sc, sd) in cases.items():
+        def call():
+            return pp.augment_normalize(img, sc, sd, mean, std,
+                                        torch.bfloat16)
+        noisy = int((sc[:, 2] > 0).sum())
+        out[case] = dict(ms=cuda_ms(call, reps=50, warmup=5),
+                         ms_50=cuda_ms(call, calls=50),
+                         device_ms=k3_device_ms(call),
+                         **k3_bound(B, P, img.shape[-1], noisy, 2, clock_hz,
+                                    sms))
+    return out
+
+
+def k3_yardsticks(img):
+    """For information, the same bytes moved by PyTorch: ``cast_ms``, a
+    uint8 -> bf16 copy of the images (what K3 reads and writes), and
+    ``copy_ms``, a device copy that moves as many bytes (per call of 50)."""
+    import torch
+
+    o16 = torch.empty(img.shape, dtype=torch.bfloat16, device=img.device)
+    src = torch.empty(img.numel() * 3 // 2, dtype=torch.uint8,
+                      device=img.device)
+    dst = torch.empty_like(src)
+    return dict(cast_ms=cuda_ms(lambda: o16.copy_(img), calls=50),
+                copy_ms=cuda_ms(lambda: dst.copy_(src), calls=50))
+
+
+def k3_log(case, t):
+    ops = t["operations"]
+    log(f"  K3 bf16 {case:5s} ({t['noisy']:2d} images with noise): "
+        f"device {t['device_ms']:.4f} ms, {t['ms_50']:.4f} a call of 50, "
+        f"one call {t['ms']:.4f}; bound "
+        f"{t['bound_ms']:.4f} by {t['bound_class']}; ms by class "
+        + ", ".join(f"{c} {v:.4f}" for c, v in t["class_ms"].items())
+        + f"; {t['bytes'] / 1e6:.1f} MB, imad {ops['imad'] / 1e9:.3f} G, "
+        f"alu {ops['alu'] / 1e9:.3f} G")
+
+
+def k3_edge_cases(dev, gen, mean, std):
+    """The shapes beside the train step's: (name, images, mean, std).
+    The odd P and the view at offset 1 take the edge kernel."""
+    import torch
+
+    def rnd(shape, offset=0):
+        n = math.prod(shape)
+        buf = torch.randint(0, 256, (n + offset,), dtype=torch.uint8,
+                            device=dev, generator=gen)
+        return buf[offset:].view(shape)
+
+    def stats(C):
+        return (list(mean) + [0.4])[:C], (list(std) + [0.22])[:C]
+
+    return [("odd_P", rnd((3, 17, 23, 3)), *stats(3)),
+            ("C1", rnd((4, 64, 64, 1)), *stats(1)),
+            ("C4", rnd((4, 64, 64, 4)), *stats(4)),
+            ("B1", rnd((1, IMAGE, IMAGE, 3)), *stats(3)),
+            ("misaligned", rnd((2, 64, 64, 3), offset=1), *stats(3))]
+
+
+def k3_call(pp, path, what, *args):
+    """One K3 call that must take the ``path`` kernel ("vector" or
+    "edge"): ``preprocess_fwd`` chooses, its counts say which ran."""
+    counts = pp.augment_normalize.launches_by_kernel
+    n = counts[path]
+    out = pp.augment_normalize(*args)
+    if counts[path] != n + 1:
+        fail(f"K3 {what}: preprocess_fwd did not take the {path} kernel "
+             f"({counts})")
+    return out
+
+
 def check_k3(dev, records, mean, std):
     """K3 against its plain version on the card at the train step's
-    shapes; returns the kernels-line summary (bf16 timings)."""
+    shapes and at the edge shapes; times the three cases; returns the
+    kernels-line summary (bf16, case (a))."""
     import torch
 
     from fmc_uia_tpu_torch.ops import preprocess as pp
@@ -819,95 +1077,152 @@ def check_k3(dev, records, mean, std):
         normalize_images,
     )
 
-    B, S = TRAIN_BATCH, IMAGE
-    gen = torch.Generator(device=dev).manual_seed(7)
-    img = torch.randint(0, 256, (B, S, S, 3), dtype=torch.uint8, device=dev,
-                        generator=gen)
+    img, gen, cases = k3_inputs(dev)
+    B = img.shape[0]
     seeds = torch.randint(0, 2 ** 31 - 1, (B,), dtype=torch.int32,
                           device=dev, generator=gen)
     # (alpha, beta) that push both ends past the clips: 1.5 x - 100 < 0
     # below 67 and > 255 above 236, and so on
-    sat = torch.tensor([[1.5, -100.0, 0.0], [1.2, 60.0, 0.0],
-                        [2.0, -200.0, 0.0], [0.8, -40.0, 0.0]],
-                       device=dev).repeat(B // 4, 1).contiguous()
-    drawn, dseeds = pp.draw_params(B, dev, gen, 1.0, 1.0)
-    zero, zseeds = pp.draw_params(B, dev, gen, 0.0, 0.0)
+    sat4 = torch.tensor([[1.5, -100.0, 0.0], [1.2, 60.0, 0.0],
+                         [2.0, -200.0, 0.0], [0.8, -40.0, 0.0]],
+                        device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        for case, sc, sd in (("sigma0_saturated", sat, seeds),
-                             ("p1_draws", drawn, dseeds)):
-            got = pp.augment_normalize(img, sc, sd, mean, std, dtype).float()
-            ref = pp.augment_normalize_reference(img, sc, sd, mean, std,
-                                                 dtype).float()
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            if case == "sigma0_saturated":
-                tol, ok = 0.0, err == 0.0
-            elif dtype == torch.float32:
-                tol, ok = 1e-5, err <= 1e-5
-            else:
-                ulps = float(bf16_ulps(got, ref).max())
-                tol, ok = 1.0, ulps <= 1.0
-                err_ulps = ulps
-            if not ok:
-                fail(f"K3 {case} {dname}: err {err:.3e} > tol {tol}")
-            worst = max(worst, err)
-            rec = dict(kernel="augment_normalize", case=case, dtype=dname,
-                       shape=[B, S, S, 3], max_abs_err=err, tol=tol)
-            if case == "p1_draws" and dtype == torch.bfloat16:
-                rec["max_bf16_ulps"] = err_ulps
-            records.append(rec)
-            log(f"  K3 {case:17s} {dname:8s} [{B}, {S}, {S}, 3] err "
-                f"{err:.3e} (tol {tol}"
-                + (f"; {err_ulps:.2f} bf16 ulps" if "max_bf16_ulps" in rec
-                   else "") + ")")
-            del got, ref
-    got = pp.augment_normalize(img, zero, zseeds, mean, std, torch.float32)
-    err = float((got - normalize_images(img, mean, std)).abs().max())
-    if not err <= 5e-7:
-        fail(f"K3 p=0 vs normalize_images: err {err:.3e} > 5e-7")
-    records.append(dict(kernel="augment_normalize", case="p0_vs_normalize",
-                        dtype="float32", max_abs_err=err, tol=5e-7))
-    log(f"  K3 p0_vs_normalize  float32  err {err:.3e} (tol 5e-7)")
-    const = torch.full((2, S, S, 3), 128, dtype=torch.uint8, device=dev)
-    noise = pp.augment_normalize(
-        const, torch.tensor([[1.0, 0.0, 5.0]] * 2, device=dev),
-        torch.tensor([11, 12], dtype=torch.int32, device=dev), [0.0] * 3,
-        [1 / 255.0] * 3, torch.float32).double()
-    m, sd = float(noise.mean()), float(noise.std())
-    if not (abs(m - 128.0) < 0.05 and abs(sd - 5.0) < 0.05):
-        fail(f"K3 noise law: mean {m:.4f} (128), std {sd:.4f} (5)")
-    records.append(dict(kernel="augment_normalize", case="noise_law",
-                        mean=m, std=sd, samples=noise.numel()))
-    log(f"  K3 noise law, sigma 5 on 128 ({noise.numel()} samples): mean "
-        f"{m:.4f}, std {sd:.4f}")
-    del noise, got
+    shapes = [("main", img, mean, std)] + k3_edge_cases(dev, gen, mean,
+                                                        std)
+    for name, x, m, s in shapes:
+        Bx = x.shape[0]
+        sat = sat4.repeat(-(-Bx // 4), 1)[:Bx].contiguous()
+        sd = seeds[:Bx].contiguous()
+        p1 = (cases["p1"] if name == "main"
+              else pp.draw_params(Bx, dev, gen, 1.0, 1.0))
+        runs = [("sigma0_saturated", sat, sd), ("p1_draws", *p1)]
+        if name == "main":
+            runs.append(("draws", *cases["draws"]))
+        # the kernel preprocess_fwd must choose: the chunk kernel needs
+        # P % 16 == 0, C <= 16 and 16-byte aligned images (the output is
+        # a fresh, aligned allocation)
+        path = ("vector" if x[0].numel() % 16 == 0 and x.shape[-1] <= 16
+                and x.data_ptr() % 16 == 0 else "edge")
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for case, sc, sdd in runs:
+                got = k3_call(pp, path, f"{name} {case}", x, sc, sdd, m, s,
+                              dtype).float()
+                ref = pp.augment_normalize_reference(x, sc, sdd, m, s,
+                                                     dtype).float()
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                ulps = None
+                if case == "sigma0_saturated":
+                    tol, ok = 0.0, err == 0.0
+                elif dtype == torch.float32:
+                    tol, ok = 1e-5, err <= 1e-5
+                else:
+                    ulps = float(bf16_ulps(got, ref).max())
+                    tol, ok = 1.0, ulps <= 1.0
+                if not ok:
+                    fail(f"K3 {name} {case} {dname}: err {err:.3e} > tol "
+                         f"{tol}" + (f" ({ulps:.2f} bf16 ulps)" if ulps
+                                     is not None else ""))
+                worst = max(worst, err)
+                rec = dict(kernel="augment_normalize", shape_case=name,
+                           case=case, dtype=dname, shape=list(x.shape),
+                           path=path, max_abs_err=err, tol=tol)
+                if ulps is not None:
+                    rec["max_bf16_ulps"] = ulps
+                records.append(rec)
+                log(f"  K3 {name:10s} {path:6s} {case:17s} {dname:8s} "
+                    f"{list(x.shape)} err {err:.3e} (tol {tol}"
+                    + (f"; {ulps:.2f} bf16 ulps" if ulps is not None
+                       else "") + ")")
+                del got, ref
+        zero = pp.draw_params(Bx, dev, gen, 0.0, 0.0)
+        got = k3_call(pp, path, f"{name} p0", x, *zero, m, s, torch.float32)
+        err = float((got - normalize_images(x, m, s)).abs().max())
+        if not err <= 5e-7:
+            fail(f"K3 {name} p=0 vs normalize_images: err {err:.3e} > 5e-7")
+        records.append(dict(kernel="augment_normalize", shape_case=name,
+                            case="p0_vs_normalize", dtype="float32",
+                            path=path, max_abs_err=err, tol=5e-7))
+        log(f"  K3 {name:10s} {path:6s} p0_vs_normalize   float32  err "
+            f"{err:.3e} (tol 5e-7)")
+    # the noise law on the kernel's own output, on each path: a constant
+    # 128 at sigma 5, 2 x 256² x 3 samples (vector), and an odd P in a
+    # view at offset 1 (edge)
+    S = 256
+    for name, shape, off, path in (
+            ("noise_law", (2, S, S, 3), 0, "vector"),
+            ("noise_law_edge", (2, S + 1, S - 1, 3), 1, "edge")):
+        buf = torch.full((math.prod(shape) + off,), 128, dtype=torch.uint8,
+                         device=dev)
+        const = buf[off:].view(shape)
+        noise = k3_call(
+            pp, path, name, const,
+            torch.tensor([[1.0, 0.0, 5.0]] * 2, device=dev),
+            torch.tensor([11, 12], dtype=torch.int32, device=dev),
+            [0.0] * 3, [1 / 255.0] * 3, torch.float32).double()
+        mu, sdv = float(noise.mean()), float(noise.std())
+        if not (abs(mu - 128.0) < 0.05 and abs(sdv - 5.0) < 0.05):
+            fail(f"K3 {name}: mean {mu:.4f} (128), std {sdv:.4f} (5)")
+        records.append(dict(kernel="augment_normalize", case=name,
+                            shape=list(shape), mean=mu, std=sdv,
+                            samples=noise.numel()))
+        log(f"  K3 {name}, sigma 5 on 128, {list(shape)} at offset {off} "
+            f"({noise.numel()} samples): mean {mu:.4f}, std {sdv:.4f}")
+        del noise
 
-    P = S * S * 3
+    timing = k3_timing(img, cases, mean, std, sm_clock_hz(), sms)
+    sc, sd = cases["draws"]
     bf = torch.bfloat16
-    ms = cuda_ms(lambda: pp.augment_normalize(img, drawn, dseeds, mean, std,
-                                              bf), reps=50, warmup=5)
     plain_ms = cuda_ms(lambda: pp.augment_normalize_reference(
-        img, drawn, dseeds, mean, std, bf), reps=5, warmup=1)
+        img, sc, sd, mean, std, bf), reps=5, warmup=1)
     unfused_ms = cuda_ms(lambda: augment_and_normalize(
         img, mean, std, 0.2, 0.1, train=True, dtype=bf, generator=gen),
         reps=20, warmup=2)
-    nbytes = B * P * (1 + 2) + B * 16 + 24
-    flops = K3_OPS_PER_ELEMENT * B * P
-    bound = 1e3 * max(flops / PEAK_F32, nbytes / HBM_BPS)
-    summ = dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
-                bound_ms=bound, max_abs_err=worst,
-                bound_by=("operations" if flops / PEAK_F32
-                          >= nbytes / HBM_BPS else "bytes"),
-                bytes=nbytes, operations=flops)
-    records.append(dict(kernel="augment_normalize", case="timing",
-                        dtype="bfloat16", shape=[B, S, S, 3], **summ))
-    log(f"  K3 bf16 [{B}, {S}, {S}, 3]: {ms:.4f} ms (plain {plain_ms:.3f}, "
-        f"unfused augment_and_normalize {unfused_ms:.3f}, bound {bound:.4f}"
-        f" by {summ['bound_by']}: {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} G operations)")
-    return summ
+    for case, t in timing.items():
+        records.append(dict(kernel="augment_normalize", case=f"time_{case}",
+                            dtype="bfloat16", shape=list(img.shape), **t))
+        k3_log(case, t)
+    a, p1 = timing["draws"], timing["p1"]
+    yard = k3_yardsticks(img)
+    log(f"  K3 bf16 draws: plain {plain_ms:.3f} ms, unfused "
+        f"augment_and_normalize {unfused_ms:.3f} ms; the same bytes: "
+        f"uint8 -> bf16 copy_ {yard['cast_ms']:.4f} ms, device copy "
+        f"{yard['copy_ms']:.4f} ms")
+    return dict(ms=a["ms"], ms_50=a["ms_50"], device_ms=a["device_ms"],
+                plain_ms=plain_ms,
+                unfused_ms=unfused_ms, **yard, bound_ms=a["bound_ms"],
+                bound_by=a["bound_by"], max_abs_err=worst, ms_p1=p1["ms"],
+                ms_50_p1=p1["ms_50"], device_ms_p1=p1["device_ms"],
+                bound_p1_ms=p1["bound_ms"])
+
+
+def k3_main() -> int:
+    """``--k3``: phase 2c's timed cases alone, for this script's tree; one
+    JSON line of their numbers."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from fmc_uia_tpu_torch.flagship import flagship_config_dict
+    from fmc_uia_tpu_torch.ops import build
+
+    build.build(["preprocess_fwd"])
+    dev = torch.device("cuda")
+    norm = flagship_config_dict()["data"]["augmentation"]["normalize"]
+    img, _, cases = k3_inputs(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_hz()
+    timing = k3_timing(img, cases, norm["mean"], norm["std"], clock, sms)
+    for case, t in timing.items():
+        k3_log(case, t)
+    print(json.dumps({"tree": HERE, "card": nvidia_smi_line(),
+                      "clock_max_sm_hz": clock, "sms": sms,
+                      "k3": timing, **k3_yardsticks(img)}))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -1704,6 +2019,8 @@ def fit_phase(name, smi, report, staged_img_s):
         torch.cuda.synchronize()
         for c in counters:
             c.launches = 0
+        by_kernel = pp.augment_normalize.launches_by_kernel
+        by_kernel.update(vector=0, edge=0)
         t0 = time.perf_counter()
         r1 = fit(config=Config(config_dict=copy.deepcopy(d)), device="cuda")
         fit1_s = time.perf_counter() - t0
@@ -1714,6 +2031,7 @@ def fit_phase(name, smi, report, staged_img_s):
         torch.cuda.synchronize()
         fit2_s = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
+        k3_kernels = dict(by_kernel)
         exp = r2["experiment_dir"]
         with open(os.path.join(exp, "training_history.json")) as f:
             hist = json.load(f)
@@ -1733,6 +2051,11 @@ def fit_phase(name, smi, report, staged_img_s):
     if launches != want:
         fail(f"fit launches {launches} != {want} ({steps} train steps, "
              f"{evals} eval batches)")
+    # the train batch is a fresh [24, 512, 512, 3] tensor: every K3 launch
+    # must take the 16-byte chunk kernel
+    if k3_kernels != {"vector": steps, "edge": 0}:
+        fail(f"fit: K3 kernels {k3_kernels}, not {steps} of the chunk "
+             "kernel")
     if [e["epoch"] for e in r2["epoch_stats"]] != [3]:
         fail(f"the resumed run ran epochs "
              f"{[e['epoch'] for e in r2['epoch_stats']]}, not [3]")
@@ -1760,7 +2083,7 @@ def fit_phase(name, smi, report, staged_img_s):
     rep = dict(frames=FIT_FRAME, per_task=FIT_PER_TASK, data_mb=data_mb,
                gen_s=gen_s, host_frame_ms=frame_ms, fit1_s=fit1_s, fit2_s=fit2_s, epochs=per_epoch,
                host_ms_per_batch=host_ms, launches=launches,
-               train_steps=steps, eval_batches=evals,
+               k3_kernels=k3_kernels, train_steps=steps, eval_batches=evals,
                mean_losses={k: float(np.mean(list(v.values())))
                             for k, v in losses.items()},
                val=hist[-1].get("val_metrics", []),
@@ -1794,7 +2117,8 @@ def fit_phase(name, smi, report, staged_img_s):
         f"{r2['best_eval_on_train']}")
     log(f"[fit] resume: latest checkpoint epoch 2 -> ran epoch 3 in the same "
         f"experiment dir; history epochs {[e['epoch'] for e in hist]}; files "
-        f"{ckpts} ({out_mb:.0f} MB); launches {launches}")
+        f"{ckpts} ({out_mb:.0f} MB); launches {launches}; K3 by kernel "
+        f"{k3_kernels}")
     return launches
 
 
@@ -1958,6 +2282,8 @@ def main() -> int:
 
     if sys.argv[1:] == ["--staged-train"]:
         return staged_train_main()
+    if sys.argv[1:] == ["--k3"]:
+        return k3_main()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; nothing to drive",
               file=sys.stderr)
@@ -2001,7 +2327,8 @@ def main() -> int:
             # K1's reports name their kernels: which one a count belongs to
             if any(w in line for w in ("registers", "spill", "C7512",
                                        "C7515")) or (
-                    k in PRODUCTS and "Compiling entry" in line):
+                    (k in PRODUCTS or k == "preprocess_fwd")
+                    and "Compiling entry" in line):
                 log(f"  ptxas {k}: {line.strip()}")
     report["sass"] = check_sass(build)
 
@@ -2223,7 +2550,11 @@ def main() -> int:
          "launches": fit_launches["augment_normalize"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-         "bound_by": k3["bound_by"], "library_ms": None},
+         "bound_by": k3["bound_by"], "library_ms": None,
+         "ms_50": k3["ms_50"], "device_ms": k3["device_ms"],
+         "ms_p1": k3["ms_p1"], "ms_50_p1": k3["ms_50_p1"],
+         "device_ms_p1": k3["device_ms_p1"],
+         "bound_p1_ms": k3["bound_p1_ms"]},
     ]
 
     def k4_entry(kname, case, source, count):

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _LLP = ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
+_U8P, _IP = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
 # C signature (argtypes) of each exported function. A library's entry
 # point is named after it and returns an int CUDA error code; a
 # ``*_workspace`` function returns the bytes of scratch its entry point
@@ -47,14 +48,13 @@ SIGNATURES = {
     "swin_attn_bwd_workspace": [_I] * 9,
     "swin_mlp_bwd": [_VP] * 17 + [_LL, _LL] + [_I] * 6 + [_VP],
     "swin_mlp_bwd_workspace": [_LL] + [_I] * 5,
-    "preprocess_fwd": [_VP] * 6 + [_I, _I, _LL, _I, _VP],
+    "preprocess_fwd": [_VP] * 6 + [_I, _I, _LL, _I, _IP, _VP],
     # tensors, then a host array of (b, h, n) element strides per tensor
     "vit_flash_fwd": [_VP] * 5 + [_LLP, _F] + [_I] * 5 + [_VP],
     "vit_flash_bwd": [_VP] * 10 + [_LLP, _F] + [_I] * 5 + [_VP],
     "vit_flash_bwd_workspace": [_I] * 3,
 }
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
-_U8P, _IP = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
 # (restype, argtypes) of the host helper's functions
 HOST_SIGNATURES = {
     "resize_bilinear_u8": (None, [_U8P, _I, _I, _I, _U8P, _I, _I]),

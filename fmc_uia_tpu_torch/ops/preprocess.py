@@ -19,6 +19,8 @@ order of the JAX function, and never leave the device.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -68,6 +70,25 @@ def _stats(mean, std, device) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean * 255.0, 1.0 / (std * 255.0)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_stats(mean: Tuple[float, ...], std: Tuple[float, ...],
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_stats`` made once per (mean, std, device) for the kernel: f32
+    products and reciprocals round alike on the host and the card, so
+    computing them on the host gives the same bits, and a call copies
+    nothing to the card."""
+    return tuple(t.to(device) for t in _stats(mean, std, "cpu"))
+
+
+def box_muller(bits1: torch.Tensor, bits2: torch.Tensor) -> torch.Tensor:
+    """The standard normal draw of two Philox words (int64 tensors holding
+    32-bit words), in f32 with the kernel's rounding points: u = (w >> 8)
+    2^-24, n = sqrt(-2 ln max(u1, 1e-7)) cos(2 pi u2)."""
+    u1 = torch.clamp_min((bits1 >> 8).float() * _INV24, 1e-7)
+    u2 = (bits2 >> 8).float() * _INV24
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+
+
 def augment_normalize_reference(images: torch.Tensor, scalars: torch.Tensor,
                                 seeds: torch.Tensor, mean: Sequence[float],
                                 std: Sequence[float], dtype=torch.float32
@@ -91,10 +112,7 @@ def augment_normalize_reference(images: torch.Tensor, scalars: torch.Tensor,
     bits1 = torch.stack([w[..., 0], w[..., 2]], -1).reshape(B, -1)[:, :P]
     bits2 = torch.stack([w[..., 1], w[..., 3]], -1).reshape(B, -1)[:, :P]
     del w
-    u1 = torch.clamp_min((bits1 >> 8).float() * _INV24, 1e-7)
-    u2 = (bits2 >> 8).float() * _INV24
-    normal = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
-    x = torch.clamp(x + sigma * normal, 0.0, 255.0)
+    x = torch.clamp(x + sigma * box_muller(bits1, bits2), 0.0, 255.0)
     mean255, inv_std = _stats(mean, std, dev)
     x = (x.view(B, -1, C) - mean255) * inv_std
     return x.reshape(images.shape).to(dtype)
@@ -107,7 +125,10 @@ def augment_normalize(images: torch.Tensor, scalars: torch.Tensor,
     """K3 on given per-image parameters (see
     ``augment_normalize_reference``). A CPU tensor takes the plain version;
     a CUDA tensor launches ``preprocess_fwd`` or raises. Counts its
-    launches in ``.launches``."""
+    launches in ``.launches``, and in ``.launches_by_kernel`` by the kernel
+    that ``preprocess_fwd`` chose: ``vector``, the 16-byte chunk kernel
+    (P % 16 == 0, C <= 16, the images and the output 16-byte aligned), or
+    ``edge``, the per-pair kernel for anything else."""
     if images.device.type == "cpu":
         return augment_normalize_reference(images, scalars, seeds, mean, std,
                                            dtype)
@@ -127,26 +148,31 @@ def augment_normalize(images: torch.Tensor, scalars: torch.Tensor,
             raise ValueError(f"{what}: need contiguous {dt} {shape} on {dev}"
                              f", got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    mean255, inv_std = _stats(mean, std, dev)
+    mean255, inv_std = _device_stats(tuple(map(float, mean)),
+                                     tuple(map(float, std)), dev)
     if mean255.shape != (C,) or inv_std.shape != (C,):
         raise ValueError(f"mean/std need {C} entries, one per channel")
     P = images[0].numel()
-    if (P + 1) // 2 >= 2 ** 32:
-        raise ValueError(f"{P} elements per image: the Philox counter "
-                         "holds at most 2^33")
+    if P >= 2 ** 31:
+        raise ValueError(f"{P} elements per image: the kernels index an "
+                         "image in 32 bits (P < 2^31)")
     out = torch.empty(images.shape, dtype=dtype, device=dev)
+    vector = ctypes.c_int(0)
     rc = build.load("preprocess_fwd")(
         images.data_ptr(), out.data_ptr(), scalars.data_ptr(),
         seeds.data_ptr(), mean255.data_ptr(), inv_std.data_ptr(), B, C, P,
-        int(dtype == torch.bfloat16),
+        int(dtype == torch.bfloat16), ctypes.byref(vector),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"preprocess_fwd launch failed: CUDA error {rc}")
     augment_normalize.launches += 1
+    augment_normalize.launches_by_kernel[
+        "vector" if vector.value else "edge"] += 1
     return out
 
 
 augment_normalize.launches = 0
+augment_normalize.launches_by_kernel = {"vector": 0, "edge": 0}
 
 
 def draw_params(B: int, device, generator: Optional[torch.Generator],

@@ -167,3 +167,127 @@ def test_draws_follow_the_jax_law():
     # uniform in its range: the mean of alpha - 1 and beta near 0
     assert abs((a[bc] - 1).mean()) < 4 * 0.2 / math.sqrt(3 * bc.sum())
 
+
+SIGMA0_SCALARS = {
+    # the saturating alpha/beta of the sigma = 0 test above, and the
+    # non-saturating ones of the FMA test
+    "saturating": [[1.5, -100.0], [0.5, 120.0], [2.0, -200.0], [1.0, 0.0]],
+    "inside": [[1.2, -10.0], [0.83, 17.3], [1.17, -40.1], [0.91, 3.0]],
+}
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sigma", [0.0, -0.0])
+@pytest.mark.parametrize("which", sorted(SIGMA0_SCALARS))
+def test_sigma0_equals_the_noise_free_chain(which, sigma, dtype):
+    """What lets the kernel skip Philox and Box-Muller where sigma == 0:
+    for every byte value and channel, the plain version with its noise
+    drawn and multiplied by sigma = +0 or -0 equals, bitwise, affine ->
+    clip -> clip -> normalise with no noise at all."""
+    ab = torch.tensor(SIGMA0_SCALARS[which])
+    B = ab.shape[0]
+    # 768 = 3 x 256 elements an image: every byte value in every channel
+    img = (torch.arange(B * 16 * 16 * 3) % 256).to(torch.uint8).reshape(
+        B, 16, 16, 3)
+    scalars = torch.cat([ab, torch.full((B, 1), sigma)], 1)
+    seeds = torch.tensor([7, 2 ** 31 - 2, 0, 12345], dtype=torch.int32)
+    got = PP.augment_normalize_reference(img, scalars, seeds, MEAN, STD,
+                                         dtype)
+    x = img.float()
+    alpha, beta = ab[:, 0].view(B, 1, 1, 1), ab[:, 1].view(B, 1, 1, 1)
+    x = torch.clamp(torch.clamp(x * alpha + beta, 0.0, 255.0), 0.0, 255.0)
+    mean255 = torch.tensor(MEAN) * 255.0
+    inv_std = 1.0 / (torch.tensor(STD) * 255.0)
+    want = ((x - mean255) * inv_std).to(dtype)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_noise_is_finite_at_the_extreme_philox_words():
+    """u1 >= 1e-7 bounds |n| by sqrt(-2 ln 1e-7) = 5.68 at the extreme
+    words (w = 0 clamps u1, w = 0xFFFFFFFF gives the largest u), so sigma
+    * n is +-0 exactly at sigma = +-0."""
+    w = torch.tensor([0, 0xFFFFFFFF], dtype=torch.int64)
+    w1, w2 = torch.meshgrid(w, w, indexing="ij")
+    n = PP.box_muller(w1.reshape(-1), w2.reshape(-1))
+    assert torch.isfinite(n).all()
+    assert float(n.abs().max()) <= 5.7
+    assert float(n.abs().max()) >= 5.6  # w1 = 0, w2 = 0: u1 = 1e-7, cos 1
+    for s in (0.0, -0.0):
+        assert (s * n == 0).all()
+
+
+# the edge shapes of the kernel's two paths: an odd P (pairs of odd
+# images start at odd flat offsets), C = 1 and C = 4, B = 1, and a view at
+# offset 1 into a larger buffer
+EDGE_SHAPES = {"odd_P": ((3, 17, 23, 3), 0), "C1": ((4, 16, 16, 1), 0),
+               "C4": ((4, 16, 16, 4), 0), "B1": ((1, 16, 24, 3), 0),
+               "view_at_1": ((2, 16, 24, 3), 1)}
+
+
+def _edge_images(shape, offset, seed=5):
+    n = math.prod(shape)
+    buf = np.random.RandomState(seed).randint(0, 256, n + offset).astype(
+        np.uint8)
+    return torch.from_numpy(buf)[offset:].view(shape)
+
+
+def _stats(C):
+    return (MEAN + [0.4])[:C], (STD + [0.22])[:C]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", sorted(EDGE_SHAPES))
+def test_reference_matches_pallas_kernel_at_edge_shapes(which, dtype):
+    """sigma = 0 with alpha/beta that saturate both clips (x * alpha
+    exact): bitwise equal to the Pallas kernel in interpret mode."""
+    shape, offset = EDGE_SHAPES[which]
+    img = _edge_images(shape, offset)
+    B, W, C = shape[0], shape[2], shape[3]
+    mean, std = _stats(C)
+    ab = np.array([[1.5, -100.0], [0.5, 120.0], [2.0, -200.0],
+                   [1.0, 0.0]], np.float32)[np.arange(B) % 4]
+    scalars = np.concatenate([ab, np.zeros((B, 1), np.float32)], 1)
+    seeds = np.arange(1, B + 1, dtype=np.int32)
+    mean_row = jnp.tile(jnp.asarray(mean, jnp.float32) * 255.0, W)
+    inv_row = jnp.tile(1.0 / (jnp.asarray(std, jnp.float32) * 255.0), W)
+    with pltpu.force_tpu_interpret_mode():
+        ref = JP._fused_call(jnp.asarray(img.numpy()), jnp.asarray(scalars),
+                             jnp.asarray(seeds), mean_row, inv_row, dtype)
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = PP.augment_normalize_reference(
+        img, torch.from_numpy(scalars), torch.from_numpy(seeds), mean, std,
+        getattr(torch, dtype)).float().numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("which", ["odd_P", "B1", "C4"])
+def test_noise_follows_the_per_image_philox_layout(which):
+    """The layout the kernel reproduces, element by element: element e of
+    image b draws Philox4x32-10 at counter (e >> 1, 0, 0, 0), key
+    (seed_b, 0), words 0/1 for even e and 2/3 for odd e, counted within
+    the image (not the batch)."""
+    shape, offset = EDGE_SHAPES[which]
+    img = _edge_images(shape, offset)
+    B, C = shape[0], shape[3]
+    mean, std = _stats(C)
+    P = img[0].numel()
+    scalars = torch.tensor([[1.0, 0.0, 7.0]] * B)
+    seeds = torch.tensor([2 ** 31 - 2, 3, 99, 0][:B], dtype=torch.int32)
+    got = PP.augment_normalize_reference(img, scalars, seeds, mean, std)
+    e = torch.arange(P, dtype=torch.int64)
+    z = torch.zeros_like(e)
+    for b in range(B):
+        key = torch.tensor([int(seeds[b]), 0], dtype=torch.int64)
+        w = PP.philox4x32_10(torch.stack([e >> 1, z, z, z], -1), key)
+        odd = (e & 1).bool()
+        n = PP.box_muller(torch.where(odd, w[:, 2], w[:, 0]),
+                          torch.where(odd, w[:, 3], w[:, 1]))
+        x = torch.clamp(img[b].reshape(-1).float() + 7.0 * n, 0.0, 255.0)
+        mean255 = torch.tensor(mean) * 255.0
+        inv_std = 1.0 / (torch.tensor(std) * 255.0)
+        want = ((x.view(-1, C) - mean255) * inv_std).reshape(img[b].shape)
+        assert torch.equal(_bits(got[b]), _bits(want))
