@@ -21,7 +21,10 @@ pass):
    and unshifted, a padded grid, a window-7 case and a head-dim-16 case;
    K2f: stages 0 and 1, swin_t's widths C = 96 and 192, C = 32, 64, 160
    and 224, so that every instance the library builds runs, and a ragged
-   case of 147 tokens whose dp changes inside a 128-token tile); max error
+   case of 147 tokens whose dp changes inside a 128-token tile), and at
+   the submit preset's (phase 9: swin_b 224², window 7; K1f at the four
+   stages, 56² x 128 to 7² x 1024, shifted by 3 where the grid exceeds
+   the window; K2f at 56² x 128 and 28² x 256); max error
    against the stated tolerance (scaled to the branch, not to the
    residual); at the stage shapes CUDA-event medians of one call of the
    kernel, the plain version and the bound; in bf16 also ``ms_10``, per
@@ -34,7 +37,8 @@ pass):
 2b. backward kernels — K1b and K2b against their plain backward versions,
    f32 and bf16, at the stage shapes of the B=24 train step (K1b at all
    four stages, shifted and unshifted, a padded grid and a window-7 case;
-   K2b at K2f's cases, the stages at B=24): dx per element (one ulp of its
+   K2b at K2f's cases, the stages at B=24) and of the submit preset's
+   B=64 train step (phase 2's submit cases): dx per element (one ulp of its
    own magnitude plus 1e-4 / 4 bf16 ulps of max|dx - dy|), every
    weight/bias grad within 1e-3 (f32) / 2e-2 (bf16) of its largest
    magnitude; at the stage shapes kernel, plain and bound ms (one call),
@@ -49,9 +53,10 @@ pass):
    their plain forward versions as in phase 2, since the train step runs
    them at these shapes.
 2c. K3 — the fused photometric preprocessing kernel
-   against its plain version, f32 and bf16, at B=24, 512² and at the edge
-   shapes (an odd P, [3, 17, 23, 3]; C = 1 and C = 4; B = 1; a view at
-   offset 1 into a larger buffer): sigma = 0 with alpha/beta that
+   against its plain version, f32 and bf16, at B=24, 512², at the submit
+   preset's fit step (B=64, 224²) and at the edge shapes (an odd P, [3,
+   17, 23, 3]; C = 1 and C = 4; B = 1; a view at offset 1 into a larger
+   buffer): sigma = 0 with alpha/beta that
    saturate both clips (bitwise); p = 1 for both ops with the generator's
    draws (f32 within 1e-5, bf16 within one bf16 ulp of the output: both
    sides draw the same Philox bits; at B=24 also the train path's draws);
@@ -147,11 +152,48 @@ pass):
    (``chiprun_out/profile_dino_train_step.txt``), the fixed-batch falling
    loss, and f32 grads card vs CPU at B=1 256² for every leaf, the
    backbone and ``rope_periods`` included.
+9. submit — the ``configs/submit.yaml`` preset (``submit_config_dict``:
+   swin_b at 224², window 7 (N = 49 tokens a window), the dense MoE of 8
+   conv experts, top-2, at encoder stages 2 and 3, adaptive loss weights,
+   27 tasks; random weights from a seed). (a) bf16 through ``Predictor``
+   at B=8, one task of each type, against f32 on the card with phase 3's
+   rules (an image whose MoE top-2 choice differs in bf16 and f32 is left
+   out, and may differ only where the f32 2nd and 3rd gates are within
+   ``BF16_ROUTE_MARGIN``, 0.011; at most 1 in 8 of the images may be
+   left out; the count and the largest gate move are printed), one
+   image f32 on the CPU against f32 on the card (1e-3), and the MoE
+   blocks' top-2 choices on all 8 images f32 card vs CPU (equal except
+   within 1e-4 of a tie); K1f 24 and K2f 4 launches a forward. (b) one
+   closed loop of 64 outstanding requests through
+   ``StreamingPredictor(max_batch=8)`` for >= 10 s, every result held
+   against ``Predictor``, K1f/K2f 24/4 x dispatches: img/s, p50/p99.
+   (c) phase 5 at B=64, 224²: warm-up, the timed round-robin (img/s, ms
+   a step per type, peak memory, launches 24/24/4/4 a step, every loss
+   and ``moe_aux`` finite, ``moe_importance`` summing to 1 and
+   ``moe_load`` to 2 within 1e-5), the enqueue ms, one profiled step per
+   type with the MoE blocks' device time (forward: the ``moe_block``
+   ranges; backward: the autograd nodes with those ops' sequence numbers;
+   ``chiprun_out/profile_submit_train_step.txt``), phase 5's ten steps on
+   one fixed batch per type (the loss must fall), and f32 grads card vs
+   CPU at B=1, 224² (weights from seed 3), every leaf within 1e-3 of its
+   largest magnitude, the ``moe_stage*`` leaves included, except the
+   router of a block the head does not read, whose exact grad is 0 (held
+   within 1e-6 of the step's largest grad). (d) ``fit`` from 576x768 PNGs
+   (27 tasks x 80, one unreadable) for 2 epochs of 6 steps with K3 (K3
+   once a train step on its chunk kernel; K1f/K2f per step and eval
+   batch, K1b/K2b per step), ``moe_stats.csv`` with rows for both epochs;
+   then ``python -m fmc_uia_tpu_torch.predict`` in a subprocess on the
+   experiment dir over the same root: 27 JSONs, one record per readable
+   frame, every mask PNG at 576x768 and equal bitwise to an in-process
+   ``Predictor``'s on the loaded ``best_model.pt``, class ids equal,
+   boxes and points within 1e-4 of the frame size. Prints img/s of the
+   epoch loops and the seconds of ``predict``.
 
 The line before the card's name is ``{"kernels": [...]}`` (K1f/K2f
 launches from phase 4, K1b/K2b from phase 5, K3 from phase 6, K4f from
-phase 7, K4b from phase 8); the last line is ``{"ok": true, "device":
-{...}}``. Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
+phase 7, K4b from phase 8; phase 9 checks its own counts and leaves the
+line as it was); the last line is ``{"ok": true, "device": {...}}``.
+Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
 
     python3 chip_smoke.py --staged-train
 
@@ -427,6 +469,20 @@ def attn_cases():
     return cases
 
 
+def submit_attn_cases(batch):
+    """(label, B, grid, C, heads, ws, shift) of K1 on the submit preset's
+    path (phase 9; swin_b 224², window 7, N = 49): stages 0-2 unshifted
+    and shifted by 3, and stage 3, whose 7² grid is one window and takes
+    no shift."""
+    cases = []
+    for s, (g, c, h) in enumerate(((56, 128, 4), (28, 256, 8),
+                                   (14, 512, 16), (7, 1024, 32))):
+        for shift in ((0, 3) if g > 7 else (0,)):
+            cases.append((f"submit_s{s}{'_shift' if shift else ''}", batch,
+                          g, c, h, 7, shift))
+    return cases
+
+
 def attn_inputs(B, grid, C, H, ws, shift, dtype, gen, dev):
     import numpy as np
     import torch
@@ -483,6 +539,12 @@ def mlp_cases(batch):
             ("swin_t_s0", 2, 56, 96), ("swin_t_s1", 2, 28, 192),
             ("c32", 2, 16, 32), ("c64", 2, 16, 64), ("c160", 2, 14, 160),
             ("c224", 1, 14, 224), ("ragged", 3, 7, 128)]
+
+
+def submit_mlp_cases(batch):
+    """(label, B, grid, C) of K2 on the submit preset's path (phase 9;
+    swin_b 224²): its two fused stages, 56² x 128 and 28² x 256."""
+    return [("submit_s0", batch, 56, 128), ("submit_s1", batch, 28, 256)]
 
 
 def k2_chain(x, w, dp):
@@ -546,7 +608,8 @@ def check_kernels(dev, records):
 
     gen = torch.Generator().manual_seed(0)
     summary = {"attention_branch": [], "mlp_branch": []}
-    for label, B, grid, C, H, ws, shift in attn_cases():
+    for label, B, grid, C, H, ws, shift in (attn_cases()
+                                            + submit_attn_cases(BATCH)):
         for dtype in (torch.float32, torch.bfloat16):
             x, w, mask, dp, T, hp = attn_inputs(B, grid, C, H, ws, shift,
                                                 dtype, gen, dev)
@@ -593,7 +656,7 @@ def check_kernels(dev, records):
                 + err_text(chk) + (burst_times(rec) if "ms" in rec else ""))
             if dtype == torch.bfloat16 and label.startswith("stage"):
                 summary["attention_branch"].append(rec)
-    for label, B, grid, C in mlp_cases(BATCH):
+    for label, B, grid, C in mlp_cases(BATCH) + submit_mlp_cases(BATCH):
         for dtype in (torch.float32, torch.bfloat16):
             x, w, dp = mlp_inputs(B, grid, C, dtype, gen, dev)
             args = (w["ln_scale"], w["ln_bias"], w["w1"], w["b1"], w["w2"],
@@ -652,13 +715,13 @@ TRAIN_BATCH = 24     # the flagship train step's batch
 def bwd_attn_cases():
     """(label, B, grid, C, heads, ws, shift) of K1b: the four swin_b 512²
     stage shapes of the B=24 train step, unshifted and shifted, a padded
-    grid and a window-7 case."""
+    grid, a window-7 case, and the submit preset's B=64 train step."""
     cases = [(label, TRAIN_BATCH, g, c, h, ws, shift)
              for label, _, g, c, h, ws, shift in attn_cases()[:8]]
     cases.append(("pad12_shift", 2, 12, 128, 4, 8, 4))
     cases.append(("ws7_shift", 2, 56, 96, 3, 7, 3))
     cases.append(("dh16_shift", 2, 32, 128, 8, 8, 4))
-    return cases
+    return cases + submit_attn_cases(SUBMIT_BATCH)
 
 
 def check_grads(names, got, ref, dtype, what):
@@ -816,7 +879,8 @@ def check_bwd_kernels(dev, records):
             if label.startswith("stage") and dtype == torch.bfloat16:
                 summary["attention_branch_backward"].append(rec)
             del x, dy, w, args
-    for label, B, grid, C in mlp_cases(TRAIN_BATCH):
+    for label, B, grid, C in (mlp_cases(TRAIN_BATCH)
+                              + submit_mlp_cases(SUBMIT_BATCH)):
         for dtype in (torch.float32, torch.bfloat16):
             x, w, dp = mlp_inputs(B, grid, C, dtype, gen, dev)
             dy = torch.randn(x.shape, generator=gen).to(dev, dtype)
@@ -1034,7 +1098,8 @@ def k3_log(case, t):
 
 def k3_edge_cases(dev, gen, mean, std):
     """The shapes beside the train step's: (name, images, mean, std).
-    The odd P and the view at offset 1 take the edge kernel."""
+    The odd P and the view at offset 1 take the edge kernel; ``submit``
+    is the submit preset's fit step (phase 9d: B=64, 224²)."""
     import torch
 
     def rnd(shape, offset=0):
@@ -1050,7 +1115,9 @@ def k3_edge_cases(dev, gen, mean, std):
             ("C1", rnd((4, 64, 64, 1)), *stats(1)),
             ("C4", rnd((4, 64, 64, 4)), *stats(4)),
             ("B1", rnd((1, IMAGE, IMAGE, 3)), *stats(3)),
-            ("misaligned", rnd((2, 64, 64, 3), offset=1), *stats(3))]
+            ("misaligned", rnd((2, 64, 64, 3), offset=1), *stats(3)),
+            ("submit", rnd((SUBMIT_BATCH, SUBMIT_IMAGE, SUBMIT_IMAGE, 3)),
+             *stats(3))]
 
 
 def k3_call(pp, path, what, *args):
@@ -1093,6 +1160,10 @@ def check_k3(dev, records, mean, std):
     for name, x, m, s in shapes:
         Bx = x.shape[0]
         sat = sat4.repeat(-(-Bx // 4), 1)[:Bx].contiguous()
+        if Bx > seeds.shape[0]:  # the submit fit step's B=64
+            seeds = torch.cat([seeds, torch.randint(
+                0, 2 ** 31 - 1, (Bx - seeds.shape[0],), dtype=torch.int32,
+                device=dev, generator=gen)])
         sd = seeds[:Bx].contiguous()
         p1 = (cases["p1"] if name == "main"
               else pp.draw_params(Bx, dev, gen, 1.0, 1.0))
@@ -1675,6 +1746,36 @@ def learnable_batches(registry, B, S, seed):
     return out
 
 
+def moe_device_us(events):
+    """Device us of the MoE blocks in a profile: the forward's kernels
+    under the ``moe_block`` ranges (``record_function`` in
+    ``MoEConvBlock.forward``), and the backward's, the autograd nodes
+    ("autograd::engine::evaluate_function: ...") whose sequence number is
+    one of those forward ops' (the engine tags each node with its forward
+    op's)."""
+    from fmc_uia_tpu_torch.models.conditioning import MOE_RANGE
+
+    def dev_us(e):
+        t = getattr(e, "device_time_total", None)
+        return float(getattr(e, "cuda_time_total", 0.0) if t is None else t)
+
+    def is_cpu(e):
+        return str(getattr(e, "device_type", "")).endswith("CPU")
+
+    ranges = [e for e in events if e.name == MOE_RANGE and is_cpu(e)]
+    seqs, stack = set(), list(ranges)
+    while stack:
+        e = stack.pop()
+        if getattr(e, "sequence_nr", -1) >= 0:
+            seqs.add(e.sequence_nr)
+        stack.extend(e.cpu_children)
+    bwd = [e for e in events if is_cpu(e)
+           and e.name.startswith("autograd::engine::evaluate_function")
+           and getattr(e, "sequence_nr", -1) in seqs]
+    return {"ranges": len(ranges), "fwd_us": sum(dev_us(e) for e in ranges),
+            "bwd_nodes": len(bwd), "bwd_us": sum(dev_us(e) for e in bwd)}
+
+
 def profile_train_round(trainer, batches, out_dir, report, key):
     """torch.profiler over one step of each type: the device time by kernel
     group, and the op table (chiprun_out/profile_<key>_step.txt)."""
@@ -1714,6 +1815,18 @@ def profile_train_round(trainer, batches, out_dir, report, key):
     log(f"[{key}] profile of one step per type: {total / 1e3:.1f} ms of "
         f"device time; share " + ", ".join(
             f"{g} {v / max(total, 1e-9):.3f}" for g, v in shares.items()))
+    moe = moe_device_us(prof.events())
+    if moe["ranges"]:
+        share = {k: moe[k] / max(total, 1e-9) for k in ("fwd_us", "bwd_us")}
+        report[key]["profile"]["moe"] = dict(moe, share_fwd=share["fwd_us"],
+                                             share_bwd=share["bwd_us"])
+        log(f"[{key}] MoE blocks ({moe['ranges']} profiler ranges): "
+            f"forward {moe['fwd_us'] / 1e3:.2f} ms = share "
+            f"{share['fwd_us']:.3f}, backward {moe['bwd_us'] / 1e3:.2f} ms "
+            f"= share {share['bwd_us']:.3f} ({moe['bwd_nodes']} autograd "
+            f"nodes linked by sequence number) of the round's device time; "
+            f"both {share['fwd_us'] + share['bwd_us']:.3f} (the MoE's "
+            f"convolutions also count in 'library gemm/conv' above)")
 
 
 def swin_preset():
@@ -1759,12 +1872,43 @@ def step_enqueue_ms(trainer, batches, reps=5):
     return out
 
 
+def check_moe_logs(logs, top_k, key):
+    """Every step's ``moe_aux`` finite; ``moe_importance`` (per expert,
+    the mean over the blocks) sums to 1 and ``moe_load`` to top_k within
+    1e-5. Returns the worst deviations and the mean importance/load."""
+    import torch
+
+    aux = torch.stack([g["moe_aux"] for g in logs]).float().cpu()
+    imp = torch.stack([g["moe_importance"] for g in logs]).float().cpu()
+    load = torch.stack([g["moe_load"] for g in logs]).float().cpu()
+    if not bool(torch.isfinite(aux).all()):
+        fail(f"{key}: non-finite moe_aux {aux.tolist()}")
+    imp_dev = float((imp.sum(1) - 1.0).abs().max())
+    load_dev = float((load.sum(1) - top_k).abs().max())
+    if not (imp_dev <= 1e-5 and load_dev <= 1e-5):
+        fail(f"{key}: moe_importance sums off 1 by {imp_dev:.2e}, moe_load "
+             f"sums off {top_k} by {load_dev:.2e}")
+    rep = {"steps": len(logs), "aux_min": float(aux.min()),
+           "aux_max": float(aux.max()), "importance_sum_dev": imp_dev,
+           "load_sum_dev": load_dev, "importance_mean": imp.mean(0).tolist(),
+           "load_mean": load.mean(0).tolist()}
+    log(f"[{key}] MoE over {len(logs)} steps: moe_aux "
+        f"{rep['aux_min']:.4f}..{rep['aux_max']:.4f} (finite); importance "
+        f"sums to 1 within {imp_dev:.1e}, load to {top_k} within "
+        f"{load_dev:.1e}; mean load per expert "
+        f"{[round(v, 3) for v in rep['load_mean']]}")
+    return rep
+
+
 def train_phase(name, smi, report, out_dir, preset, full=True):
-    """A preset's Trainer at B=24 in bf16: a warm-up step per type, a
-    timed round-robin, the launch counts, the host ms of enqueueing a
-    step, one profiled round, and (``full``) a falling loss on a fixed
-    batch and f32 grads on the card against the CPU's. Returns the timed
-    run's launch counts."""
+    """A preset's Trainer in bf16 at its batch and image size (default B=24
+    at 512²): a warm-up step per type, a timed round-robin, the launch
+    counts, the host ms of enqueueing a step, one profiled round, and
+    (``full``) a falling loss on a fixed batch and f32 grads on the card
+    against the CPU's. With MoE blocks the
+    timed run's ``moe_aux`` must be finite, ``moe_importance`` sum to 1
+    and ``moe_load`` to top_k within 1e-5. Returns the timed run's launch
+    counts."""
     import numpy as np
     import torch
 
@@ -1780,10 +1924,12 @@ def train_phase(name, smi, report, out_dir, preset, full=True):
     model = build_model(cfg, registry, dtype=torch.bfloat16, device="cuda",
                         generator=torch.Generator().manual_seed(0))
     trainer = Trainer(cfg, model, registry, device="cuda", seed=0)
+    B, S = preset.get("batch", TRAIN_BATCH), preset.get("image", IMAGE)
+    top_k = (int(cfg.get("model.moe.top_k", 1))
+             if cfg.get("model.moe.enabled", False) else None)
     batches = {t: trainer.put_batch(b) for t, b in train_batches(
-        registry, TRAIN_BATCH, IMAGE, seed=0).items()}
-    report[key] = {"batch": TRAIN_BATCH, "image": IMAGE,
-                   "model": preset["what"]}
+        registry, B, S, seed=0).items()}
+    report[key] = {"batch": B, "image": S, "model": preset["what"]}
 
     first = {}
     for t, b in batches.items():  # warm-up: allocator, cuDNN heuristics
@@ -1797,15 +1943,18 @@ def train_phase(name, smi, report, out_dir, preset, full=True):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
-    timed, losses = [], []
+    timed, losses, moe_logs = [], [], []
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < TRAIN_S:
         for t, b in batches.items():
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-            losses.append(trainer.train_batch(b, 0)["total_loss"])
+            logs = trainer.train_batch(b, 0)
             ev[1].record()
+            losses.append(logs["total_loss"])
+            if top_k is not None:
+                moe_logs.append(logs)
             timed.append((t, ev))
     float(losses[-1])  # a data read: the device has finished every step
     wall = time.perf_counter() - t0
@@ -1817,16 +1966,18 @@ def train_phase(name, smi, report, out_dir, preset, full=True):
     stacked = torch.stack(losses).float()
     if not bool(torch.isfinite(stacked).all()):
         fail(f"non-finite train losses: {stacked.tolist()}")
+    if top_k is not None:
+        report[key]["moe"] = check_moe_logs(moe_logs, top_k, key)
     ms = {t: float(np.median([ev[0].elapsed_time(ev[1])
                               for u, ev in timed if u == t]))
           for t in batches}
     peak = torch.cuda.max_memory_allocated()
-    img_s = steps * TRAIN_BATCH / wall
+    img_s = steps * B / wall
     report[key].update(
         steps=steps, wall_s=wall, img_s=img_s, ms_per_step_by_type=ms,
         peak_bytes=peak, launches=launches, first_step_s=first)
     log(f"{tag} {preset['what']}: {steps} steps (round-robin over 4 types)"
-        f" x B={TRAIN_BATCH} in {wall:.2f} s: {img_s:.2f} img/s; ms per step by "
+        f" x B={B} at {S}² in {wall:.2f} s: {img_s:.2f} img/s; ms per step by "
         f"type (CUDA events) { {k: round(v, 1) for k, v in ms.items()} }; "
         f"peak memory {peak / 2**30:.2f} GiB; launches {launches}; losses "
         f"finite | {name} | {smi}")
@@ -1842,18 +1993,18 @@ def train_phase(name, smi, report, out_dir, preset, full=True):
         return launches
 
     falls = {}
-    fixed = learnable_batches(registry, TRAIN_BATCH, IMAGE, seed=2)
+    fixed = learnable_batches(registry, B, S, seed=2)
     for t, b in fixed.items():  # the loss falls on a fixed batch
         b = trainer.put_batch(b)
         vals = [float(trainer.train_batch(b, 0)["total_loss"])
                 for _ in range(FIXED_STEPS)]
         if not np.mean(vals[-3:]) < vals[0]:
-            fail(f"{t}: loss did not fall over {FIXED_STEPS} steps on one "
-                 f"batch: {vals}")
+            fail(f"{t}: loss did not fall over {FIXED_STEPS} steps on "
+                 f"one batch: {vals}")
         falls[t] = vals
     report[key]["fixed_batch_losses"] = falls
-    log(f"{tag} {FIXED_STEPS} steps on one batch per type, first -> mean "
-        f"of last 3: " + ", ".join(
+    log(f"{tag} {FIXED_STEPS} steps on one batch per type, first -> "
+        f"mean of last 3: " + ", ".join(
             f"{t} {v[0]:.4f} -> {np.mean(v[-3:]):.4f}"
             for t, v in falls.items()))
     del trainer, model, batches
@@ -1864,10 +2015,16 @@ def train_phase(name, smi, report, out_dir, preset, full=True):
 
 def check_train_grads(report, preset):
     """One step's grads in f32 on the card against f32 on the CPU, B=1 at
-    256², the same weights and batch (``learnable_batches``),
-    augmentation, dropout and drop path off: every leaf within 1e-3 of its
-    largest magnitude (kernel sums in another order, cuDNN against CPU
-    convolutions, TF32 off)."""
+    256² (or the preset's ``grad_image``), the same weights and batch
+    (``learnable_batches``), augmentation, dropout and drop path off:
+    every leaf within 1e-3 of its largest magnitude (kernel sums in another
+    order, cuDNN against CPU convolutions, TF32 off). One exception, MoE
+    only: the router leaves of a block whose output the step's head does
+    not read (stage 2 for cls and reg, which read the last stage alone)
+    have an exact grad of zero (at B=1 each block's balance loss is the
+    constant E: the one sample's renormalised gates sum to 1), so both
+    sides must be within 1e-6 of the step's largest grad magnitude of
+    it."""
     import torch
 
     from fmc_uia_tpu_torch.config import Config
@@ -1876,7 +2033,8 @@ def check_train_grads(report, preset):
     from fmc_uia_tpu_torch.train import Trainer
 
     d = preset["config"]()
-    d["data"]["image_size"] = GRAD_IMAGE
+    grad_image = preset.get("grad_image", GRAD_IMAGE)
+    d["data"]["image_size"] = grad_image
     d["data"]["augmentation"]["train"].update(
         random_brightness_contrast=0.0, gauss_noise=0.0)
     if d["model"]["encoder"]["name"].startswith("swin"):
@@ -1886,7 +2044,7 @@ def check_train_grads(report, preset):
         d["model"]["heads"][h]["dropout"] = 0.0
     cfg = Config(config_dict=d)
     registry = TaskRegistry.from_config(cfg)
-    gen = torch.Generator().manual_seed(1)
+    gen = torch.Generator().manual_seed(preset.get("grad_seed", 1))
     card = build_model(cfg, registry, dtype=torch.float32, device="cuda",
                        generator=gen)
     cpu = build_model(cfg, registry, dtype=torch.float32, device="cpu")
@@ -1897,12 +2055,25 @@ def check_train_grads(report, preset):
     # the learnable batches: with bench.py's random seg labels a seg grad
     # summed over every pixel nearly cancels, and its f32 rounding in
     # another order came to 8.7e-4 of its leaf's largest magnitude
-    for t, b in learnable_batches(registry, 1, GRAD_IMAGE, seed=1).items():
+    last = len(card.encoder.out_channels) - 1
+    for t, b in learnable_batches(registry, 1, grad_image, seed=1).items():
         lc = tc.compute_grads(b)
         lp = tp.compute_grads(b)
         rel, leaf = 0.0, None
+        unread = () if card._needs_fpn(t) else tuple(
+            f"moe_stage{i}." for i in card.moe_stages if i != last)
+        gmax = max(float(p.grad.abs().max()) for p in cpu.parameters())
+        zero = 0.0
         for (n, pc), (_, pp) in zip(card.named_parameters(),
                                     cpu.named_parameters()):
+            if n.startswith(unread) and ("router_fc" in n
+                                         or "task_embed" in n):
+                v = max(float(pc.grad.abs().max()), float(pp.grad.abs().max()))
+                if not v <= 1e-6 * gmax:
+                    fail(f"{t} grad {n}: {v:.3e} where the exact grad is "
+                         f"0 (> 1e-6 x {gmax:.3e})")
+                zero = max(zero, v / gmax)
+                continue
             err = float((pc.grad.cpu() - pp.grad).abs().max())
             top = float(pp.grad.abs().max())
             if not err <= 1e-3 * top:
@@ -1913,8 +2084,13 @@ def check_train_grads(report, preset):
         worst[t] = {"worst_err_over_max": rel, "worst_leaf": leaf,
                     "loss_card": float(lc["total_loss"]),
                     "loss_cpu": float(lp["total_loss"])}
+        if unread:
+            worst[t]["zero_leaves_max_over_grad_max"] = zero
+        if "moe_aux" in lc:
+            worst[t]["moe_aux_card_cpu"] = [float(lc["moe_aux"]),
+                                            float(lp["moe_aux"])]
     report[preset["key"]]["grads_card_vs_cpu"] = worst
-    log(f"[{preset['key']}] f32 grads card vs CPU, B=1 {GRAD_IMAGE}²: worst "
+    log(f"[{preset['key']}] f32 grads card vs CPU, B=1 {grad_image}²: worst "
         f"leaf err / leaf max by type " + ", ".join(
             f"{t} {v['worst_err_over_max']:.2e} ({v['worst_leaf']})"
             for t, v in worst.items()))
@@ -2122,6 +2298,56 @@ def fit_phase(name, smi, report, staged_img_s):
     return launches
 
 
+def serve_once(pred, rng, per_dispatch, what):
+    """One closed loop of OUTSTANDING requests for >= SERVE_S through a
+    ``StreamingPredictor(max_batch=8)`` over ``pred``'s model, after its
+    warm-up: a pool of 64 images, image j with task j % 4, every result
+    held against ``pred`` (batches of 8 per task). The launch counters of
+    ``per_dispatch`` ((kernel, launches a forward), ...) are zeroed just
+    before the first request and must read that many a dispatch just after
+    the last. Returns img/s, p50/p99 ms, dispatches and launches."""
+    import numpy as np
+    import torch
+
+    from fmc_uia_tpu_torch.flagship import SERVING_TASKS
+    from fmc_uia_tpu_torch.serving import StreamingPredictor
+
+    S, registry = pred.image_size, pred.registry
+    svc = StreamingPredictor(pred.model, registry,
+                             pred.mean.tolist(), pred.std.tolist(), S,
+                             max_batch=BATCH, max_delay_ms=5.0,
+                             device="cuda")
+    svc.warmup(task_ids=list(SERVING_TASKS))
+    pool = rng.randint(0, 256, (OUTSTANDING, S, S, 3)).astype(np.uint8)
+    tids = [SERVING_TASKS[j % 4] for j in range(OUTSTANDING)]
+    refs = [None] * OUTSTANDING
+    for tid in SERVING_TASKS:
+        idx = [j for j in range(OUTSTANDING) if tids[j] == tid]
+        for k in range(0, len(idx), BATCH):
+            for j, res in zip(idx[k:k + BATCH],
+                              pred.predict_images(pool[idx[k:k + BATCH]],
+                                                  tid)):
+                refs[j] = res
+    torch.cuda.synchronize()
+    before = svc.stats["dispatches"]
+    for c, _ in per_dispatch:
+        c.launches = 0
+    n_done, wall, lat, results = serve_closed_loop(svc, pool, tids)
+    launches = {c.__name__: c.launches for c, _ in per_dispatch}
+    dispatches = svc.stats["dispatches"] - before
+    svc.close()
+    check_served(results, refs, tids, registry)
+    want = {c.__name__: n * dispatches for c, n in per_dispatch}
+    if launches != want or dispatches == 0:
+        fail(f"{what} serving launches {launches} != {want} ({dispatches} "
+             "dispatches)")
+    ms = [v for _, v in lat]
+    return dict(requests=n_done, wall_s=wall, img_s=n_done / wall,
+                p50_ms=float(np.percentile(ms, 50)),
+                p99_ms=float(np.percentile(ms, 99)), dispatches=dispatches,
+                launches=launches)
+
+
 # ---------------------------------------------------------------------------
 # phase 7: DINOv3 serving
 # ---------------------------------------------------------------------------
@@ -2144,7 +2370,6 @@ def dino_serving_phase(name, smi, report):
     from fmc_uia_tpu_torch.models import build_model
     from fmc_uia_tpu_torch.ops import vit_attention as va
     from fmc_uia_tpu_torch.ops.image import normalize_images
-    from fmc_uia_tpu_torch.serving import StreamingPredictor
     from fmc_uia_tpu_torch.tasks import TaskRegistry
 
     cfg = Config(config_dict=dino_patch8_config_dict())
@@ -2204,44 +2429,448 @@ def dino_serving_phase(name, smi, report):
     del model32, model_cpu
     torch.cuda.empty_cache()
 
-    svc = StreamingPredictor(model, registry, mean, std, IMAGE,
-                             max_batch=BATCH, max_delay_ms=5.0,
-                             device="cuda")
-    svc.warmup(task_ids=list(SERVING_TASKS))
-    pool = rng.randint(0, 256, (OUTSTANDING, IMAGE, IMAGE, 3)).astype(
-        np.uint8)
-    tids = [SERVING_TASKS[j % 4] for j in range(OUTSTANDING)]
-    refs = [None] * OUTSTANDING
-    for tid in SERVING_TASKS:
-        idx = [j for j in range(OUTSTANDING) if tids[j] == tid]
-        for k in range(0, len(idx), BATCH):
-            for j, res in zip(idx[k:k + BATCH],
-                              pred.predict_images(pool[idx[k:k + BATCH]],
-                                                  tid)):
-                refs[j] = res
-    torch.cuda.synchronize()
-    before = dict(svc.stats, by_size=dict(svc.stats["by_size"]))
-    va.global_attention.launches = 0
-    n_done, wall, lat, results = serve_closed_loop(svc, pool, tids)
-    launches = va.global_attention.launches
-    dispatches = svc.stats["dispatches"] - before["dispatches"]
-    svc.close()
-    check_served(results, refs, tids, registry)
-    if launches != 12 * dispatches or dispatches == 0:
-        fail(f"DINOv3 serving K4f launches {launches} != 12 x {dispatches}")
-    ms = [v for _, v in lat]
-    rep.update(requests=n_done, wall_s=wall, img_s=n_done / wall,
-               p50_ms=float(np.percentile(ms, 50)),
-               p99_ms=float(np.percentile(ms, 99)), dispatches=dispatches,
-               launches=launches)
+    sv = serve_once(pred, rng, ((va.global_attention, 12),), "DINOv3")
+    launches = sv["launches"]["global_attention"]
+    rep.update(sv, launches=launches)
     report["dino_serving"] = rep
-    log(f"[dino] serving: {n_done} requests in {wall:.2f} s: "
-        f"{rep['img_s']:.2f} img/s, e2e p50 {rep['p50_ms']:.1f} ms, p99 "
-        f"{rep['p99_ms']:.1f} ms, {dispatches} dispatches, K4f launches "
-        f"{launches}; results equal to Predictor's | {name} | {smi}")
-    del svc, pred, model
+    log(f"[dino] serving: {rep['requests']} requests in {rep['wall_s']:.2f}"
+        f" s: {rep['img_s']:.2f} img/s, e2e p50 {rep['p50_ms']:.1f} ms, p99 "
+        f"{rep['p99_ms']:.1f} ms, {rep['dispatches']} dispatches, K4f "
+        f"launches {launches}; results equal to Predictor's | {name} | "
+        f"{smi}")
+    del pred, model
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the submission preset, fit -> predict
+# ---------------------------------------------------------------------------
+SUBMIT_IMAGE = 224       # configs/submit.yaml data.image_size
+SUBMIT_BATCH = 64        # configs/submit.yaml data.batch_size
+ROUTE_MARGIN = 1e-4      # card vs CPU top-2 choices may differ only here
+# bf16 vs f32 top-2 choices may differ only where the f32 k-th and (k+1)-th
+# gates are this close: bf16 moved a gate by at most 0.0055 at these
+# weights (NVIDIA H100 80GB HBM3), so a flip needs a gap of at most twice
+# that. At most BF16_FLIP_SHARE of phase 9a's images may flip.
+BF16_ROUTE_MARGIN = 0.011
+BF16_FLIP_SHARE = 1 / 8
+# 80 frames a task leave 64 in the train split (val_split 0.2): every train
+# batch of 64 is whole (the sampler's wraparound shortens a batch when a
+# task has fewer train rows than a batch)
+SUBMIT_PER_TASK = 80
+SUBMIT_STEPS = 6         # steps per epoch of the fit
+SUBMIT_BAD_FRAME = "T1_fetal_planes_0005.png"  # made unreadable
+
+
+def submit_preset():
+    """Phase 9c: the submit preset's Trainer at B=64, 224², its launch
+    counts a step as the flagship's (swin_b: 24 attention, 4 MLP blocks at
+    C <= 256), f32 grads at B=1, 224²."""
+    from fmc_uia_tpu_torch.flagship import submit_config_dict
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+
+    per_step = ((sb.attention_branch, 24), (sb.attention_branch_backward, 24),
+                (sb.mlp_branch, 4), (sb.mlp_branch_backward, 4))
+    # the grad check's weights: at seed 1 the CPU reference's own seg grads
+    # moved by 7.8e-3 of the stage-3 expert_mid leaf's max under a 1e-7
+    # relative perturbation of the weights (a ReLU or routing edge within
+    # f32 rounding; the card's host CPU); at seed 3 every type's moved by
+    # < 6e-5 of a leaf's max (measured on another x86 CPU)
+    return dict(key="submit_train", what="submit swin_b + MoE",
+                config=submit_config_dict, per_step=per_step,
+                batch=SUBMIT_BATCH, image=SUBMIT_IMAGE,
+                grad_image=SUBMIT_IMAGE, grad_seed=3)
+
+
+def moe_gate_probs(model, x, task_index):
+    """{stage: the router's softmax [B, E]} of each MoE block on x."""
+    import torch
+
+    with torch.inference_mode():
+        feats = model.encoder(x.to(model.dtype))
+        return {i: getattr(model, f"moe_stage{i}").gate_probs(
+            feats[i], torch.tensor(task_index, device=x.device)).float().cpu()
+            for i in model.moe_stages}
+
+
+def route_flips(lo, hi, top_k, what, margin):
+    """Per image, whether any MoE block's top-k choice differs between two
+    evaluations of its gates (``lo``, ``hi``: {stage: [B, E]}). A choice
+    may differ only where ``hi``'s k-th and (k+1)-th probabilities are
+    within ``margin``; elsewhere a difference fails. Returns the bool mask
+    and the largest |lo - hi| of a gate."""
+    import torch
+
+    from fmc_uia_tpu_torch.models.conditioning import top_k_dispatch
+
+    flips = torch.zeros(next(iter(hi.values())).shape[0], dtype=torch.bool)
+    move = 0.0
+    for i in hi:
+        diff = (top_k_dispatch(lo[i], top_k)
+                != top_k_dispatch(hi[i], top_k)).any(1)
+        srt = torch.sort(hi[i], dim=1, descending=True).values
+        gap = srt[:, top_k - 1] - srt[:, top_k]
+        move = max(move, float((lo[i] - hi[i]).abs().max()))
+        if bool((diff & (gap > margin)).any()):
+            fail(f"{what} stage {i}: top-{top_k} choices differ away from a "
+                 f"near tie (gaps {gap[diff].tolist()} > {margin:.2e})")
+        flips |= diff
+    return flips, move
+
+
+def submit_model_phase(name, smi, report):
+    """Phase 9a-b: the submit preset (random weights from a seed) through
+    ``Predictor`` at B=8 in bf16 against f32 on the card, one image in f32
+    on the CPU, the MoE blocks' top-2 choices card vs CPU, K1f/K2f 24/4
+    launches a forward; then one closed loop of 64 outstanding requests
+    through ``StreamingPredictor(max_batch=8)`` for >= 10 s."""
+    import numpy as np
+    import torch
+
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.export import Predictor
+    from fmc_uia_tpu_torch.flagship import SERVING_TASKS, submit_config_dict
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+    from fmc_uia_tpu_torch.ops.image import normalize_images
+    from fmc_uia_tpu_torch.tasks import TaskRegistry
+
+    S = SUBMIT_IMAGE
+    cfg = Config(config_dict=submit_config_dict())
+    registry = TaskRegistry.from_config(cfg)
+    mean = cfg.get("data.augmentation.normalize.mean")
+    std = cfg.get("data.augmentation.normalize.std")
+    top_k = int(cfg.get("model.moe.top_k"))
+    model = build_model(cfg, registry, dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_moe = sum(p.numel() for n, p in model.named_parameters()
+                if n.startswith("moe_stage"))
+    pred = Predictor(model, registry, mean, std, S, device="cuda")
+    rng = np.random.RandomState(9)
+    imgs = rng.randint(0, 256, (BATCH, S, S, 3)).astype(np.uint8)
+    for tid in SERVING_TASKS:  # first use: allocator, cuDNN heuristics
+        pred.predict_images(imgs, tid)
+    torch.cuda.synchronize()
+    sb.attention_branch.launches = 0
+    sb.mlp_branch.launches = 0
+    outs = {}
+    t0 = time.perf_counter()
+    for tid in SERVING_TASKS:
+        outs[tid] = pred.predict_images(imgs, tid)
+    fwd_s = (time.perf_counter() - t0) / len(SERVING_TASKS)
+    n = len(SERVING_TASKS)
+    got = (sb.attention_branch.launches, sb.mlp_branch.launches)
+    if got != (24 * n, 4 * n):
+        fail(f"submit launch counters {got} != {(24 * n, 4 * n)}")
+    rep = {"params_M": n_params / 1e6, "moe_params_M": n_moe / 1e6,
+           "fwd_ms_b8": 1e3 * fwd_s, "launches": got,
+           "moe_stages": model.moe_stages}
+    log(f"[submit] submit preset: swin_b {S}² window 7 + MoE (8 experts, "
+        f"top-{top_k}) at stages {model.moe_stages}, 27 tasks, "
+        f"{n_params / 1e6:.1f} M params ({n_moe / 1e6:.1f} M in the MoE); "
+        f"{n} Predictor forwards at B={BATCH}: launches attention_branch "
+        f"{got[0]}, mlp_branch {got[1]} (N = 49 tokens a window); "
+        f"{1e3 * fwd_s:.1f} ms per forward (host clock, synced)")
+    model32 = build_model(cfg, registry, dtype=torch.float32, device="cuda")
+    model32.load_state_dict(model.state_dict())
+    model_cpu = build_model(cfg, registry, dtype=torch.float32,
+                            device="cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    x_pre = normalize_images(torch.from_numpy(imgs), mean, std)
+    cmp, near, flips, move = {}, 0, 0, 0.0
+    for tid in SERVING_TASKS:
+        spec = registry[tid]
+        # an image whose MoE top-2 choice differs in bf16 and f32 (at a
+        # near tie) runs other experts: it is left out of the bf16-vs-f32
+        # comparison
+        flip, mv = route_flips(
+            moe_gate_probs(model, x_pre.cuda(), spec.global_index),
+            moe_gate_probs(model32, x_pre.cuda(), spec.global_index),
+            top_k, f"submit {tid} bf16 vs f32", BF16_ROUTE_MARGIN)
+        keep = ~flip
+        flips += int(flip.sum())
+        move = max(move, mv)
+        # phase 3's rules: bf16 vs f32 10 % of the largest output, decoded
+        # ids equal except at near ties; f32 card vs CPU 1e-3, one image
+        ref, err = compare_models(model, model32, x_pre[keep], spec, 0.1,
+                                  "submit bf16 vs f32")
+        _, err1 = compare_models(model32, model_cpu, x_pre[:1], spec, 1e-3,
+                                 "submit f32 card vs f32 cpu")
+        p = torch.from_numpy(outs[tid])[keep]
+        entry = {"bf16_vs_f32_err": err, "f32_card_vs_cpu_err": err1,
+                 "route_flips_bf16_f32": int((~keep).sum())}
+        if spec.task_name in ("segmentation", "classification"):
+            entry["disagree"], entry["near_ties"] = near_tie_ok(
+                p, ref, err, spec.num_classes)
+        elif spec.task_name == "Regression":
+            entry["decoded_err"] = float((p - ref).abs().max())
+        # the MoE blocks' choices, all 8 images: f32 card vs f32 CPU
+        near += int(route_flips(
+            moe_gate_probs(model32, x_pre.cuda(), spec.global_index),
+            moe_gate_probs(model_cpu, x_pre, spec.global_index), top_k,
+            f"submit {tid} card vs CPU", ROUTE_MARGIN)[0].sum())
+        cmp[tid] = entry
+        log(f"  {tid:20s} {entry}")
+    if flips > BF16_FLIP_SHARE * n * BATCH:
+        fail(f"submit bf16 vs f32: {flips} of {n * BATCH} images chose "
+             f"other experts (at most {BF16_FLIP_SHARE:.3f} of them may)")
+    rep.update(compare=cmp, card_cpu_route_flips=near,
+               bf16_route_flips=flips, bf16_gate_move=move)
+    log(f"[submit] MoE top-{top_k} choices of {n * BATCH} images x "
+        f"{len(model.moe_stages)} blocks, f32 card vs f32 CPU: {near} images"
+        f" differ (each within {ROUTE_MARGIN} of a tie). bf16 vs f32: "
+        f"gates moved by <= {move:.2e}; {flips} images chose other experts,"
+        f" each within {BF16_ROUTE_MARGIN} of a tie, and were left out of "
+        f"the comparison (at most {BF16_FLIP_SHARE:.3f} of them may)")
+    del model32, model_cpu
+    torch.cuda.empty_cache()
+
+    rep["serving"] = serve_once(
+        pred, rng, ((sb.attention_branch, 24), (sb.mlp_branch, 4)),
+        "submit")
+    report["submit"] = rep
+    sv = rep["serving"]
+    log(f"[submit] serving: {sv['requests']} requests in {sv['wall_s']:.2f}"
+        f" s: {sv['img_s']:.2f} img/s, e2e p50 {sv['p50_ms']:.1f} ms, p99 "
+        f"{sv['p99_ms']:.1f} ms, {sv['dispatches']} dispatches, launches "
+        f"{sv['launches']}; results equal to Predictor's | {name} | {smi}")
+    del pred, model
+    torch.cuda.empty_cache()
+
+
+def read_resized(paths, size):
+    """``export._load_frame`` of each path on 8 threads: [(original (h, w),
+    resized uint8 [size, size, 3]) or None for an unreadable frame]."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fmc_uia_tpu_torch.export import _load_frame
+
+    with ThreadPoolExecutor(8) as ex:
+        return list(ex.map(lambda p: _load_frame(p, size), paths))
+
+
+def check_predictions(out_dir, root, model, registry, mean, std, size,
+                      n_tasks=27, device="cuda"):
+    """``predict``'s files against an in-process ``Predictor`` on the same
+    frames, batches of 16 in index order as the CLI makes them: 27 JSONs,
+    one record per readable frame, every mask PNG at its frame's size and
+    equal to the Predictor's mask resized back (bitwise), class ids equal,
+    boxes and points within 1e-4 of the frame's size."""
+    import csv
+    import glob
+
+    import numpy as np
+
+    from fmc_uia_tpu_torch.data.image_io import read_mask, resize_nearest
+    from fmc_uia_tpu_torch.export import Predictor
+
+    pred = Predictor(model, registry, mean, std, size, device=device)
+    rows = {}
+    for path in sorted(glob.glob(os.path.join(root, "csv_files", "*.csv"))):
+        with open(path, newline="") as f:
+            for r in csv.DictReader(f):
+                rows.setdefault(r["task_id"], []).append(r["image_path"])
+    jsons = sorted(f for f in os.listdir(out_dir) if f.endswith(".json"))
+    if jsons != sorted(f"{t}.json" for t in rows) or len(jsons) != n_tasks:
+        fail(f"predict wrote {len(jsons)} JSON files, not the {n_tasks} "
+             "tasks'")
+    n_rec = n_masks = 0
+    worst = 0.0
+    for tid, paths in sorted(rows.items()):
+        spec = registry[tid]
+        frames = read_resized([os.path.normpath(os.path.join(
+            root, "csv_files", p)) for p in paths], size)
+        with open(os.path.join(out_dir, f"{tid}.json")) as f:
+            recs = json.load(f)
+        names = [os.path.basename(p) for p, fr in zip(paths, frames)
+                 if fr is not None]
+        if [r["image"] for r in recs] != names:
+            fail(f"predict {tid}: {len(recs)} records, not one per readable "
+                 f"frame ({len(names)})")
+        done = 0
+        for s in range(0, len(paths), 16):  # the CLI's chunks of 16 rows
+            chunk = [(os.path.basename(p), fr) for p, fr in zip(
+                paths[s:s + 16], frames[s:s + 16]) if fr is not None]
+            out = pred.predict_images(np.stack([fr[1] for _, fr in chunk]),
+                                      tid)
+            batch_recs = recs[done:done + len(chunk)]
+            done += len(chunk)
+            for (img_name, ((h, w), _)), r, o in zip(chunk, batch_recs,
+                                                     out):
+                if spec.task_name == "segmentation":
+                    mask = read_mask(os.path.join(out_dir, "masks",
+                                                  r["mask"]))
+                    want = resize_nearest(o.astype(np.uint8), h, w)
+                    if mask is None or mask.shape != (h, w) or not (
+                            np.array_equal(mask, want)):
+                        fail(f"predict {tid} {r['mask']}: not the "
+                             f"Predictor's mask at {h}x{w}")
+                    n_masks += 1
+                elif spec.task_name == "classification":
+                    if r["class"] != int(o):
+                        fail(f"predict {tid} {img_name}: class {r['class']}"
+                             f" != {int(o)}")
+                else:
+                    if spec.task_name == "detection":
+                        got = [r["x_min"], r["y_min"], r["x_max"],
+                               r["y_max"]]
+                        ref = o[:4]
+                    else:
+                        got = [v for pt in r["points"] for v in pt]
+                        ref = o[:2 * spec.num_classes]
+                    for k, (g, v) in enumerate(zip(got, ref)):
+                        dim = w if k % 2 == 0 else h
+                        e = abs(g - float(v) * dim) / dim
+                        worst = max(worst, e)
+                        if not e <= 1e-4:
+                            fail(f"predict {tid} {img_name}: value {k} "
+                                 f"{g} vs {float(v) * dim} (> 1e-4 x "
+                                 f"{dim})")
+            n_rec += len(chunk)
+    return {"jsons": len(jsons), "records": n_rec, "masks": n_masks,
+            "worst_box_point_err_over_size": worst}
+
+
+def submit_fit_phase(name, smi, report):
+    """Phase 9d: ``fit`` of the submit preset from 576x768 PNGs (27 tasks x
+    80, one made unreadable) for 2 epochs of 6 steps with K3, then
+    ``python -m fmc_uia_tpu_torch.predict`` in a subprocess on the
+    experiment dir over the same root, its files held against an
+    in-process ``Predictor`` on the loaded ``best_model.pt``."""
+    import copy
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from fmc_uia_tpu_torch import checkpoint as ckpt_lib
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from fmc_uia_tpu_torch.fit import fit
+    from fmc_uia_tpu_torch.flagship import submit_config_dict
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.ops import preprocess as pp
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+    from fmc_uia_tpu_torch.tasks import TaskRegistry
+
+    counters = (sb.attention_branch, sb.attention_branch_backward,
+                sb.mlp_branch, sb.mlp_branch_backward, pp.augment_normalize)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_submit_")
+    try:
+        d = submit_config_dict()
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            list(ex.map(lambda it: generate_synthetic_dataset(
+                root, tasks=[it[1]], samples_per_task=SUBMIT_PER_TASK,
+                image_hw=FIT_FRAME, seed=100 + it[0]), enumerate(d["tasks"])))
+        with open(os.path.join(root, "images", SUBMIT_BAD_FRAME), "wb") as f:
+            f.write(b"not a png")
+        gen_s = time.perf_counter() - t0
+        log(f"[submit-fit] wrote {len(d['tasks'])} tasks x {SUBMIT_PER_TASK}"
+            f" frames {FIT_FRAME[0]}x{FIT_FRAME[1]} ({SUBMIT_BAD_FRAME} "
+            f"unreadable) in {gen_s:.1f} s")
+        d["data"].update(root_path=root, fused_preprocess=True)
+        d["experiment"].update(output_dir=os.path.join(tmp, "out"))
+        d["training"].update(num_epochs=2, steps_per_epoch=SUBMIT_STEPS)
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        by_kernel = pp.augment_normalize.launches_by_kernel
+        by_kernel.update(vector=0, edge=0)
+        t0 = time.perf_counter()
+        r = fit(config=Config(config_dict=copy.deepcopy(d)), device="cuda")
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        k3_kernels = dict(by_kernel)
+        exp = r["experiment_dir"]
+        torch.cuda.empty_cache()
+
+        steps = sum(e["steps"] for e in r["epoch_stats"])
+        evals = r["eval_batches"]
+        want = {"attention_branch": 24 * (steps + evals),
+                "attention_branch_backward": 24 * steps,
+                "mlp_branch": 4 * (steps + evals),
+                "mlp_branch_backward": 4 * steps,
+                "augment_normalize": steps}
+        if launches != want:
+            fail(f"submit fit launches {launches} != {want}")
+        if k3_kernels != {"vector": steps, "edge": 0}:
+            fail(f"submit fit: K3 kernels {k3_kernels}, not {steps} of the "
+                 "chunk kernel")
+        if any(e["images"] != SUBMIT_BATCH * e["batches"]
+               for e in r["epoch_stats"]):
+            fail(f"submit fit: train batches of fewer than {SUBMIT_BATCH} "
+                 f"images: {r['epoch_stats']}")
+        with open(os.path.join(exp, "training_history.json")) as f:
+            hist = json.load(f)
+        if not all(np.isfinite(v["mean"]) for e in hist
+                   for v in e["train_losses"].values()):
+            fail("submit fit: non-finite train losses")
+        with open(os.path.join(exp, "moe_stats.csv")) as f:
+            moe_rows = f.read().splitlines()
+        epochs = sorted({ln.split(",")[0] for ln in moe_rows[1:]})
+        if (moe_rows[0] != "epoch,scope,key,task_name,expert,importance,load"
+                or epochs != ["1", "2"]):
+            fail(f"moe_stats.csv: header {moe_rows[0]!r}, epochs {epochs}")
+
+        out = os.path.join(tmp, "preds")
+        env = dict(os.environ, PYTHONPATH=HERE)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fmc_uia_tpu_torch.predict",
+             "--checkpoint", exp, "--data", root, "--out", out],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+        predict_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"predict exited {proc.returncode}: {proc.stderr[-3000:]}")
+
+        with open(os.path.join(exp, "config.yaml")) as f:
+            cfg = Config(config_dict=json.load(f))
+        registry = TaskRegistry.from_config(cfg)
+        model = build_model(cfg, registry, device="cuda", init=False)
+        model.load_state_dict(ckpt_lib.load_best_params(exp, "cuda"))
+        t0 = time.perf_counter()
+        chk = check_predictions(out, root, model, registry,
+                                cfg.get("data.augmentation.normalize.mean"),
+                                cfg.get("data.augmentation.normalize.std"),
+                                SUBMIT_IMAGE)
+        check_s = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    per_epoch = [{"epoch": e["epoch"], "steps": e["steps"],
+                  "loop_s": e["loop_s"], "img_s": e["images"] / e["loop_s"],
+                  "queue_wait_share": e["queue_wait_s"] / e["loop_s"]}
+                 for e in r["epoch_stats"]]
+    rep = dict(frames=FIT_FRAME, per_task=SUBMIT_PER_TASK, gen_s=gen_s,
+               fit_s=fit_s, epochs=per_epoch, train_steps=steps,
+               eval_batches=evals, launches=launches, k3_kernels=k3_kernels,
+               moe_stats_rows=len(moe_rows) - 1, predict_s=predict_s,
+               check_s=check_s, predictions=chk,
+               best_score=r["best_score"], best_epoch=r["best_epoch"])
+    report["submit_fit"] = rep
+    for e in per_epoch:
+        log(f"[submit-fit] epoch {e['epoch']}: {e['steps']} steps of "
+            f"B={SUBMIT_BATCH} at {SUBMIT_IMAGE}² in {e['loop_s']:.2f} s = "
+            f"{e['img_s']:.2f} img/s from disk; queue wait "
+            f"{100 * e['queue_wait_share']:.2f} % of the loop")
+    log(f"[submit-fit] fit {fit_s:.1f} s ({steps} train steps, {evals} eval "
+        f"batches; launches {launches}; K3 by kernel {k3_kernels}); "
+        f"moe_stats.csv {len(moe_rows) - 1} rows over epochs 1-2")
+    log(f"[submit-fit] predict (subprocess, B=16): {predict_s:.1f} s for "
+        f"{chk['records']} frames -> {chk['jsons']} JSONs, {chk['masks']} "
+        f"masks at {FIT_FRAME[0]}x{FIT_FRAME[1]}; every value equal to the "
+        f"in-process Predictor's (masks bitwise; boxes/points worst "
+        f"{chk['worst_box_point_err_over_size']:.1e} of the frame size) "
+        f"| {name} | {smi}")
 
 
 def staged_train_main() -> int:
@@ -2496,6 +3125,15 @@ def main() -> int:
     dino_serve_launches = dino_serving_phase(name, smi, report)
     # -- 8. DINOv3 training ----------------------------------------------------
     dino_launches = train_phase(name, smi, report, out_dir, dino_preset())
+    # -- 9. the submission preset: model, serving, training, fit -> predict ---
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    submit_model_phase(name, smi, report)
+    train_phase(name, smi, report, out_dir, submit_preset())
+    torch.cuda.empty_cache()
+    submit_fit_phase(name, smi, report)
+    report["submit_s"] = time.perf_counter() - t9
+    log(f"[submit] phase 9: {report['submit_s']:.1f} s")
 
     # -- kernels line ----------------------------------------------------------
     def entry(kname, source, replaces, count):

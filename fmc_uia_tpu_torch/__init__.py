@@ -17,7 +17,10 @@ drop path and dropout, augmentation, CenterNet targets, the losses and
 ``train.Trainer`` with its grouped-LR AdamW — and training from disk: the
 fused photometric kernel (K3), the data pipeline (``data/``, with its own
 PNG decoder and a host C++ helper, no pandas/cv2/PIL/PyYAML), metrics and
-``evaluate``, the logger, checkpoints and ``fit`` with resume.
+``evaluate``, the logger, checkpoints and ``fit`` with resume — and the
+submission preset (``configs/submit.yaml``): the dense MoE conv block with
+its balance loss and statistics, ``export_predictions`` and the
+``predict`` CLI (``python -m fmc_uia_tpu_torch.predict``).
 """
 
 __version__ = "0.1.0"

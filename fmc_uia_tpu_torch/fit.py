@@ -93,22 +93,58 @@ def _wait(t: torch.Tensor) -> None:
         torch.cuda.current_stream(t.device).synchronize()
 
 
+def _moe_accumulate(stats: Dict, key: str, task_name: str, vals: Dict
+                    ) -> None:
+    e = stats.setdefault(key, {
+        "task_name": task_name, "importance_sum": 0.0, "load_sum": 0.0,
+        "count": 0, "aux_sum": 0.0, "aux_count": 0})
+    e["importance_sum"] = e["importance_sum"] + vals["moe_importance"]
+    e["load_sum"] = e["load_sum"] + vals["moe_load"]
+    e["count"] += 1
+    if "moe_aux" in vals:
+        e["aux_sum"] += float(vals["moe_aux"])
+        e["aux_count"] += 1
+
+
+def _moe_finalize(stats: Dict) -> Dict:
+    """Per key the mean importance and load per expert (lists) and, where
+    logged, the mean balance loss (``aux_loss``), as the JAX fit."""
+    out = {}
+    for key, e in stats.items():
+        rec = {"task_name": e["task_name"],
+               "importance": (e["importance_sum"] / e["count"]).tolist(),
+               "load": (e["load_sum"] / e["count"]).tolist()}
+        if e["aux_count"]:
+            rec["aux_loss"] = e["aux_sum"] / e["aux_count"]
+        out[key] = rec
+    return out
+
+
 def _train_epoch(trainer: Trainer, train_engine, epoch: int,
                  print_freq: int, profiler=None, timer=None,
                  stop=None) -> Dict:
-    """One epoch; returns the per-task losses and the epoch's loop stats.
-    The loop reads nothing from the device per step: the losses stay on
-    the device and are read in bulk (every 256 steps, at print points and
-    at the end)."""
+    """One epoch; returns the per-task losses, the MoE statistics by task
+    id and by task type (None without MoE) and the epoch's loop stats.
+    The loop reads nothing from the device per step: the logs stay on the
+    device and are read in bulk (every 256 steps, at print points and at
+    the end)."""
     epoch_losses = defaultdict(list)
-    pending = []  # (task_id, device loss)
+    moe_task, moe_type = {}, {}
+    pending = []  # (task_id, task_type, device logs)
+    moe_keys = ("moe_aux", "moe_importance", "moe_load")
 
     def drain():
         if not pending:
             return
-        vals = torch.stack([loss.float() for _, loss in pending]).tolist()
-        for (tid, _), loss in zip(pending, vals):
-            epoch_losses[tid].append(loss)
+        # every step logs the same keys: one stacked read per key
+        host = {k: torch.stack([logs[k].float() for _, _, logs in pending]
+                               ).cpu().numpy() for k in pending[0][2]}
+        for j, (tid, ttype, _) in enumerate(pending):
+            vals = {k: v[j] for k, v in host.items()}
+            epoch_losses[tid].append(float(vals["total_loss"]))
+            if "moe_importance" in vals:
+                _moe_accumulate(moe_task, tid, ttype, vals)
+                _moe_accumulate(moe_type, ttype, ttype, vals)
         pending.clear()
 
     seen_types = set()
@@ -129,7 +165,9 @@ def _train_epoch(trainer: Trainer, train_engine, epoch: int,
             profiler.maybe_stop(trainer.host_step)
         if timer is not None:
             timer.lap(lambda: _wait(logs["total_loss"]), taint=first_of_type)
-        pending.append((batch["task_id"], logs["total_loss"]))
+        pending.append((batch["task_id"], batch["task_type"],
+                        {k: v for k, v in logs.items()
+                         if k == "total_loss" or k in moe_keys}))
         if len(pending) >= 256:
             drain()
         if print_freq > 0 and (batch_idx + 1) % print_freq == 0:
@@ -144,7 +182,11 @@ def _train_epoch(trainer: Trainer, train_engine, epoch: int,
             "queue_wait_s": data["wait_s"], "host_load_s": data["load_s"],
             "host_put_s": data["put_s"], "batches": data["batches"],
             "images": data["images"]}
-    return dict(epoch_losses), loop
+    moe_stats = None
+    if moe_task:
+        moe_stats = {"by_task_id": _moe_finalize(moe_task),
+                     "by_task_name": _moe_finalize(moe_type)}
+    return dict(epoch_losses), moe_stats, loop
 
 
 def _group_means(rows: List[Dict]) -> Dict:
@@ -246,7 +288,7 @@ def fit(config_path: Optional[str] = None, config=None,
             t0 = time.time()
             print(f"\nEpoch [{epoch + 1}/{config.num_epochs}]")
             print("-" * 80)
-            epoch_losses, loop = _train_epoch(
+            epoch_losses, moe_stats, loop = _train_epoch(
                 trainer, train_engine, epoch, print_freq, profiler=profiler,
                 timer=timer, stop=lambda: guard.requested)
             epoch_stats.append({"epoch": epoch + 1, **loop})
@@ -303,7 +345,7 @@ def fit(config_path: Optional[str] = None, config=None,
                              val_rows=val_rows,
                              learning_rate=trainer.scheduler.current_lr(),
                              epoch_time=time.time() - t0,
-                             adaptive_weights=snapshot)
+                             adaptive_weights=snapshot, moe_stats=moe_stats)
             if avg_val_score > best_val_score:
                 best_val_score = avg_val_score
                 best_epoch = epoch + 1

@@ -6,9 +6,13 @@ FPN, TaskFiLM, 27 tasks.
 
 ``dino_patch8_config_dict`` is the DINOv3 ViT-B patch-8 preset
 (``configs/Dino_resize_patch8.yaml``) with the train batch of 24.
+``submit_config_dict`` and ``baseline_config_dict`` are
+``configs/submit.yaml`` and ``configs/baseline.yaml`` as they stand: swin_b
+at 224², window 7, B = 64, the MoE at stages 2-3, adaptive loss weights.
 
 Dicts and not the YAML files, because the GPU machine may lack PyYAML
-(tests/test_torch_isolation.py holds them equal).
+(tests/test_torch_isolation.py and tests/test_torch_moe.py hold them
+equal).
 """
 
 from __future__ import annotations
@@ -152,4 +156,36 @@ def dino_patch8_config_dict() -> dict:
         "pretrained": None, "freeze_dino": True,
         "out_indices": [2, 5, 8, 11],
         "adapter": {"type": "resize", "channels": 256}}
+    return d
+
+
+def submit_config_dict() -> dict:
+    """``configs/submit.yaml`` as a dict: the flagship's model with the
+    dense MoE (8 experts, top-2, ``expert_hidden`` and ``router_hidden``
+    256, a 64-wide task embedding, stages 2 and 3, balance weight 0.05),
+    swin_b at its defaults (window 7, no TPU overrides) at 224², B = 64,
+    adaptive loss weights, 100 epochs."""
+    d = flagship_config_dict()
+    d["experiment"].update(name="submit_swin_b", output_dir="outputs/submit",
+                           checkpoint_freq=5)
+    d["data"].update(batch_size=64, image_size=224)
+    del d["data"]["fused_preprocess"]
+    d["model"]["moe"]["enabled"] = True
+    d["model"]["encoder"] = {"name": "swin_b", "pretrained": None,
+                             "drop_path_rate": 0.1}
+    d["training"]["num_epochs"] = 100
+    d["training"]["scheduler"]["T_max"] = 100
+    d["training"]["adaptive_loss"]["enabled"] = True
+    return d
+
+
+def baseline_config_dict() -> dict:
+    """``configs/baseline.yaml`` as a dict: ``submit_config_dict`` with
+    separate cls and reg FPNs that those heads read."""
+    d = submit_config_dict()
+    d["experiment"].update(name="baseline_swin_b_moe_adaptive",
+                           output_dir="outputs/baseline", checkpoint_freq=10)
+    d["model"]["decoder"].update(
+        separate_classification_fpn=True, separate_regression_fpn=True,
+        use_fpn_for_classification=True, use_fpn_for_regression=True)
     return d

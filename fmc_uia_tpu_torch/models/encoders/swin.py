@@ -28,13 +28,13 @@ import torch.nn.functional as F
 
 from fmc_uia_tpu_torch.models.layers import (
     Conv,
+    Dense,
     _param,
     apply_drop_path,
     drop_path_keep,
     drop_path_scale,
     keep_mask,
     layer_norm,
-    lecun_normal_,
     trunc_normal_,
 )
 from fmc_uia_tpu_torch.ops.swin_block import attention_branch, mlp_branch
@@ -98,23 +98,11 @@ class _LN(nn.Module):
         self.bias = _param(features)
 
 
-class _Dense(nn.Module):
-    """Dense params in PyTorch layout: kernel [out, in], bias [out]."""
-
-    def __init__(self, cin: int, features: int, use_bias: bool = True):
-        super().__init__()
-        self.kernel = _param(features, cin)
-        self.bias = _param(features) if use_bias else None
-
-    def _init(self, g):
-        lecun_normal_(self.kernel, self.kernel.shape[1], g)
-
-
 class _Attn(nn.Module):
     def __init__(self, dim: int, num_heads: int, ws: int):
         super().__init__()
-        self.qkv = _Dense(dim, 3 * dim)
-        self.proj = _Dense(dim, dim)
+        self.qkv = Dense(dim, 3 * dim)
+        self.proj = Dense(dim, dim)
         self.rel_pos_bias = _param((2 * ws - 1) ** 2, num_heads)
 
     def _init(self, g):
@@ -137,8 +125,8 @@ class SwinBlock(nn.Module):
         self.norm1 = _LN(dim)
         self.attn = _Attn(dim, num_heads, window_size)
         self.norm2 = _LN(dim)
-        self.mlp_fc1 = _Dense(dim, hidden)
-        self.mlp_fc2 = _Dense(hidden, dim)
+        self.mlp_fc1 = Dense(dim, hidden)
+        self.mlp_fc2 = Dense(hidden, dim)
         n = window_size * window_size
         self.register_buffer("rel_idx", torch.as_tensor(
             _relative_position_index(window_size).reshape(-1)),
@@ -221,7 +209,7 @@ class PatchMerging(nn.Module):
     def __init__(self, dim: int, ln_bf16: bool = False, dtype=torch.float32):
         super().__init__()
         self.norm = _LN(4 * dim)
-        self.reduction = _Dense(4 * dim, 2 * dim, use_bias=False)
+        self.reduction = Dense(4 * dim, 2 * dim, use_bias=False)
         self.dtype = dtype
         self.ln_dtype = dtype if ln_bf16 else torch.float32
 

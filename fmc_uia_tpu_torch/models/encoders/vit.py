@@ -35,8 +35,13 @@ from fmc_uia_tpu_torch.models.encoders.adapters import (
     ITEM_ADAPTERS,
     FourScaleAdapter,
 )
-from fmc_uia_tpu_torch.models.encoders.swin import _LN, _Dense
-from fmc_uia_tpu_torch.models.layers import Conv, layer_norm, trunc_normal_
+from fmc_uia_tpu_torch.models.encoders.swin import _LN
+from fmc_uia_tpu_torch.models.layers import (
+    Conv,
+    Dense,
+    layer_norm,
+    trunc_normal_,
+)
 from fmc_uia_tpu_torch.ops.vit_attention import global_attention
 
 FLASH_MIN_TOKENS = 1024  # 'auto' switches to the kernels at this N
@@ -106,11 +111,11 @@ class ViTBlock(nn.Module):
         self.dtype = dtype
         hidden = MLP_RATIO * dim
         self.norm1 = _LN(dim)
-        self.qkv = _Dense(dim, 3 * dim)
-        self.proj = _Dense(dim, dim)
+        self.qkv = Dense(dim, 3 * dim)
+        self.proj = Dense(dim, dim)
         self.norm2 = _LN(dim)
-        self.mlp_fc1 = _Dense(dim, hidden)
-        self.mlp_fc2 = _Dense(hidden, dim)
+        self.mlp_fc1 = Dense(dim, hidden)
+        self.mlp_fc2 = Dense(hidden, dim)
         if layerscale:
             self.ls1 = nn.Parameter(torch.full((dim,), LAYERSCALE_INIT))
             self.ls2 = nn.Parameter(torch.full((dim,), LAYERSCALE_INIT))

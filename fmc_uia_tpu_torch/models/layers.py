@@ -143,10 +143,11 @@ def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1
-              ) -> torch.Tensor:
+def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+              groups: int = 1) -> torch.Tensor:
     """'SAME'-padded conv of NHWC ``x`` with OIHW ``w`` (already in the
-    compute dtype); returns NHWC."""
+    compute dtype; ``[O, I/groups, kh, kw]`` when grouped, as flax's
+    ``feature_group_count``); returns NHWC."""
     kh, kw = w.shape[-2:]
     ph = _same_pads(x.shape[1], kh, stride)
     pw = _same_pads(x.shape[2], kw, stride)
@@ -156,7 +157,7 @@ def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1
     else:
         pad = (ph[0], pw[0])
     w = w.contiguous(memory_format=torch.channels_last)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, None, stride, pad)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, None, stride, pad, 1, groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -173,15 +174,18 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 class Conv(nn.Module):
     """flax ``nn.Conv`` with 'SAME' padding: OIHW kernel, optional bias,
-    compute in ``dtype`` (output in ``dtype``)."""
+    ``groups`` (flax ``feature_group_count``), compute in ``dtype`` (output
+    in ``dtype``)."""
 
     def __init__(self, cin: int, features: int, kernel_size: int,
-                 stride: int = 1, use_bias: bool = True,
+                 stride: int = 1, use_bias: bool = True, groups: int = 1,
                  dtype=torch.float32):
         super().__init__()
         self.stride = stride
+        self.groups = groups
         self.dtype = dtype
-        self.kernel = _param(features, cin, kernel_size, kernel_size)
+        self.kernel = _param(features, cin // groups, kernel_size,
+                             kernel_size)
         self.bias = _param(features) if use_bias else None
 
     def _init(self, g):
@@ -190,10 +194,28 @@ class Conv(nn.Module):
 
     def forward(self, x):
         y = conv_nhwc(x.to(self.dtype), self.kernel.to(self.dtype),
-                      self.stride)
+                      self.stride, self.groups)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` with f32 params: kernel [out, in] (lecun normal),
+    bias [out] (zeros). ``forward`` computes in the input's dtype (the MoE
+    router, f32); the Swin and ViT blocks hand the params to their fused
+    branches instead."""
+
+    def __init__(self, cin: int, features: int, use_bias: bool = True):
+        super().__init__()
+        self.kernel = _param(features, cin)
+        self.bias = _param(features) if use_bias else None
+
+    def _init(self, g):
+        lecun_normal_(self.kernel, self.kernel.shape[1], g)
+
+    def forward(self, x):
+        return F.linear(x, self.kernel, self.bias)
 
 
 class GroupNorm(nn.Module):

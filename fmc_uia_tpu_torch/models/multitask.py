@@ -1,10 +1,13 @@
 """Multi-task model (port of ``fmc_uia_tpu/models/multitask.py``).
 
-Shared Swin encoder -> per-task-type FPN -> TaskFiLM -> banked head. The
-task type is a Python string choosing the branch; the task index is a
-tensor, mapped to the head bank's local index through the registry's
-table on the device. Outputs keep the JAX layouts: seg [B, H, W, Cmax],
-cls [B, Cmax], det a dict of NHWC maps, reg [B, 2P].
+Shared encoder -> optional MoE blocks on encoder stages -> per-task-type
+FPN -> TaskFiLM -> banked head. The task type is a Python string choosing
+the branch; the task index is a tensor, mapped to the head bank's local
+index through the registry's table on the device. Outputs keep the JAX
+layouts: seg [B, H, W, Cmax], cls [B, Cmax], det a dict of NHWC maps, reg
+[B, 2P]. The MoE blocks' balance losses and statistics, which the JAX
+model ``sow``s into ``intermediates``, come back from
+``forward(..., return_intermediates=True)``.
 """
 
 from __future__ import annotations
@@ -15,7 +18,11 @@ import torch
 import torch.nn as nn
 
 from fmc_uia_tpu_torch.device import resolve_device
-from fmc_uia_tpu_torch.models.conditioning import build_film, check_unported
+from fmc_uia_tpu_torch.models.conditioning import (
+    build_film,
+    build_moe_blocks,
+    check_unported,
+)
 from fmc_uia_tpu_torch.models.decoders import build_decoders
 from fmc_uia_tpu_torch.models.encoders import build_encoder
 from fmc_uia_tpu_torch.models.heads import build_head_banks
@@ -38,6 +45,11 @@ class MultiTaskModel(nn.Module):
         self.dtype = dtype
         self.encoder = build_encoder(config, dtype=dtype)
         enc_ch = self.encoder.out_channels
+        self.moe_stages = []
+        for i, block in build_moe_blocks(config, len(registry), enc_ch,
+                                         dtype=dtype).items():
+            self.add_module(f"moe_stage{i}", block)
+            self.moe_stages.append(i)
         alias, decoders = build_decoders(config, enc_ch, dtype=dtype)
         self.decoder_alias = alias
         for name, mod in decoders.items():
@@ -63,36 +75,63 @@ class MultiTaskModel(nn.Module):
                 or (task_type == CLASSIFICATION and self.use_fpn_for_cls)
                 or (task_type == REGRESSION and self.use_fpn_for_reg))
 
+    def _apply_moe(self, features, task_index, inter, **rand):
+        """Each MoE block on its stage's feature; its aux loss and stats
+        appended to ``inter`` in stage order."""
+        out = list(features)
+        for i in self.moe_stages:
+            y, aux, stats = getattr(self, f"moe_stage{i}")(
+                out[i], task_index, **rand)
+            out[i] = y
+            inter["moe_aux"].append(aux)
+            inter["moe_importance"].append(stats["importance"])
+            inter["moe_load"].append(stats["load"])
+        return out
+
     def forward(self, images, task_type: str, task_index,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                return_intermediates: bool = False):
         """images [B, H, W, 3] normalized (NHWC); task_type one of
         TASK_TYPES; task_index the global task index (int or 0-d tensor).
         ``train`` turns on drop path and dropout, their masks drawn from
-        ``generator`` (a generator on the model's device)."""
+        ``generator`` (a generator on the model's device). With
+        ``return_intermediates`` returns ``(output, intermediates)``:
+        lists ``moe_aux``, ``moe_importance`` and ``moe_load``, one device
+        tensor per MoE block (empty without MoE)."""
+        out, inter = self._forward(images, task_type, task_index, train,
+                                   generator)
+        return (out, inter) if return_intermediates else out
+
+    def _forward(self, images, task_type, task_index, train, generator):
         if task_type not in TASK_TYPES:
             raise ValueError(f"Unknown task_type: {task_type}")
         task_index = torch.as_tensor(task_index, dtype=torch.long,
                                      device=self.local_index_table.device)
         local_idx = take(self.local_index_table, task_index)
         rand = dict(train=train, generator=generator)
+        inter = {"moe_aux": [], "moe_importance": [], "moe_load": []}
         features = self.encoder(images.to(self.dtype), **rand)
+        features = self._apply_moe(features, task_index, inter, **rand)
         head = getattr(self, f"head_banks_{task_type}")
         if self._needs_fpn(task_type):
             x = getattr(self, self.decoder_alias[task_type])(features, **rand)
             if self.film is not None:
                 x = self.film(x, task_index)
-            return head(x, local_idx, **rand)
-        return head(features[-1], local_idx, **rand)
+            return head(x, local_idx, **rand), inter
+        return head(features[-1], local_idx, **rand), inter
 
 
 def build_model(config, registry: Optional[TaskRegistry] = None,
                 dtype=None, device="cuda",
-                generator: Optional[torch.Generator] = None
-                ) -> MultiTaskModel:
+                generator: Optional[torch.Generator] = None,
+                init: bool = True) -> MultiTaskModel:
     """Build the model with random weights drawn from ``generator``
     (default: seeded with ``experiment.seed``) and move it to ``device``.
-    The distributions follow the JAX initialisers; the bits do not."""
+    The distributions follow the JAX initialisers; the bits do not.
+    ``init=False`` leaves the weights at their placeholders (zeros; ones
+    for norm scales and FiLM gammas), for a caller that loads a state dict
+    next."""
     dev = resolve_device(device)
     if registry is None:
         registry = TaskRegistry.from_config(config)
@@ -101,5 +140,6 @@ def build_model(config, registry: Optional[TaskRegistry] = None,
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.seed))
     model = MultiTaskModel(config, registry, dtype=dtype)
-    init_weights(model, generator)
+    if init:
+        init_weights(model, generator)
     return model.to(dev).eval()

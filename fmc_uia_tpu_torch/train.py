@@ -3,9 +3,10 @@
 One train step per task type, as in the JAX package:
 
     photometric augmentation (+ flips) -> train-mode forward (drop path,
-    dropout) -> CenterNet targets -> loss -> backward (the fused Swin
-    branches and the ViT global attention through their backward
-    kernels) -> clip model grads -> grouped-LR AdamW
+    dropout) -> CenterNet targets -> loss (+ the MoE balance loss) ->
+    backward (the fused Swin branches and the ViT global attention
+    through their backward kernels) -> clip model grads -> grouped-LR
+    AdamW
 
 Optimizer parity with the optax chain of ``build_optimizer``:
 ``scale_by_adam(b1=0.9, b2=0.999, eps=1e-8)`` -> ``add_decayed_weights(wd)``
@@ -221,7 +222,11 @@ class Trainer:
     uint8 [B, H, W, 3], ``label``, ``task_id``, ``task_index``,
     ``task_type``), numpy or tensors, and returns ``total_loss``,
     ``raw_loss``, ``task_weight`` and ``grad_norm`` as device tensors:
-    nothing in a step waits for the device."""
+    nothing in a step waits for the device. With MoE blocks it also
+    returns ``moe_importance`` / ``moe_load`` (per expert, the mean over
+    blocks) and, when ``model.moe.balance_loss_weight`` > 0, ``moe_aux``
+    (the blocks' balance losses summed, added to the total times that
+    weight), as the JAX step logs them."""
 
     def __init__(self, config, model: nn.Module,
                  registry: Optional[TaskRegistry] = None, device="cuda",
@@ -232,10 +237,6 @@ class Trainer:
         if int(config.get("training.accumulation_steps", 1) or 1) > 1:
             raise NotImplementedError(_NOT_PORTED.format(
                 what="gradient accumulation (training.accumulation_steps)",
-                item=_ITEM_OFF_PATH))
-        if bool(config.get("model.moe.enabled", False)):
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="the MoE balance loss (model.moe)",
                 item=_ITEM_OFF_PATH))
         if bool(config.get("model.heads.segmentation.use_deep_supervision",
                            False)):
@@ -268,6 +269,8 @@ class Trainer:
             self.fixed_weights[t] = torch.tensor(
                 1.0 if w is None else float(w), device=p0.device)
         self.grad_clip = float(config.get("training.gradient_clip", 0) or 0)
+        self.moe_balance_w = float(config.get(
+            "model.moe.balance_loss_weight", 0.0) or 0.0)
         self.optimizer = build_optimizer(config, model, self.adaptive)
         self.scheduler = LRScheduler(config)
         self.generator = torch.Generator(device=p0.device)
@@ -348,8 +351,9 @@ class Trainer:
                                           self.flip_h, self.flip_v,
                                           generator=self.generator)
         x = self.train_prep(images, generator=self.generator)
-        outputs = self.model(x, task_type, task_index, train=True,
-                             generator=self.generator)
+        outputs, inter = self.model(x, task_type, task_index, train=True,
+                                    generator=self.generator,
+                                    return_intermediates=True)
         raw = self._raw_loss(outputs, labels, task_type, task_index)
         if self.adaptive is not None:
             total, _, weights = losses_lib.adaptive_weighted_loss(
@@ -358,9 +362,18 @@ class Trainer:
         else:
             weight = self.fixed_weights[task_type]
             total = raw * weight
+        moe_logs = {}
+        if self.moe_balance_w > 0 and inter["moe_aux"]:
+            moe_aux = torch.stack(inter["moe_aux"]).float().sum()
+            total = total + self.moe_balance_w * moe_aux
+            moe_logs["moe_aux"] = moe_aux.detach()
+        if inter["moe_importance"]:
+            for key in ("moe_importance", "moe_load"):
+                moe_logs[key] = torch.stack(inter[key]).float().mean(
+                    0).detach()
         total.backward()
         logs = {"total_loss": total.detach(), "raw_loss": raw.detach(),
-                "task_weight": weight.detach()}
+                "task_weight": weight.detach(), **moe_logs}
         if self.grad_clip > 0:
             logs["grad_norm"] = torch.nn.utils.clip_grad_norm_(
                 self._params, self.grad_clip)

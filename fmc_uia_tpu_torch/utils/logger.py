@@ -8,6 +8,7 @@ same columns:
   train_losses.csv        per-task per-epoch loss mean/std/min/max/count
   val_metrics.csv         long-format per-task per-epoch metrics
   training_summary.csv    per-epoch averages (+ lr, epoch_time)
+  moe_stats.csv           per-expert importance/load by task (MoE runs)
   config.yaml             config snapshot (JSON text, which YAML reads)
   final_summary.json/.txt best epoch/score
   best_model_summary.txt  best-model train-set evaluation
@@ -70,8 +71,8 @@ class TrainingLogger:
     # -- per-epoch logging -------------------------------------------------
     def log_epoch(self, epoch: int, train_losses: Dict[str, List[float]],
                   val_rows: Optional[List[Dict]], learning_rate: float,
-                  epoch_time: float, adaptive_weights: Optional[Dict] = None
-                  ) -> None:
+                  epoch_time: float, adaptive_weights: Optional[Dict] = None,
+                  moe_stats: Optional[Dict] = None) -> None:
         entry: Dict = {
             "epoch": epoch,
             "learning_rate": float(learning_rate),
@@ -91,6 +92,8 @@ class TrainingLogger:
             entry["val_metrics"] = [dict(r) for r in val_rows]
         if adaptive_weights:
             entry["adaptive_weights"] = adaptive_weights
+        if moe_stats:
+            entry["moe_stats"] = moe_stats
         self.history.append(entry)
         self._rewrite_files()
 
@@ -98,7 +101,7 @@ class TrainingLogger:
         with open(self.experiment_dir / "training_history.json", "w") as f:
             json.dump(self.history, f, indent=2, default=float)
 
-        loss_rows, summary_rows, val_rows = [], [], []
+        loss_rows, summary_rows, val_rows, moe_rows = [], [], [], []
         for entry in self.history:
             epoch = entry["epoch"]
             means = []
@@ -122,6 +125,16 @@ class TrainingLogger:
                         "metric": metric,
                         "value": float(value),
                     })
+            for scope_name, scope in (entry.get("moe_stats") or {}).items():
+                for key, stats in scope.items():
+                    for expert, (imp, load) in enumerate(zip(
+                            stats.get("importance", []),
+                            stats.get("load", []))):
+                        moe_rows.append({
+                            "epoch": epoch, "scope": scope_name, "key": key,
+                            "task_name": stats.get("task_name", ""),
+                            "expert": expert, "importance": float(imp),
+                            "load": float(load)})
         d = self.experiment_dir
         _write_csv(d / "train_losses.csv", ["epoch", "task_id", "mean", "std",
                                             "min", "max", "count"], loss_rows)
@@ -132,6 +145,10 @@ class TrainingLogger:
             _write_csv(d / "val_metrics.csv", ["epoch", "task_id",
                                                "task_name", "metric",
                                                "value"], val_rows)
+        if moe_rows:
+            _write_csv(d / "moe_stats.csv", ["epoch", "scope", "key",
+                                             "task_name", "expert",
+                                             "importance", "load"], moe_rows)
 
     # -- one-shot artifacts ------------------------------------------------
     def save_config(self, config_dict: Dict) -> None:

@@ -111,7 +111,7 @@ def test_unported_families_raise():
 
     for over in ({"model": {"encoder": {"name": "resnet_tiny"}}},
                  {"model": {"encoder": {"name": "swin_nano"},
-                            "moe": {"enabled": True}}},
+                            "task_prompt": {"enabled": True}}},
                  {"model": {"encoder": {"name": "swin_nano"},
                             "heads": {"detection": {"type": "grid"}}}}):
         cfg = Config(config_dict=make_tiny_config(**over).config)

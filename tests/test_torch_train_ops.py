@@ -433,19 +433,24 @@ def test_lr_scheduler_matches_jax(sched):
 
 
 def test_trainer_unported_options_raise():
-    """Accumulation, MoE, meshes, burst mode and warm-compile name their
-    ROADMAP item; every parameter carries a zeroed grad from the start."""
+    """Accumulation, meshes, burst mode and warm-compile name their
+    ROADMAP item, and so does the MoE's ragged dispatch where the Trainer's
+    model is built; every parameter carries a zeroed grad from the
+    start."""
     from fmc_uia_tpu_torch.models import build_model
     from fmc_uia_tpu_torch.train import Trainer
 
     enc = {"encoder": {"name": "swin_nano", "window_size": 8}}
     cfg = Config(config_dict=make_tiny_config(model=enc).config)
     model = build_model(cfg, device="cpu")
-    for over in ({"model": enc, "training": {"accumulation_steps": 2}},
-                 {"model": dict(enc, moe={"enabled": True})}):
-        bad = Config(config_dict=make_tiny_config(**over).config)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(bad, model, device="cpu")
+    bad = Config(config_dict=make_tiny_config(
+        model=enc, training={"accumulation_steps": 2}).config)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(bad, model, device="cpu")
+    ragged = Config(config_dict=make_tiny_config(model=dict(
+        enc, moe={"enabled": True, "dispatch": "ragged"})).config)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(ragged, build_model(ragged, device="cpu"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, model, device="cpu", mesh=object())
     trainer = Trainer(cfg, model, device="cpu")

@@ -50,6 +50,26 @@ TRAIN_OVERRIDES = {
     "data": {"augmentation": {"train": {"random_brightness_contrast": 0.0,
                                         "gauss_noise": 0.0}}},
 }
+# TRAIN_OVERRIDES with the dense MoE on encoder stages 2 and 3 (C = 128 at
+# 4², 256 at 2²): 4 experts, top-2, a task embedding, the balance loss
+MOE_OVERRIDES = {
+    "model": dict(TRAIN_OVERRIDES["model"], moe={
+        "enabled": True, "num_experts": 4, "top_k": 2,
+        "stage_indices": [2, 3], "expert_hidden": 8, "router_hidden": 16,
+        "use_task_embedding": True, "task_embedding_dim": 8,
+        "balance_loss_weight": 0.05, "use_residual": True,
+        "dropout": 0.0}),
+    "data": TRAIN_OVERRIDES["data"],
+}
+# MOE_OVERRIDES with baseline.yaml's separate cls and reg FPNs, which
+# those heads read
+SEPARATE_FPN_OVERRIDES = {
+    "model": dict(MOE_OVERRIDES["model"], decoder=dict(
+        TRAIN_OVERRIDES["model"]["decoder"],
+        separate_classification_fpn=True, separate_regression_fpn=True,
+        use_fpn_for_classification=True, use_fpn_for_regression=True)),
+    "data": TRAIN_OVERRIDES["data"],
+}
 TRAIN_TASKS = {"segmentation": "T2B_organ_b",
                "classification": "T1_planes", "detection": "T4_box",
                "Regression": "T5_points"}
@@ -72,6 +92,13 @@ def train_batch_np(rng, ttype, registry, B=2, S=64):
     tid = TRAIN_TASKS[ttype]
     return {"image": image, "label": label, "task_id": tid,
             "task_index": registry[tid].global_index, "task_type": ttype}
+
+
+def _host(v):
+    """A log value on the host: a float for a scalar, else an f32 array
+    (the MoE's per-expert importance and load)."""
+    a = np.asarray(v.detach() if hasattr(v, "detach") else v, np.float32)
+    return float(a) if a.ndim == 0 else a
 
 
 def train_step_pair(ttypes, seed=5, overrides=None, size=64):
@@ -147,18 +174,19 @@ def train_step_pair(ttypes, seed=5, overrides=None, size=64):
             np.asarray, new_state.opt_state["model"])
         logs = trainer.compute_grads(batch)
         out[ttype] = dict(
-            jlogs={k: float(v) for k, v in jlogs.items()},
+            jlogs={k: _host(v) for k, v in jlogs.items()},
             jgrads=jax_leaves_to_port(jgrads_tree), jgrads_tree=jgrads_tree,
-            logs={k: float(v) for k, v in logs.items()},
+            logs={k: _host(v) for k, v in logs.items()},
             grads={n: p.grad.numpy().copy()
                    for n, p in model.named_parameters()},
             params=params, jcfg=jcfg, cfg=cfg, model=model)
     return out
 
 
-def check_train_step(r):
+def check_train_step(r, leaf_tol=lambda name: 1e-4):
     """The loss and the grad norm within 1e-5 relative, and every gradient
-    leaf within 1e-4 of its largest magnitude."""
+    leaf within ``leaf_tol(name)`` (default 1e-4) of its largest
+    magnitude (None: the caller holds that leaf itself)."""
     for key in ("total_loss", "raw_loss", "grad_norm"):
         ref, got = r["jlogs"][key], r["logs"][key]
         assert abs(got - ref) <= 1e-5 * abs(ref), (key, got, ref)
@@ -169,6 +197,121 @@ def check_train_step(r):
         got = r["grads"][name]
         assert got.shape == ref.shape, name
         err = float(np.abs(got - ref).max())
-        if not err <= 1e-4 * float(np.abs(ref).max()):
+        tol = leaf_tol(name)
+        if tol is not None and not err <= tol * float(np.abs(ref).max()):
             bad.append((name, err, float(np.abs(ref).max())))
+    assert not bad, bad[:5]
+
+
+ROUTER_LEAVES = ("router_fc1.", "router_fc2.", "task_embed")
+
+
+def check_moe_logs(r, top_k=2):
+    """The MoE step logs: ``moe_aux`` (the blocks' balance losses summed)
+    within 1e-5 relative, ``moe_importance`` (mean over blocks) within
+    1e-6, ``moe_load`` equal; importance sums to 1 and load to top_k."""
+    ref, got = r["jlogs"], r["logs"]
+    assert set(got) == set(ref), (set(got), set(ref))
+    assert abs(got["moe_aux"] - ref["moe_aux"]) <= 1e-5 * abs(ref["moe_aux"])
+    assert np.abs(got["moe_importance"] - ref["moe_importance"]).max() <= 1e-6
+    np.testing.assert_array_equal(got["moe_load"], ref["moe_load"])
+    assert abs(float(got["moe_importance"].sum()) - 1.0) <= 1e-5
+    assert abs(float(got["moe_load"].sum()) - top_k) <= 1e-6
+
+
+def check_moe_train_step(r, zero_blocks=()):
+    """``check_train_step`` for a step with MoE blocks. The router leaves
+    (``router_fc1/2``, ``task_embed``) are held to 1e-3 of their largest
+    magnitude: their grad is a sum over B·H·W·C of the expert outputs
+    times the output's grad, pulled back through the top-k renormalisation
+    and the softmax, and it cancels, so f32 rounding moves it further than
+    any other leaf's (the port's own router grads move by up to 8e-4 of
+    their max when every weight is perturbed by 1e-7 relative; the other
+    leaves by < 1e-4). In ``zero_blocks`` (``moe_stage{i}``) the router
+    leaves' exact grad is zero, and both sides must be within 1e-8 of it:
+    the step's head does not read that block's output, and every sample
+    picked the same experts, so its balance loss is the constant E (the
+    renormalised gates of the chosen experts sum to 1)."""
+    def router(name):
+        return name.startswith("moe_stage") and any(
+            k in name for k in ROUTER_LEAVES)
+
+    zero = [n for n in r["jgrads"]
+            if router(n) and n.split(".")[0] in zero_blocks]
+    for name in zero:
+        top = max(np.abs(r["grads"][name]).max(),
+                  np.abs(r["jgrads"][name]).max())
+        assert top <= 1e-8, (name, top)
+    check_train_step(r, lambda name: (None if name in zero else
+                                      1e-3 if router(name) else 1e-4))
+
+
+def constant_unread_blocks(r, ttype):
+    """The MoE blocks of step ``r`` whose router grads are exactly zero
+    (``check_moe_train_step``'s ``zero_blocks``): the head of ``ttype``
+    reads the last encoder stage only (no FPN), and every sample of the
+    step's batch picked the same experts in the block (its load all 0 or
+    1), found by the port's forward on that batch."""
+    import torch
+
+    from fmc_uia_tpu_torch.ops.image import normalize_images
+
+    model, cfg = r["model"], r["cfg"]
+    if model._needs_fpn(ttype):
+        return ()
+    b = train_batch_np(np.random.RandomState(4), ttype, model.registry,
+                       S=cfg.image_size)
+    x = normalize_images(torch.from_numpy(b["image"]),
+                         cfg.get("data.augmentation.normalize.mean"),
+                         cfg.get("data.augmentation.normalize.std"))
+    with torch.no_grad():
+        _, inter = model(x, ttype, torch.tensor(b["task_index"]),
+                         return_intermediates=True)
+    last = len(model.encoder.out_channels) - 1
+    return tuple(f"moe_stage{i}" for i, load in zip(model.moe_stages,
+                                                   inter["moe_load"])
+                 if i != last and set(load.tolist()) <= {0.0, 1.0})
+
+
+def check_optimizer_update(r, lr=1e-3):
+    """One grouped-AdamW update from the JAX step's (clipped) grads on both
+    sides: optax ``build_optimizer`` on the JAX tree, the port's
+    ``build_optimizer`` on the bridged model; every updated leaf within
+    1e-6 of its largest magnitude, and every leaf with a nonzero grad
+    moved."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    import torch
+
+    from fmc_uia_tpu.train import build_optimizer as jax_build_optimizer
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.train import build_optimizer
+    from fmc_uia_tpu_torch.utils.convert import (
+        jax_leaves_to_port,
+        load_jax_params,
+    )
+
+    tree = jax.tree_util.tree_map
+    jparams = {"model": tree(jnp.asarray, r["params"])}
+    tx = jax_build_optimizer(r["jcfg"], jparams)
+    upd, _ = tx.update({"model": tree(jnp.asarray, r["jgrads_tree"])},
+                       tx.init(jparams), jparams)
+    new = optax.apply_updates(jparams, tree(lambda u: -lr * u, upd))
+    ref = jax_leaves_to_port(tree(np.asarray, new["model"]))
+    model = build_model(r["cfg"], r["model"].registry, device="cpu")
+    load_jax_params(model, r["params"])
+    opt = build_optimizer(r["cfg"], model)
+    for name, p in model.named_parameters():
+        p.grad = torch.from_numpy(r["jgrads"][name].copy())
+    opt.step(lr)
+    old = jax_leaves_to_port(r["params"])
+    bad = []
+    for name, p in model.named_parameters():
+        got = p.detach().numpy()
+        err = float(np.abs(got - ref[name]).max())
+        if not err <= 1e-6 * float(np.abs(ref[name]).max()):
+            bad.append((name, err))
+        if np.abs(r["jgrads"][name]).max() > 0:
+            assert not np.array_equal(got, old[name]), name
     assert not bad, bad[:5]
