@@ -103,7 +103,8 @@ pass):
 4. serving — ``StreamingPredictor(max_batch=8)`` after ``warmup()``
    serves a closed loop of 64 outstanding requests, round-robin over the
    4 task types, for at least 10 s, three times; every result is held
-   against ``Predictor``; per run img/s, p50/p99 and the dispatch stats,
+   against ``Predictor`` (at B=8, or where it differs there, at a padded
+   size the run dispatched); per run img/s, p50/p99 and the dispatch stats,
    and their median and spread over the runs. The launch counters are
    zeroed just before the first request and read just after the last:
    this is the main path's count.
@@ -120,7 +121,12 @@ pass):
    bright or dark image to classify), whose last three losses must average
    below the first; one step's grads in f32 on the card against f32 on the
    CPU (B=1, 256², the same batches, augmentation and dropout off), every
-   leaf within 1e-3 of its largest magnitude.
+   leaf within 1e-3 of its largest magnitude. Where the two runs put a
+   value on different sides of a kink (a ReLU input of the other sign, a
+   deformable sample in another bilinear cell), the CPU takes the card's
+   side there (``KinkAlign``); the gap between the two sides' values
+   must be rounding, within 1e-4 of their range, and the kinks taken are
+   counted and printed. The same check ends phases 8, 9 and 10.
 6. fit — the flagship trained from disk: a 27-task synthetic dataset of
    576x768 PNG frames (30 per task) written by the port's generator into a
    temporary directory; ``fit`` with ``data.fused_preprocess`` for 2
@@ -188,11 +194,40 @@ pass):
    ``Predictor``'s on the loaded ``best_model.pt``, class ids equal,
    boxes and points within 1e-4 of the frame size. Prints img/s of the
    epoch loops and the seconds of ``predict``.
+10. spm — the DINOv3 ViT-L/16 SPM-interaction preset
+   (``dinov3_spm_config_dict``: ``configs/vit_large_patch16_dinov3.yaml``
+   as it stands; ViT-L at 224², N = 201 tokens, so the einsum attention
+   path and no K4; the SPM pyramid, four interaction blocks with the
+   deformable cross-attention's bilinear gather; ``freeze_dino``, 27
+   tasks; random weights from a seed). (a) bf16 through ``Predictor`` at
+   B=8 against f32 on the card (phase 3's rules) and one 224² image f32
+   card vs CPU (1e-3); no kernel launches (K4f and K4b 0). (b) one closed
+   loop of 64 outstanding requests through ``StreamingPredictor(
+   max_batch=8)`` for >= 10 s, held against ``Predictor``: img/s,
+   p50/p99. (c) phase 5 at B=64, 224²: img/s, ms a step per type, peak
+   memory, enqueue ms, no kernel launches, one profiled step per type with
+   the ``spm_adapter`` range's share of the device time (forward: the
+   range; backward: the autograd nodes with its ops' sequence numbers;
+   ``chiprun_out/profile_spm_train_step.txt``), the fixed-batch falling
+   loss, and f32 grads card vs CPU at B=1 224², every leaf within 1e-3 of
+   its largest magnitude (the frozen backbone, ``offset_proj`` and
+   ``vit_proj*`` included; phase 5's kink rule; should ``offset_proj``
+   fail, the count of sample coordinates within 1e-6 of an integer pixel
+   is printed first).
+   (d) phase 9d's ``fit`` -> ``predict`` on this preset, on phase 9d's
+   dataset (K3 once a train step on its chunk kernel, no other kernel). (e) ``python -m
+   fmc_uia_tpu_torch.serve`` on the fit's experiment dir in a subprocess
+   (``--port 0``): ``/healthz``, ``/v1/tasks``, one PNG frame per task
+   type answered as ``Predictor`` answers it (masks decoded equal, class
+   ids equal, boxes and points within 1e-4 of the frame), 32 concurrent
+   requests counted by ``/v1/stats``; the server is killed at the end.
 
 The line before the card's name is ``{"kernels": [...]}`` (K1f/K2f
 launches from phase 4, K1b/K2b from phase 5, K3 from phase 6, K4f from
 phase 7, K4b from phase 8; phase 9 checks its own counts and leaves the
-line as it was); the last line is ``{"ok": true, "device": {...}}``.
+line as it was; ``launches_spm``: each kernel's launches over phase 10's
+serving run, timed training and fit); the last line is ``{"ok": true,
+"device": {...}}``.
 Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
 
     python3 chip_smoke.py --staged-train
@@ -207,6 +242,12 @@ builds K3 alone and times phase 2c's three cases (no checks), one JSON
 line. Copied into the root of another tree of the port, either mode
 times that tree the same way, so that two trees compare within one call
 on one card.
+
+    python3 chip_smoke.py --kinks
+
+runs the SPM preset's grad check (phase 10c) with the CPU taking from
+the card no kink, the ReLU signs, the bilinear cells, or both, and
+prints each way's worst leaf per type (no checks), one JSON line.
 """
 
 from __future__ import annotations
@@ -1598,31 +1639,57 @@ def serve_closed_loop(svc, pool, tids):
     return len(results), wall, lat, results
 
 
-def check_served(results, refs, tids, registry) -> None:
-    """Every served result against Predictor's on the same image: ids
-    equal except a few seg pixels (another batch grouping or padded size
-    may pick another cuDNN algorithm), boxes/points within 2e-2."""
+def check_served(results, pred, pool, tids, refs, sizes):
+    """Every served result against ``pred``'s (the Predictor's) on the
+    same image: ``refs`` holds each pool image's result in batches of
+    BATCH. In bf16 a forward's roundings, and so a random model's decoded
+    answer at a near tie, change with the batch size (with the size they
+    do not depend on the other images), so a result that differs from
+    its ref is also held against the image repeated to each padded size
+    the run's dispatches used (``sizes``, from the batcher's stats), and
+    its best agreement counts. Ids equal except a few seg pixels,
+    boxes/points within 2e-2. Returns how many results differ from the
+    Predictor's at B=8 (for information)."""
     import numpy as np
 
-    seg_agree, seg_n = 0.0, 0
-    for j, got in results:
-        ref = refs[j]
-        kind = registry[tids[j]].task_name
+    registry = pred.registry
+    at_size = {}
+
+    def agree(kind, got, ref):
         if kind == "segmentation":
-            seg_agree += float((got == ref).mean())
+            return float((got == ref).mean())
+        if kind == "classification":
+            return float(np.array_equal(got, ref))
+        return float(np.allclose(got, ref, atol=2e-2))
+
+    seg_agree, seg_n, other = 0.0, 0, 0
+    for j, got in results:
+        kind = registry[tids[j]].task_name
+        best = agree(kind, got, refs[j])
+        if best < 1.0:
+            other += 1
+            for size in sorted(set(sizes) - {BATCH}):
+                if (j, size) not in at_size:
+                    at_size[(j, size)] = pred.predict_images(
+                        np.repeat(pool[j:j + 1], size, axis=0), tids[j])[0]
+                best = max(best, agree(kind, got, at_size[(j, size)]))
+        if kind == "segmentation":
+            seg_agree += best
             seg_n += 1
-        elif kind == "classification":
-            if not np.array_equal(got, ref):
-                fail(f"serving {tids[j]}: class id differs from Predictor")
-        elif not np.allclose(got, ref, atol=2e-2):
-            fail(f"serving {tids[j]}: max diff {np.abs(got - ref).max()}")
+        elif best < 1.0:
+            fail(f"serving {tids[j]}: {kind} answer differs from Predictor "
+                 f"at every padded size {sorted(sizes)} (at B={BATCH} by "
+                 f"{np.abs(np.asarray(got, float) - refs[j]).max()})")
     if seg_n and seg_agree / seg_n < 0.999:
         fail(f"serving: seg masks agree on {seg_agree / seg_n:.5f} < 0.999")
+    return {"differ_from_batch_8": other}
 
 
-def profile_forward(pred, imgs, tid, out_dir, report) -> None:
+def profile_forward(pred, imgs, tid, out_dir, report, key="profile") -> None:
     """Host cost of enqueueing one forward with the GPU idle, and the
-    host-side op table of one synced forward (torch.profiler)."""
+    host-side op table of one synced forward (torch.profiler), with the
+    device time of the forward; into ``report[key]`` and
+    ``chiprun_out/<key>_forward.txt`` (``profile_forward.txt``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1639,7 +1706,7 @@ def profile_forward(pred, imgs, tid, out_dir, report) -> None:
         pred.predict_images(imgs, tid)
     avg = prof.key_averages()
     table = avg.table(sort_by="self_cpu_time_total", row_limit=40)
-    with open(os.path.join(out_dir, "profile_forward.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{key}_forward.txt"), "w") as f:
         f.write(table)
     watch = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "aten::item",
              "aten::_local_scalar_dense", "cudaHostAlloc", "cudaMalloc",
@@ -1647,11 +1714,15 @@ def profile_forward(pred, imgs, tid, out_dir, report) -> None:
     counts = {e.key: [e.count, round(e.self_cpu_time_total / 1e3, 3)]
               for e in avg if e.key in watch}
     n_ops = sum(e.count for e in avg if e.key.startswith("aten::"))
-    report["profile"] = {"enqueue_ms_idle_gpu": enq, "calls": counts,
-                         "aten_ops": n_ops}
-    log(f"[profile] enqueue of one B={BATCH} forward with the GPU idle: "
-        f"median {enq[2]:.2f} ms; {n_ops} aten ops; [count, self ms]: "
-        f"{counts}")
+    dev_ms = sum(float(getattr(e, "self_device_time_total", 0.0)
+                       or getattr(e, "self_cuda_time_total", 0.0))
+                 for e in avg if str(getattr(e, "device_type", "")
+                                     ).endswith("CUDA")) / 1e3
+    report[key] = {"enqueue_ms_idle_gpu": enq, "calls": counts,
+                   "aten_ops": n_ops, "device_ms": dev_ms}
+    log(f"[{key}] enqueue of one B={BATCH} forward with the GPU idle: "
+        f"median {enq[2]:.2f} ms; device time of one forward {dev_ms:.2f} "
+        f"ms; {n_ops} aten ops; [count, self ms]: {counts}")
     for line in table.splitlines()[:16]:
         log("  " + line)
 
@@ -1662,6 +1733,9 @@ def profile_forward(pred, imgs, tid, out_dir, report) -> None:
 TRAIN_S = 10.0       # the timed round-robin, at least this long
 FIXED_STEPS = 10     # steps on one fixed batch per type (the loss falls)
 GRAD_IMAGE = 256     # the card-vs-CPU gradient check: B=1 at this size
+# the grad check's kinks: the largest gap between the card's and the CPU's
+# values over their largest magnitude, a few times the sound runs' largest
+KINK_GAP = {"relu": 1e-4, "coords": 1e-4}
 KERNEL_GROUPS = (    # kernel-name fragments of the profile's shares
     ("K4f", ("vitfa::fwd_",)),
     ("K4b", ("vitfa::dkv_", "vitfa::dq_", "vitfa::rowdot")),
@@ -1746,14 +1820,12 @@ def learnable_batches(registry, B, S, seed):
     return out
 
 
-def moe_device_us(events):
-    """Device us of the MoE blocks in a profile: the forward's kernels
-    under the ``moe_block`` ranges (``record_function`` in
-    ``MoEConvBlock.forward``), and the backward's, the autograd nodes
-    ("autograd::engine::evaluate_function: ...") whose sequence number is
-    one of those forward ops' (the engine tags each node with its forward
-    op's)."""
-    from fmc_uia_tpu_torch.models.conditioning import MOE_RANGE
+def range_device_us(events, range_name):
+    """Device us under the ``record_function`` ranges named
+    ``range_name`` in a profile: the forward's kernels under the ranges,
+    and the backward's, the autograd nodes ("autograd::engine::
+    evaluate_function: ...") whose sequence number is one of those forward
+    ops' (the engine tags each node with its forward op's)."""
 
     def dev_us(e):
         t = getattr(e, "device_time_total", None)
@@ -1762,7 +1834,7 @@ def moe_device_us(events):
     def is_cpu(e):
         return str(getattr(e, "device_type", "")).endswith("CPU")
 
-    ranges = [e for e in events if e.name == MOE_RANGE and is_cpu(e)]
+    ranges = [e for e in events if e.name == range_name and is_cpu(e)]
     seqs, stack = set(), list(ranges)
     while stack:
         e = stack.pop()
@@ -1815,18 +1887,27 @@ def profile_train_round(trainer, batches, out_dir, report, key):
     log(f"[{key}] profile of one step per type: {total / 1e3:.1f} ms of "
         f"device time; share " + ", ".join(
             f"{g} {v / max(total, 1e-9):.3f}" for g, v in shares.items()))
-    moe = moe_device_us(prof.events())
-    if moe["ranges"]:
-        share = {k: moe[k] / max(total, 1e-9) for k in ("fwd_us", "bwd_us")}
-        report[key]["profile"]["moe"] = dict(moe, share_fwd=share["fwd_us"],
-                                             share_bwd=share["bwd_us"])
-        log(f"[{key}] MoE blocks ({moe['ranges']} profiler ranges): "
-            f"forward {moe['fwd_us'] / 1e3:.2f} ms = share "
-            f"{share['fwd_us']:.3f}, backward {moe['bwd_us'] / 1e3:.2f} ms "
-            f"= share {share['bwd_us']:.3f} ({moe['bwd_nodes']} autograd "
+    from fmc_uia_tpu_torch.models.conditioning import MOE_RANGE
+    from fmc_uia_tpu_torch.models.encoders.adapters import SPM_RANGE
+
+    events = prof.events()
+    for rkey, rname, what, also in (
+            ("moe", MOE_RANGE, "MoE blocks", "the MoE's convolutions"),
+            ("spm_adapter", SPM_RANGE, "SPM-interaction adapter",
+             "its convolutions")):
+        rd = range_device_us(events, rname)
+        if not rd["ranges"]:
+            continue
+        share = {k: rd[k] / max(total, 1e-9) for k in ("fwd_us", "bwd_us")}
+        report[key]["profile"][rkey] = dict(
+            rd, share_fwd=share["fwd_us"], share_bwd=share["bwd_us"])
+        log(f"[{key}] {what} ({rd['ranges']} profiler ranges "
+            f"'{rname}'): forward {rd['fwd_us'] / 1e3:.2f} ms = share "
+            f"{share['fwd_us']:.3f}, backward {rd['bwd_us'] / 1e3:.2f} ms "
+            f"= share {share['bwd_us']:.3f} ({rd['bwd_nodes']} autograd "
             f"nodes linked by sequence number) of the round's device time; "
-            f"both {share['fwd_us'] + share['bwd_us']:.3f} (the MoE's "
-            f"convolutions also count in 'library gemm/conv' above)")
+            f"both {share['fwd_us'] + share['bwd_us']:.3f} ({also} also "
+            f"count in 'library gemm/conv' above)")
 
 
 def swin_preset():
@@ -2013,18 +2094,11 @@ def train_phase(name, smi, report, out_dir, preset, full=True):
     return launches
 
 
-def check_train_grads(report, preset):
-    """One step's grads in f32 on the card against f32 on the CPU, B=1 at
-    256² (or the preset's ``grad_image``), the same weights and batch
-    (``learnable_batches``), augmentation, dropout and drop path off:
-    every leaf within 1e-3 of its largest magnitude (kernel sums in another
-    order, cuDNN against CPU convolutions, TF32 off). One exception, MoE
-    only: the router leaves of a block whose output the step's head does
-    not read (stage 2 for cls and reg, which read the last stage alone)
-    have an exact grad of zero (at B=1 each block's balance loss is the
-    constant E: the one sample's renormalised gates sum to 1), so both
-    sides must be within 1e-6 of the step's largest grad magnitude of
-    it."""
+def grad_pair(preset):
+    """The grad check's pair: the preset's model in f32 on the card
+    (weights from ``grad_seed``) and a copy on the CPU, their Trainers,
+    and one ``learnable_batches`` batch per type at B=1, 256² (or the
+    preset's ``grad_image``), augmentation, dropout and drop path off."""
     import torch
 
     from fmc_uia_tpu_torch.config import Config
@@ -2049,16 +2123,43 @@ def check_train_grads(report, preset):
                        generator=gen)
     cpu = build_model(cfg, registry, dtype=torch.float32, device="cpu")
     cpu.load_state_dict(card.state_dict())
-    tc = Trainer(cfg, card, registry, device="cuda")
-    tp = Trainer(cfg, cpu, registry, device="cpu")
-    worst = {}
     # the learnable batches: with bench.py's random seg labels a seg grad
     # summed over every pixel nearly cancels, and its f32 rounding in
     # another order came to 8.7e-4 of its leaf's largest magnitude
+    return (card, cpu, Trainer(cfg, card, registry, device="cuda"),
+            Trainer(cfg, cpu, registry, device="cpu"),
+            learnable_batches(registry, 1, grad_image, seed=1))
+
+
+def check_train_grads(report, preset):
+    """One step's grads in f32 on the card against f32 on the CPU, B=1 at
+    256² (or the preset's ``grad_image``), the same weights and batch
+    (``learnable_batches``), augmentation, dropout and drop path off:
+    every leaf within 1e-3 of its largest magnitude (kernel sums in another
+    order, cuDNN against CPU convolutions, TF32 off). The CPU takes the
+    card's side at each kink the two runs put on different sides
+    (``KinkAlign``: a ReLU input of the other sign, a deformable sample in
+    another bilinear cell), and the gaps between the two sides' values
+    there must be rounding: within KINK_GAP of their range. One
+    exception, MoE only: the router leaves of a block whose output the
+    step's head does not read (stage 2 for cls and reg, which read the
+    last stage alone) have an exact grad of zero (at B=1 each block's
+    balance loss is the constant E: the one sample's renormalised gates
+    sum to 1), so both sides must be within 1e-6 of the step's largest
+    grad magnitude of it."""
+    card, cpu, tc, tp, batches = grad_pair(preset)
+    worst = {}
     last = len(card.encoder.out_channels) - 1
-    for t, b in learnable_batches(registry, 1, grad_image, seed=1).items():
-        lc = tc.compute_grads(b)
-        lp = tp.compute_grads(b)
+    for t, b in batches.items():
+        with KinkAlign(card) as at_c:
+            lc = tc.compute_grads(b)
+        with KinkAlign(cpu, at=at_c) as at_p:
+            lp = tp.compute_grads(b)
+        kinks = at_p.compare()
+        for kind, (gap, _, _, site) in kinks.items():
+            if not gap <= KINK_GAP[kind]:
+                fail(f"{t}: {kind} card vs CPU differ by {gap:.2e} of their "
+                     f"range at {site} (> {KINK_GAP[kind]:.0e})")
         rel, leaf = 0.0, None
         unread = () if card._needs_fpn(t) else tuple(
             f"moe_stage{i}." for i in card.moe_stages if i != last)
@@ -2077,22 +2178,36 @@ def check_train_grads(report, preset):
             err = float((pc.grad.cpu() - pp.grad).abs().max())
             top = float(pp.grad.abs().max())
             if not err <= 1e-3 * top:
+                if "offset_proj" in n:
+                    log(f"[{preset['key']}] sample positions within 1e-6 of"
+                        f" an integer pixel (near / all), CPU: "
+                        f"{at_p.near_integer()}")
+                log(f"[{preset['key']}] {t} kinks taken from the card: "
+                    f"{kinks}; ReLU sign changes by site: "
+                    f"{at_p.relu_flips()}")
                 fail(f"{t} grad {n}: card vs CPU err {err:.3e} > 1e-3 x "
                      f"{top:.3e}")
             if top > 0 and err / top > rel:
                 rel, leaf = err / top, n
         worst[t] = {"worst_err_over_max": rel, "worst_leaf": leaf,
                     "loss_card": float(lc["total_loss"]),
-                    "loss_cpu": float(lp["total_loss"])}
+                    "loss_cpu": float(lp["total_loss"]),
+                    "kinks": kinks, "relu_flips": at_p.relu_flips()}
         if unread:
             worst[t]["zero_leaves_max_over_grad_max"] = zero
         if "moe_aux" in lc:
             worst[t]["moe_aux_card_cpu"] = [float(lc["moe_aux"]),
                                             float(lp["moe_aux"])]
     report[preset["key"]]["grads_card_vs_cpu"] = worst
-    log(f"[{preset['key']}] f32 grads card vs CPU, B=1 {grad_image}²: worst "
+    log(f"[{preset['key']}] f32 grads card vs CPU, B=1 "
+        f"{preset.get('grad_image', GRAD_IMAGE)}²: worst "
         f"leaf err / leaf max by type " + ", ".join(
             f"{t} {v['worst_err_over_max']:.2e} ({v['worst_leaf']})"
+            for t, v in worst.items()))
+    log(f"[{preset['key']}] kinks the CPU took from the card (gap / range, "
+        f"on the other side / all): " + "; ".join(
+            f"{t} " + ", ".join(f"{k} {g:.2e} {n}/{m}"
+                                for k, (g, n, m, _) in v["kinks"].items())
             for t, v in worst.items()))
 
 
@@ -2329,14 +2444,16 @@ def serve_once(pred, rng, per_dispatch, what):
                                                   tid)):
                 refs[j] = res
     torch.cuda.synchronize()
-    before = svc.stats["dispatches"]
+    before = dict(svc.stats, by_size=dict(svc.stats["by_size"]))
     for c, _ in per_dispatch:
         c.launches = 0
     n_done, wall, lat, results = serve_closed_loop(svc, pool, tids)
     launches = {c.__name__: c.launches for c, _ in per_dispatch}
-    dispatches = svc.stats["dispatches"] - before
+    dispatches = svc.stats["dispatches"] - before["dispatches"]
+    used = [k for k, v in svc.stats["by_size"].items()
+            if v > before["by_size"].get(k, 0)]
     svc.close()
-    check_served(results, refs, tids, registry)
+    sizes = check_served(results, pred, pool, tids, refs, used)
     want = {c.__name__: n * dispatches for c, n in per_dispatch}
     if launches != want or dispatches == 0:
         fail(f"{what} serving launches {launches} != {want} ({dispatches} "
@@ -2345,79 +2462,100 @@ def serve_once(pred, rng, per_dispatch, what):
     return dict(requests=n_done, wall_s=wall, img_s=n_done / wall,
                 p50_ms=float(np.percentile(ms, 50)),
                 p99_ms=float(np.percentile(ms, 99)), dispatches=dispatches,
-                launches=launches)
+                launches=launches, **sizes)
 
 
 # ---------------------------------------------------------------------------
-# phase 7: DINOv3 serving
+# phase 7: DINOv3 serving (and phase 10a-b, the SPM preset's)
 # ---------------------------------------------------------------------------
-def dino_serving_phase(name, smi, report):
-    """The DINOv3 ViT-B/8 512² preset (random weights from a seed) in bf16
-    through ``Predictor`` at B=8: K4f 12 launches a forward; held against
-    f32 on the card at B=8 and f32 on the CPU for one 256² image (N =
-    1029: the K4 path still); then one closed loop of 64 outstanding
-    requests through ``StreamingPredictor`` for >= 10 s, every result
-    held against ``Predictor``. Returns the serving run's launches."""
+def dino_serving_preset():
+    """Phase 7: the DINOv3 ViT-B/8 512² preset, N = 4,101 tokens: K4f
+    12 launches a forward; card vs CPU on one 256² crop (N = 1029, the K4
+    path still)."""
+    from fmc_uia_tpu_torch.flagship import dino_patch8_config_dict
+    from fmc_uia_tpu_torch.ops import vit_attention as va
+
+    return dict(key="dino_serving", tag="[dino]",
+                config=dino_patch8_config_dict,
+                what=f"DINOv3 ViT-B/8 {IMAGE}² (N = {K4_N})", image=IMAGE,
+                per_forward=((va.global_attention, 12),
+                             (va.global_attention_backward, 0)),
+                cpu_image=GRAD_IMAGE, seed=3)
+
+
+def vit_serving_phase(name, smi, report, preset, out_dir):
+    """A ViT preset (random weights from a seed) in bf16 through
+    ``Predictor`` at B=8: each kernel of ``per_forward`` ((kernel,
+    launches a forward), ...) must launch that many times a forward; held
+    against f32 on the card at B=8 and f32 on the CPU for one image
+    cropped to ``cpu_image``; then one closed loop of 64 outstanding
+    requests through ``StreamingPredictor`` for >= 10 s, every result held
+    against ``Predictor``, the same launches a dispatch. Returns the
+    serving run's launches by kernel."""
     import numpy as np
     import torch
 
     from fmc_uia_tpu_torch.config import Config
     from fmc_uia_tpu_torch.export import Predictor
-    from fmc_uia_tpu_torch.flagship import (
-        SERVING_TASKS,
-        dino_patch8_config_dict,
-    )
+    from fmc_uia_tpu_torch.flagship import SERVING_TASKS
     from fmc_uia_tpu_torch.models import build_model
-    from fmc_uia_tpu_torch.ops import vit_attention as va
     from fmc_uia_tpu_torch.ops.image import normalize_images
     from fmc_uia_tpu_torch.tasks import TaskRegistry
 
-    cfg = Config(config_dict=dino_patch8_config_dict())
+    key, tag, S = preset["key"], preset["tag"], preset["image"]
+    per_forward = preset["per_forward"]
+    cfg = Config(config_dict=preset["config"]())
     registry = TaskRegistry.from_config(cfg)
     mean = cfg.get("data.augmentation.normalize.mean")
     std = cfg.get("data.augmentation.normalize.std")
     model = build_model(cfg, registry, dtype=torch.bfloat16, device="cuda",
                         generator=torch.Generator().manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
-    pred = Predictor(model, registry, mean, std, IMAGE, device="cuda")
-    rng = np.random.RandomState(3)
-    imgs = rng.randint(0, 256, (BATCH, IMAGE, IMAGE, 3)).astype(np.uint8)
+    pred = Predictor(model, registry, mean, std, S, device="cuda")
+    rng = np.random.RandomState(preset["seed"])
+    imgs = rng.randint(0, 256, (BATCH, S, S, 3)).astype(np.uint8)
     for tid in SERVING_TASKS:  # first use: allocator, cuDNN heuristics
         pred.predict_images(imgs, tid)
     torch.cuda.synchronize()
-    va.global_attention.launches = 0
+    for c, _ in per_forward:
+        c.launches = 0
     outs = {}
     t0 = time.perf_counter()
     for tid in SERVING_TASKS:
         outs[tid] = pred.predict_images(imgs, tid)
     fwd_s = (time.perf_counter() - t0) / len(SERVING_TASKS)
-    got = va.global_attention.launches
-    if got != 12 * len(SERVING_TASKS):
-        fail(f"DINOv3 K4f launches {got} != 12 x {len(SERVING_TASKS)}")
+    n = len(SERVING_TASKS)
+    got = {c.__name__: c.launches for c, _ in per_forward}
+    want = {c.__name__: k * n for c, k in per_forward}
+    if got != want:
+        fail(f"{key}: launches {got} != {want} over {n} forwards")
     rep = {"params_M": n_params / 1e6, "fwd_ms_b8": 1e3 * fwd_s,
-           "launches_per_forward": got / len(SERVING_TASKS)}
-    log(f"[dino] DINOv3 ViT-B/8 {IMAGE}² (N = {K4_N}), {n_params / 1e6:.1f} M"
-        f" params: {len(SERVING_TASKS)} Predictor forwards at B={BATCH}, "
-        f"K4f launches {got}; {1e3 * fwd_s:.1f} ms per forward (host "
-        f"clock, synced)")
+           "launches_per_forward": {k: v / n for k, v in got.items()}}
+    log(f"{tag} {preset['what']}, {n_params / 1e6:.1f} M params: {n} "
+        f"Predictor forwards at B={BATCH}, launches {got}; "
+        f"{1e3 * fwd_s:.1f} ms per forward (host clock, synced)")
     model32 = build_model(cfg, registry, dtype=torch.float32, device="cuda")
     model32.load_state_dict(model.state_dict())
     model_cpu = build_model(cfg, registry, dtype=torch.float32,
                             device="cpu")
     model_cpu.load_state_dict(model.state_dict())
     x_pre = normalize_images(torch.from_numpy(imgs), mean, std)
-    small = x_pre[:1, :GRAD_IMAGE, :GRAD_IMAGE].contiguous()
+    c = preset["cpu_image"]
+    small = x_pre[:1, :c, :c].contiguous()
     cmp = {}
     for tid in SERVING_TASKS:
         spec = registry[tid]
         # tolerances as phase 3: bf16 vs f32 10 % of the largest output,
         # decoded ids equal except at near ties; f32 card vs CPU 1e-3
         ref, err = compare_models(model, model32, x_pre, spec, 0.1,
-                                  "DINOv3 bf16 vs f32")
+                                  f"{key} bf16 vs f32")
         _, err1 = compare_models(model32, model_cpu, small, spec, 1e-3,
-                                 "DINOv3 f32 card vs f32 cpu, 256²")
+                                 f"{key} f32 card vs f32 cpu, {c}²")
         p = torch.from_numpy(outs[tid])
-        entry = {"bf16_vs_f32_err": err, "f32_card_vs_cpu_err_256": err1}
+        top = (max(float(v.abs().max()) for v in ref.values())
+               if isinstance(ref, dict) else float(ref.abs().max()))
+        entry = {"bf16_vs_f32_err": err, "ref_max": top,
+                 f"f32_card_vs_cpu_err_{c}": err1}
         if spec.task_name in ("segmentation", "classification"):
             entry["disagree"], entry["near_ties"] = near_tie_ok(
                 p, ref, err, spec.num_classes)
@@ -2428,19 +2566,22 @@ def dino_serving_phase(name, smi, report):
     rep["compare"] = cmp
     del model32, model_cpu
     torch.cuda.empty_cache()
+    if preset.get("profile"):
+        profile_forward(pred, imgs, SERVING_TASKS[0], out_dir, report,
+                        f"{key}_profile")
 
-    sv = serve_once(pred, rng, ((va.global_attention, 12),), "DINOv3")
-    launches = sv["launches"]["global_attention"]
-    rep.update(sv, launches=launches)
-    report["dino_serving"] = rep
-    log(f"[dino] serving: {rep['requests']} requests in {rep['wall_s']:.2f}"
+    sv = serve_once(pred, rng, per_forward, key)
+    rep.update(sv)
+    report[key] = rep
+    log(f"{tag} serving: {rep['requests']} requests in {rep['wall_s']:.2f}"
         f" s: {rep['img_s']:.2f} img/s, e2e p50 {rep['p50_ms']:.1f} ms, p99 "
-        f"{rep['p99_ms']:.1f} ms, {rep['dispatches']} dispatches, K4f "
-        f"launches {launches}; results equal to Predictor's | {name} | "
-        f"{smi}")
+        f"{rep['p99_ms']:.1f} ms, {rep['dispatches']} dispatches, launches "
+        f"{sv['launches']}; results equal to Predictor's at a padded size "
+        f"the run used ({sv['differ_from_batch_8']} answered otherwise at "
+        f"B={BATCH}) | {name} | {smi}")
     del pred, model
     torch.cuda.empty_cache()
-    return launches
+    return sv["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2733,47 +2874,75 @@ def check_predictions(out_dir, root, model, registry, mean, std, size,
             "worst_box_point_err_over_size": worst}
 
 
-def submit_fit_phase(name, smi, report):
-    """Phase 9d: ``fit`` of the submit preset from 576x768 PNGs (27 tasks x
-    80, one made unreadable) for 2 epochs of 6 steps with K3, then
-    ``python -m fmc_uia_tpu_torch.predict`` in a subprocess on the
-    experiment dir over the same root, its files held against an
-    in-process ``Predictor`` on the loaded ``best_model.pt``."""
+def submit_fit_preset():
+    """Phase 9d: the submit preset's fit, K1f/K2f per step and eval
+    batch, K1b/K2b per step, K3 per step, ``moe_stats.csv``."""
+    from fmc_uia_tpu_torch.flagship import submit_config_dict
+    from fmc_uia_tpu_torch.ops import preprocess as pp
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+
+    def want(steps, evals):
+        return {sb.attention_branch: 24 * (steps + evals),
+                sb.attention_branch_backward: 24 * steps,
+                sb.mlp_branch: 4 * (steps + evals),
+                sb.mlp_branch_backward: 4 * steps,
+                pp.augment_normalize: steps}
+
+    return dict(key="submit_fit", tag="[submit-fit]",
+                config=submit_config_dict, want=want, moe=True, after=None)
+
+
+def write_fit_dataset(tmp, tasks):
+    """The from-disk data of phases 9d and 10d under ``tmp``/data: 576x768
+    PNGs, 80 frames a task (the port's generator, 8 threads), one made
+    unreadable. Returns (root, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fmc_uia_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    root = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda it: generate_synthetic_dataset(
+            root, tasks=[it[1]], samples_per_task=SUBMIT_PER_TASK,
+            image_hw=FIT_FRAME, seed=100 + it[0]), enumerate(tasks)))
+    with open(os.path.join(root, "images", SUBMIT_BAD_FRAME), "wb") as f:
+        f.write(b"not a png")
+    gen_s = time.perf_counter() - t0
+    log(f"[fit-data] wrote {len(tasks)} tasks x {SUBMIT_PER_TASK} frames "
+        f"{FIT_FRAME[0]}x{FIT_FRAME[1]} ({SUBMIT_BAD_FRAME} unreadable) in "
+        f"{gen_s:.1f} s")
+    return root, gen_s
+
+
+def fit_predict_phase(name, smi, report, preset, root):
+    """``fit`` of a 224² B=64 preset from ``root`` (``write_fit_dataset``:
+    576x768 PNGs, 27 tasks x 80, one unreadable) for 2 epochs of 6 steps
+    with K3, the launch counts of
+    ``preset['want'](steps, eval batches)``, then ``python -m
+    fmc_uia_tpu_torch.predict`` in a subprocess on the experiment dir over
+    the same root, its files held against an in-process ``Predictor`` on
+    the loaded ``best_model.pt``; ``preset['after']``, if any, runs on the
+    experiment dir before the temp dir goes."""
     import copy
     import shutil
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     import torch
 
     from fmc_uia_tpu_torch import checkpoint as ckpt_lib
     from fmc_uia_tpu_torch.config import Config
-    from fmc_uia_tpu_torch.data.synthetic import generate_synthetic_dataset
     from fmc_uia_tpu_torch.fit import fit
-    from fmc_uia_tpu_torch.flagship import submit_config_dict
     from fmc_uia_tpu_torch.models import build_model
     from fmc_uia_tpu_torch.ops import preprocess as pp
-    from fmc_uia_tpu_torch.ops import swin_block as sb
     from fmc_uia_tpu_torch.tasks import TaskRegistry
 
-    counters = (sb.attention_branch, sb.attention_branch_backward,
-                sb.mlp_branch, sb.mlp_branch_backward, pp.augment_normalize)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_submit_")
+    key, tag = preset["key"], preset["tag"]
+    counters = list(preset["want"](0, 0))
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{key}_")
     try:
-        d = submit_config_dict()
-        root = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(8) as ex:
-            list(ex.map(lambda it: generate_synthetic_dataset(
-                root, tasks=[it[1]], samples_per_task=SUBMIT_PER_TASK,
-                image_hw=FIT_FRAME, seed=100 + it[0]), enumerate(d["tasks"])))
-        with open(os.path.join(root, "images", SUBMIT_BAD_FRAME), "wb") as f:
-            f.write(b"not a png")
-        gen_s = time.perf_counter() - t0
-        log(f"[submit-fit] wrote {len(d['tasks'])} tasks x {SUBMIT_PER_TASK}"
-            f" frames {FIT_FRAME[0]}x{FIT_FRAME[1]} ({SUBMIT_BAD_FRAME} "
-            f"unreadable) in {gen_s:.1f} s")
+        d = preset["config"]()
         d["data"].update(root_path=root, fused_preprocess=True)
         d["experiment"].update(output_dir=os.path.join(tmp, "out"))
         d["training"].update(num_epochs=2, steps_per_epoch=SUBMIT_STEPS)
@@ -2793,31 +2962,31 @@ def submit_fit_phase(name, smi, report):
 
         steps = sum(e["steps"] for e in r["epoch_stats"])
         evals = r["eval_batches"]
-        want = {"attention_branch": 24 * (steps + evals),
-                "attention_branch_backward": 24 * steps,
-                "mlp_branch": 4 * (steps + evals),
-                "mlp_branch_backward": 4 * steps,
-                "augment_normalize": steps}
+        want = {c.__name__: n for c, n in preset["want"](steps,
+                                                          evals).items()}
         if launches != want:
-            fail(f"submit fit launches {launches} != {want}")
+            fail(f"{key} launches {launches} != {want}")
         if k3_kernels != {"vector": steps, "edge": 0}:
-            fail(f"submit fit: K3 kernels {k3_kernels}, not {steps} of the "
+            fail(f"{key}: K3 kernels {k3_kernels}, not {steps} of the "
                  "chunk kernel")
         if any(e["images"] != SUBMIT_BATCH * e["batches"]
                for e in r["epoch_stats"]):
-            fail(f"submit fit: train batches of fewer than {SUBMIT_BATCH} "
+            fail(f"{key}: train batches of fewer than {SUBMIT_BATCH} "
                  f"images: {r['epoch_stats']}")
         with open(os.path.join(exp, "training_history.json")) as f:
             hist = json.load(f)
         if not all(np.isfinite(v["mean"]) for e in hist
                    for v in e["train_losses"].values()):
-            fail("submit fit: non-finite train losses")
-        with open(os.path.join(exp, "moe_stats.csv")) as f:
-            moe_rows = f.read().splitlines()
-        epochs = sorted({ln.split(",")[0] for ln in moe_rows[1:]})
-        if (moe_rows[0] != "epoch,scope,key,task_name,expert,importance,load"
-                or epochs != ["1", "2"]):
-            fail(f"moe_stats.csv: header {moe_rows[0]!r}, epochs {epochs}")
+            fail(f"{key}: non-finite train losses")
+        moe_rows = None
+        if preset["moe"]:
+            with open(os.path.join(exp, "moe_stats.csv")) as f:
+                moe_rows = f.read().splitlines()
+            epochs = sorted({ln.split(",")[0] for ln in moe_rows[1:]})
+            if (moe_rows[0] != "epoch,scope,key,task_name,expert,"
+                               "importance,load" or epochs != ["1", "2"]):
+                fail(f"moe_stats.csv: header {moe_rows[0]!r}, epochs "
+                     f"{epochs}")
 
         out = os.path.join(tmp, "preds")
         env = dict(os.environ, PYTHONPATH=HERE)
@@ -2835,12 +3004,15 @@ def submit_fit_phase(name, smi, report):
         registry = TaskRegistry.from_config(cfg)
         model = build_model(cfg, registry, device="cuda", init=False)
         model.load_state_dict(ckpt_lib.load_best_params(exp, "cuda"))
+        mean = cfg.get("data.augmentation.normalize.mean")
+        std = cfg.get("data.augmentation.normalize.std")
         t0 = time.perf_counter()
-        chk = check_predictions(out, root, model, registry,
-                                cfg.get("data.augmentation.normalize.mean"),
-                                cfg.get("data.augmentation.normalize.std"),
+        chk = check_predictions(out, root, model, registry, mean, std,
                                 SUBMIT_IMAGE)
         check_s = time.perf_counter() - t0
+        after = (preset["after"](name, smi, report, exp, root, model,
+                                 registry, mean, std)
+                 if preset["after"] else None)
         del model
         torch.cuda.empty_cache()
     finally:
@@ -2850,27 +3022,494 @@ def submit_fit_phase(name, smi, report):
                   "loop_s": e["loop_s"], "img_s": e["images"] / e["loop_s"],
                   "queue_wait_share": e["queue_wait_s"] / e["loop_s"]}
                  for e in r["epoch_stats"]]
-    rep = dict(frames=FIT_FRAME, per_task=SUBMIT_PER_TASK, gen_s=gen_s,
-               fit_s=fit_s, epochs=per_epoch, train_steps=steps,
+    rep = dict(frames=FIT_FRAME, per_task=SUBMIT_PER_TASK, fit_s=fit_s, epochs=per_epoch, train_steps=steps,
                eval_batches=evals, launches=launches, k3_kernels=k3_kernels,
-               moe_stats_rows=len(moe_rows) - 1, predict_s=predict_s,
-               check_s=check_s, predictions=chk,
+               predict_s=predict_s, check_s=check_s, predictions=chk,
                best_score=r["best_score"], best_epoch=r["best_epoch"])
-    report["submit_fit"] = rep
+    if moe_rows is not None:
+        rep["moe_stats_rows"] = len(moe_rows) - 1
+    if after is not None:
+        rep["http"] = after
+    report[key] = rep
     for e in per_epoch:
-        log(f"[submit-fit] epoch {e['epoch']}: {e['steps']} steps of "
+        log(f"{tag} epoch {e['epoch']}: {e['steps']} steps of "
             f"B={SUBMIT_BATCH} at {SUBMIT_IMAGE}² in {e['loop_s']:.2f} s = "
             f"{e['img_s']:.2f} img/s from disk; queue wait "
             f"{100 * e['queue_wait_share']:.2f} % of the loop")
-    log(f"[submit-fit] fit {fit_s:.1f} s ({steps} train steps, {evals} eval "
-        f"batches; launches {launches}; K3 by kernel {k3_kernels}); "
-        f"moe_stats.csv {len(moe_rows) - 1} rows over epochs 1-2")
-    log(f"[submit-fit] predict (subprocess, B=16): {predict_s:.1f} s for "
+    log(f"{tag} fit {fit_s:.1f} s ({steps} train steps, {evals} eval "
+        f"batches; launches {launches}; K3 by kernel {k3_kernels})"
+        + (f"; moe_stats.csv {len(moe_rows) - 1} rows over epochs 1-2"
+           if moe_rows is not None else ""))
+    log(f"{tag} predict (subprocess, B=16): {predict_s:.1f} s for "
         f"{chk['records']} frames -> {chk['jsons']} JSONs, {chk['masks']} "
         f"masks at {FIT_FRAME[0]}x{FIT_FRAME[1]}; every value equal to the "
         f"in-process Predictor's (masks bitwise; boxes/points worst "
         f"{chk['worst_box_point_err_over_size']:.1e} of the frame size) "
         f"| {name} | {smi}")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the DINOv3 ViT-L/16 SPM-interaction preset
+# ---------------------------------------------------------------------------
+HTTP_CONCURRENT = 32     # concurrent requests to the HTTP front
+SERVE_START_S = 600      # the HTTP front must print its address by then
+
+
+def all_kernels():
+    """Every hand-written kernel's wrapper (K4f, K4b, K1f, K1b, K2f, K2b,
+    K3): none but K3 runs on the SPM preset's path."""
+    from fmc_uia_tpu_torch.ops import preprocess as pp
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+    from fmc_uia_tpu_torch.ops import vit_attention as va
+
+    return (va.global_attention, va.global_attention_backward,
+            sb.attention_branch, sb.attention_branch_backward,
+            sb.mlp_branch, sb.mlp_branch_backward, pp.augment_normalize)
+
+
+def spm_serving_preset():
+    """Phase 10a-b: ViT-L/16 at 224², 201 tokens, below FLASH_MIN_TOKENS:
+    no kernel launches a forward; card vs CPU on the whole 224² image."""
+    from fmc_uia_tpu_torch.flagship import dinov3_spm_config_dict
+
+    return dict(key="spm", tag="[spm]", config=dinov3_spm_config_dict,
+                what=f"DINOv3 ViT-L/16 {SUBMIT_IMAGE}² SPM-interaction "
+                     "(N = 201)", image=SUBMIT_IMAGE,
+                per_forward=tuple((c, 0) for c in all_kernels()),
+                cpu_image=SUBMIT_IMAGE, seed=10, profile=True)
+
+
+def spm_preset():
+    """Phase 10c: the SPM preset's Trainer at B=64, 224² (``freeze_dino``:
+    the backbone's grads are computed and clipped, not applied); no kernel
+    launches a step; f32 grads at B=1, 224²."""
+    from fmc_uia_tpu_torch.flagship import dinov3_spm_config_dict
+
+    return dict(key="spm_train", what="DINOv3 ViT-L/16 SPM",
+                config=dinov3_spm_config_dict,
+                per_step=tuple((c, 0) for c in all_kernels()),
+                batch=SUBMIT_BATCH, image=SUBMIT_IMAGE,
+                grad_image=SUBMIT_IMAGE)
+
+
+def spm_fit_preset():
+    """Phase 10d-e: the SPM preset's fit with K3 (once a train step, the
+    only kernel launched), then the HTTP front on its experiment dir."""
+    from fmc_uia_tpu_torch.flagship import dinov3_spm_config_dict
+    from fmc_uia_tpu_torch.ops import preprocess as pp
+
+    def want(steps, evals):
+        return {c: steps if c is pp.augment_normalize else 0
+                for c in all_kernels()}
+
+    return dict(key="spm_fit", tag="[spm-fit]", config=dinov3_spm_config_dict,
+                want=want, moe=False, after=http_front_check)
+
+
+class KinkAlign:
+    """While active, records the kinks of ``model``'s step: each
+    ``F.relu``'s input, in call order (its derivative jumps at 0), and
+    each deformable cross-attention's f32 sampling coordinates [B, H, W,
+    nH, nP, (x, y)], with its key map's size (a bilinear weight's
+    derivative jumps where a position crosses an integer pixel). Given
+    ``at``, the record of the same step on the card, the CPU takes the
+    card's side at each kink the two runs put on different sides and
+    keeps its own values everywhere else: a ReLU input of the other sign
+    takes the card's mask, a sample in another bilinear cell the card's
+    coordinates (its gradient still flows through the CPU's own offsets).
+
+    The two devices sum in other orders (cuDNN or PyTorch's CUDA
+    convolutions against oneDNN), so a value that sits within that
+    rounding of a kink may land on the other side on each device, and a
+    grad through it then differs by the jump, not by rounding. In the
+    DINOv3 SPM preset at 224² (an H100 against the CPU, weights from seed
+    1), 10 of the detection step's 2,370,816 ReLU inputs (in the det FPN
+    and the CenterNet head) took the other side and moved a det FPN
+    GroupNorm leaf by 2.1e-3 of its max, and 2 of the segmentation step's
+    266,560 samples sat in another cell and moved interaction0's
+    ``offset_proj`` by 2.3e-3. ``compare`` counts the kinks the two runs
+    split and the largest gap between the two sides' values, which only
+    rounding may explain; ``take`` names the kinds the CPU takes from the
+    card (``--kinks`` drops each in turn)."""
+
+    def __init__(self, model, at=None, take=("relu", "coords")):
+        self.model, self.at, self.take = model, at, take
+        self.relu_in, self.relu_sites = [], []
+        self.coords, self.kv_hw, self.mods, self.hooks = {}, {}, [], []
+        self.split = {"relu": [], "coords": []}
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        from fmc_uia_tpu_torch.models.encoders.adapters import (
+            DeformableCrossAttention2D,
+        )
+
+        self._relu = F.relu
+        F.relu = self._relu_at
+        for name, m in self.model.named_modules():
+            if isinstance(m, DeformableCrossAttention2D):
+                m.sample_coords = (lambda q, name=name, own=m.sample_coords:
+                                   self._sample(name, own(q)))
+                self.mods.append(m)
+                self.hooks.append(m.register_forward_pre_hook(
+                    lambda mod, args, name=name: self.kv_hw.__setitem__(
+                        name, tuple(args[1].shape[1:3]))))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        F.relu = self._relu
+        for m in self.mods:
+            del m.sample_coords  # the class's method again
+        for h in self.hooks:
+            h.remove()
+
+    def _relu_at(self, x, inplace=False):
+        import torch
+
+        i = len(self.relu_in)
+        self.relu_in.append(x.detach().cpu())
+        self.relu_sites.append(_caller_site())
+        if self.at is None:
+            return self._relu(x, inplace)
+        if i >= len(self.at.relu_in) or \
+                self.at.relu_in[i].shape != x.shape:
+            fail(f"ReLU call {i} at {self.relu_sites[-1]}: the card's step "
+                 f"made no such call")
+        card = self.at.relu_in[i].to(x.device) > 0
+        self.split["relu"].append(int((card != (x.detach() > 0)).sum()))
+        if "relu" not in self.take:
+            return self._relu(x, inplace)
+        return torch.where(card, x, torch.zeros_like(x))
+
+    def _sample(self, name, own):
+        import torch
+
+        self.coords[name] = own.detach().cpu()
+        if self.at is None:
+            return own
+        hw = self.kv_hw[name]
+        theirs = self.at.coords[name].to(own.device)
+        other = (_cells(theirs, hw) != _cells(own.detach(), hw)).any(-1)
+        self.split["coords"].append(int(other.sum()))
+        if "coords" not in self.take:
+            return own
+        return torch.where(other[..., None], theirs + (own - own.detach()),
+                           own)
+
+    def compare(self):
+        """{kind: (largest gap between the card's values and the CPU's over
+        the largest magnitude, kinks the two runs split, all, site of the
+        largest gap)} for the ReLU inputs and the sample coordinates."""
+        if len(self.relu_in) != len(self.at.relu_in):
+            fail(f"{len(self.relu_in)} ReLU calls on the CPU, "
+                 f"{len(self.at.relu_in)} on the card")
+        out = {}
+        for kind, mine, theirs, sites in (
+                ("relu", self.relu_in, self.at.relu_in, self.relu_sites),
+                ("coords", list(self.coords.values()),
+                 [self.at.coords[n] for n in self.coords],
+                 list(self.coords))):
+            gap, where = 0.0, None
+            for m, t, s in zip(mine, theirs, sites):
+                g = float((m - t).abs().max()) / max(
+                    float(m.abs().max()), 1e-30)
+                if g >= gap:
+                    gap, where = g, s
+            out[kind] = (gap, sum(self.split[kind]),
+                         sum(m.numel() for m in mine), where)
+        return out
+
+    def relu_flips(self):
+        """{call site: ReLU inputs of the other sign than the card's}, the
+        sites with any."""
+        out = {}
+        for s, n in zip(self.relu_sites, self.split["relu"]):
+            if n:
+                out[s] = out.get(s, 0) + n
+        return out
+
+    def near_integer(self, tol=1e-6):
+        """{module: (positions within ``tol`` of an integer pixel, all)}."""
+        out = {}
+        for name, c in self.coords.items():
+            p = _pixels(c.double(), self.kv_hw[name])
+            near = ((p - p.round()).abs() <= tol).any(-1)
+            out[name] = (int(near.sum()), near.numel())
+        return out
+
+
+# a deformable sample's pixel position and bilinear cell, in
+# grid_sample_bilinear's f32 arithmetic: pixel = ((c + 1) * size - 1) / 2
+def _pixels(c, hw):
+    import torch
+
+    hk, wk = hw
+    return torch.stack([((c[..., 0] + 1.0) * wk - 1.0) / 2.0,
+                        ((c[..., 1] + 1.0) * hk - 1.0) / 2.0], -1)
+
+
+def _cells(c, hw):
+    return _pixels(c, hw).floor()
+
+
+def _caller_site():
+    """'file:line' of the model code that called F.relu."""
+    import inspect
+
+    f = inspect.currentframe().f_back.f_back
+    return f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
+
+
+def http_get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return r.status, r.headers.get("Content-Type"), r.read()
+
+
+def http_post(url, body):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, r.headers.get("Content-Type"), r.read()
+
+
+def http_front_check(name, smi, report, exp, root, model, registry, mean,
+                     std):
+    """Phase 10e: ``python -m fmc_uia_tpu_torch.serve --checkpoint <exp>``
+    in a subprocess on a free port (``--port 0``; it prints the address it
+    bound). ``/healthz``, ``/v1/tasks`` and ``/v1/stats``; one PNG frame
+    of the dataset (576x768, as on disk) per task type, each answer equal
+    to the in-process ``Predictor``'s on the loaded model (the mask
+    decoded and equal to its mask resized back, class ids equal, boxes
+    and points within 1e-4 of the frame); then 32 concurrent requests,
+    all answered, which the stats must count. The server is killed at the
+    end, whatever the outcome."""
+    import csv
+    import glob
+    import queue
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from fmc_uia_tpu_torch.data.dataset import _resize_image
+    from fmc_uia_tpu_torch.data.image_io import (
+        decode_png,
+        read_image,
+        resize_nearest,
+    )
+    from fmc_uia_tpu_torch.export import Predictor
+    from fmc_uia_tpu_torch.flagship import SERVING_TASKS
+
+    frames = {}
+    for path in sorted(glob.glob(os.path.join(root, "csv_files", "*.csv"))):
+        with open(path, newline="") as f:
+            for r in csv.DictReader(f):
+                tid, rel = r["task_id"], r["image_path"]
+                if (tid in SERVING_TASKS and tid not in frames
+                        and os.path.basename(rel) != SUBMIT_BAD_FRAME):
+                    frames[tid] = os.path.normpath(
+                        os.path.join(root, "csv_files", rel))
+    if sorted(frames) != sorted(SERVING_TASKS):
+        fail(f"http: no frame for {sorted(set(SERVING_TASKS) - set(frames))}")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fmc_uia_tpu_torch.serve", "--checkpoint",
+         exp, "--host", "127.0.0.1", "--port", "0"], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        url, said = None, []
+        while url is None:
+            left = SERVE_START_S - (time.perf_counter() - t0)
+            try:
+                line = lines.get(timeout=max(left, 0.1))
+            except queue.Empty:
+                fail(f"serve printed no address within {SERVE_START_S} s: "
+                     f"{''.join(said)[-3000:]}")
+            if line is None:
+                fail(f"serve exited {proc.wait()} before serving: "
+                     f"{''.join(said)[-3000:]}")
+            said.append(line)
+            if line.startswith("serving "):
+                url = line.split()[-1]
+        start_s = time.perf_counter() - t0
+        health = json.loads(http_get(url + "/healthz")[2])
+        if (health.get("ok") is not True or health.get("backend") != "cuda"
+                or health.get("tasks") != len(registry)
+                or health.get("image_size") != SUBMIT_IMAGE):
+            fail(f"http /healthz: {health}")
+        rows = json.loads(http_get(url + "/v1/tasks")[2])
+        if rows != [{"task_id": t, "task_type": registry[t].task_name,
+                     "num_classes": int(registry[t].num_classes)}
+                    for t in registry.task_ids]:
+            fail(f"http /v1/tasks: {rows[:3]} ...")
+
+        pred = Predictor(model, registry, mean, std, SUBMIT_IMAGE,
+                         device="cuda")
+        worst, answers = 0.0, {}
+        for tid in SERVING_TASKS:
+            with open(frames[tid], "rb") as f:
+                status, ctype, body = http_post(
+                    url + f"/v1/predict/{tid}", f.read())
+            img = read_image(frames[tid])
+            h, w = img.shape[:2]
+            ref = pred.predict_images(
+                _resize_image(img, SUBMIT_IMAGE)[None], tid)[0]
+            kind = registry[tid].task_name
+            if status != 200:
+                fail(f"http {tid}: status {status}")
+            if kind == "segmentation":
+                mask = decode_png(body, gray=True)
+                if ctype != "image/png" or not np.array_equal(
+                        mask, resize_nearest(ref.astype(np.uint8), h, w)):
+                    fail(f"http {tid}: not the Predictor's mask at {h}x{w}")
+                answers[tid] = f"mask {mask.shape}"
+                continue
+            got = json.loads(body)
+            answers[tid] = got
+            if kind == "classification":
+                if got != {"class": int(ref)}:
+                    fail(f"http {tid}: {got} != class {int(ref)}")
+                continue
+            if kind == "detection":
+                vals = [got["x_min"], got["y_min"], got["x_max"],
+                        got["y_max"]]
+                want = ref[:4]
+            else:
+                vals = [v for pt in got["points"] for v in pt]
+                want = ref[:2 * registry[tid].num_classes]
+            if len(vals) != len(want):
+                fail(f"http {tid}: {len(vals)} values, not {len(want)}")
+            for k, (g, v) in enumerate(zip(vals, want)):
+                dim = w if k % 2 == 0 else h
+                e = abs(g - float(v) * dim) / dim
+                worst = max(worst, e)
+                if not e <= 1e-4:
+                    fail(f"http {tid}: value {k} {g} vs {float(v) * dim}")
+
+        before = json.loads(http_get(url + "/v1/stats")[2])
+        bodies = []
+        for j in range(HTTP_CONCURRENT):
+            tid = SERVING_TASKS[j % len(SERVING_TASKS)]
+            with open(frames[tid], "rb") as f:
+                bodies.append((tid, f.read()))
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(HTTP_CONCURRENT) as ex:
+            res = list(ex.map(lambda tb: http_post(
+                url + f"/v1/predict/{tb[0]}", tb[1]), bodies))
+        conc_s = time.perf_counter() - t1
+        if any(r[0] != 200 for r in res):
+            fail(f"http concurrent: statuses {[r[0] for r in res]}")
+        stats = json.loads(http_get(url + "/v1/stats")[2])
+
+        def served(st):
+            ok = sum(v for k, v in st["requests"].items()
+                     if k.startswith("ok_"))
+            imgs = sum(int(k) * v for k, v in st["by_batch_size"].items())
+            return ok, imgs - st["pad_images"]
+
+        (ok0, n0), (ok1, n1) = served(before), served(stats)
+        if not (ok1 - ok0 == n1 - n0 == HTTP_CONCURRENT):
+            fail(f"http stats count {ok1 - ok0} answered and {n1 - n0} "
+                 f"images dispatched, not {HTTP_CONCURRENT}")
+        disp = stats["dispatches"] - before["dispatches"]
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    rep = {"start_s": start_s, "health": health, "answers": answers,
+           "worst_box_point_err_over_size": worst,
+           "concurrent": HTTP_CONCURRENT, "concurrent_s": conc_s,
+           "concurrent_dispatches": disp, "stats": stats}
+    log(f"[spm-http] serve started in {start_s:.1f} s (subprocess, warm-up "
+        f"included); /healthz {health}; /v1/tasks {len(rows)} rows; one "
+        f"frame per type equal to Predictor's (boxes/points worst "
+        f"{worst:.1e} of the frame): {answers}; {HTTP_CONCURRENT} "
+        f"concurrent requests in {conc_s:.2f} s, {disp} dispatches, counted"
+        f" by /v1/stats | {name} | {smi}")
+    return rep
+
+
+def run_phases_9_10(name, smi, report, out_dir, fit_root):
+    """Phase 9 (the submission preset) and phase 10 (the DINOv3 ViT-L/16
+    SPM preset and the HTTP front), their fits from ``fit_root``. Leaves
+    phase 10's launches by kernel in ``report['spm_launches']``."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    submit_model_phase(name, smi, report)
+    train_phase(name, smi, report, out_dir, submit_preset())
+    torch.cuda.empty_cache()
+    fit_predict_phase(name, smi, report, submit_fit_preset(), fit_root)
+    report["submit_s"] = time.perf_counter() - t9
+    log(f"[submit] phase 9: {report['submit_s']:.1f} s")
+
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    launches = vit_serving_phase(name, smi, report, spm_serving_preset(),
+                                 out_dir)
+    trained = train_phase(name, smi, report, out_dir, spm_preset())
+    torch.cuda.empty_cache()
+    fit_predict_phase(name, smi, report, spm_fit_preset(), fit_root)
+    for k, v in list(trained.items()) + list(
+            report["spm_fit"]["launches"].items()):
+        launches[k] += v
+    report["spm_launches"] = launches
+    report["spm_s"] = time.perf_counter() - t10
+    log(f"[spm] phase 10: {report['spm_s']:.1f} s; launches over its "
+        f"serving run, timed training and fit: {launches}")
+
+
+def kinks_main() -> int:
+    """``--kinks``: what each kind of kink explains in the SPM preset's
+    grad check (phase 10c): the check's pair and batches, the card's step
+    once a type, and the CPU's step four ways, taking from the card no
+    kink, the ReLU signs, the bilinear cells, or both; logs each way's
+    worst leaf err / leaf max and prints one JSON line of them."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card, cpu, tc, tp, batches = grad_pair(spm_preset())
+    out = {}
+    for t, b in batches.items():
+        with KinkAlign(card) as at_c:
+            tc.compute_grads(b)
+        for take in ((), ("relu",), ("coords",), ("relu", "coords")):
+            with KinkAlign(cpu, at=at_c, take=take) as at_p:
+                tp.compute_grads(b)
+            rel, leaf = max(
+                (float((pc.grad.cpu() - pp.grad).abs().max())
+                 / float(pp.grad.abs().max()), n)
+                for (n, pc), (_, pp) in zip(card.named_parameters(),
+                                            cpu.named_parameters())
+                if float(pp.grad.abs().max()) > 0)
+            split = {k: v[1] for k, v in at_p.compare().items()}
+            out.setdefault(t, {})["+".join(take) or "none"] = dict(
+                worst_err_over_max=rel, worst_leaf=leaf, split=split,
+                relu_split_by_site=at_p.relu_flips())
+            log(f"[kinks] {t}, taking {take or 'none'} from the card: worst "
+                f"{rel:.2e} ({leaf}); split {split}")
+    print(json.dumps({"card": nvidia_smi_line(), "kinks": out}))
+    return 0
 
 
 def staged_train_main() -> int:
@@ -2913,6 +3552,8 @@ def main() -> int:
         return staged_train_main()
     if sys.argv[1:] == ["--k3"]:
         return k3_main()
+    if sys.argv[1:] == ["--kinks"]:
+        return kinks_main()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; nothing to drive",
               file=sys.stderr)
@@ -3071,7 +3712,7 @@ def main() -> int:
     torch.cuda.synchronize()
     sb.attention_branch.launches = 0
     sb.mlp_branch.launches = 0
-    runs, dispatches = [], 0
+    runs, dispatches, served = [], 0, []
     for r in range(SERVE_RUNS):
         before = dict(svc.stats, by_size=dict(svc.stats["by_size"]))
         n_done, wall, lat, results = serve_closed_loop(svc, pool, tids)
@@ -3080,7 +3721,7 @@ def main() -> int:
         stats["by_size"] = {k: v - before["by_size"].get(k, 0)
                             for k, v in svc.stats["by_size"].items()}
         dispatches += stats["dispatches"]
-        check_served(results, refs, tids, registry)
+        served.append(results)
         ms = [v for _, v in lat]
         by_task = {tid: [round(float(np.percentile(
             [v for t, v in lat if t == tid], q)), 1) for q in (50, 99)]
@@ -3097,6 +3738,10 @@ def main() -> int:
     launches = {"attention_branch": sb.attention_branch.launches,
                 "mlp_branch": sb.mlp_branch.launches}
     svc.close()
+    for run, results in zip(runs, served):  # after the count: the check
+        run["stats"].update(check_served(
+            results, pred, pool, tids, refs,
+            [k for k, v in run["stats"]["by_size"].items() if v]))
     if (launches != {"attention_branch": 24 * dispatches,
                      "mlp_branch": 4 * dispatches} or dispatches == 0):
         fail(f"serving launches {launches} != 24/4 x {dispatches} "
@@ -3122,18 +3767,23 @@ def main() -> int:
     fit_launches = fit_phase(name, smi, report, report["train"]["img_s"])
     # -- 7. DINOv3 serving -----------------------------------------------------
     torch.cuda.empty_cache()
-    dino_serve_launches = dino_serving_phase(name, smi, report)
+    dino_serve_launches = vit_serving_phase(
+        name, smi, report, dino_serving_preset(), out_dir)["global_attention"]
     # -- 8. DINOv3 training ----------------------------------------------------
     dino_launches = train_phase(name, smi, report, out_dir, dino_preset())
     # -- 9. the submission preset: model, serving, training, fit -> predict ---
-    torch.cuda.empty_cache()
-    t9 = time.perf_counter()
-    submit_model_phase(name, smi, report)
-    train_phase(name, smi, report, out_dir, submit_preset())
-    torch.cuda.empty_cache()
-    submit_fit_phase(name, smi, report)
-    report["submit_s"] = time.perf_counter() - t9
-    log(f"[submit] phase 9: {report['submit_s']:.1f} s")
+    # (phases 9d and 10d read one dataset, deleted at the end)
+    import shutil
+    import tempfile
+
+    data_tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_data_")
+    try:
+        fit_root, report["fit_data_s"] = write_fit_dataset(
+            data_tmp, flagship_config_dict()["tasks"])
+        run_phases_9_10(name, smi, report, out_dir, fit_root)
+    finally:
+        shutil.rmtree(data_tmp, ignore_errors=True)
+    spm_launches = report.pop("spm_launches")
 
     # -- kernels line ----------------------------------------------------------
     def entry(kname, source, replaces, count):
@@ -3216,6 +3866,10 @@ def main() -> int:
                  "fmc_uia_tpu_torch/csrc/vit_flash_bwd.cu",
                  dino_launches["global_attention_backward"]),
     ]
+    # phase 10's path (its serving run, timed training and fit): K3 once a
+    # fit step, no other kernel
+    for e in kernels:
+        e["launches_spm"] = spm_launches[e["name"]]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -20,7 +20,11 @@ PNG decoder and a host C++ helper, no pandas/cv2/PIL/PyYAML), metrics and
 ``evaluate``, the logger, checkpoints and ``fit`` with resume — and the
 submission preset (``configs/submit.yaml``): the dense MoE conv block with
 its balance loss and statistics, ``export_predictions`` and the
-``predict`` CLI (``python -m fmc_uia_tpu_torch.predict``).
+``predict`` CLI (``python -m fmc_uia_tpu_torch.predict``) — and the DINOv3
+ViT-L/16 SPM-interaction preset (``configs/vit_large_patch16_dinov3.yaml``:
+the spatial pyramid, the deformable cross-attention's bilinear gather,
+the antialiased resize) and the HTTP front (``python -m
+fmc_uia_tpu_torch.serve``).
 """
 
 __version__ = "0.1.0"

@@ -9,6 +9,8 @@ FPN, TaskFiLM, 27 tasks.
 ``submit_config_dict`` and ``baseline_config_dict`` are
 ``configs/submit.yaml`` and ``configs/baseline.yaml`` as they stand: swin_b
 at 224², window 7, B = 64, the MoE at stages 2-3, adaptive loss weights.
+``dinov3_spm_config_dict`` is ``configs/vit_large_patch16_dinov3.yaml`` as
+it stands: DINOv3 ViT-L/16 at 224² with the SPM-interaction adapter.
 
 Dicts and not the YAML files, because the GPU machine may lack PyYAML
 (tests/test_torch_isolation.py and tests/test_torch_moe.py hold them
@@ -188,4 +190,30 @@ def baseline_config_dict() -> dict:
     d["model"]["decoder"].update(
         separate_classification_fpn=True, separate_regression_fpn=True,
         use_fpn_for_classification=True, use_fpn_for_regression=True)
+    return d
+
+
+def dinov3_spm_config_dict() -> dict:
+    """``configs/vit_large_patch16_dinov3.yaml`` as a dict, with no
+    override: DINOv3 ViT-L/16 (1024 wide, depth 24, 16 heads, out_indices
+    5/11/17/23; RoPE, LayerScale, 4 storage tokens), ``freeze_dino``, the
+    'spm_interaction' adapter (256 channels, stem 64, 8 heads, 4 points,
+    offset range 0.25), the flagship's FPN (separate det FPN), TaskFiLM
+    and 27 heads, B = 64 at 224² (14² patches + 5 prefix tokens = 201
+    tokens: below ``FLASH_MIN_TOKENS``, so the einsum attention path).
+    ``data.fused_preprocess`` is absent (off), as in the YAML; a caller
+    that trains with K3 sets it."""
+    d = flagship_config_dict()
+    d["experiment"].update(name="dinov3_large_spm_interaction",
+                           output_dir="outputs/dinov3_spm")
+    d["data"].update(batch_size=64, image_size=224)
+    del d["data"]["fused_preprocess"]
+    d["model"]["encoder"] = {
+        "name": "dinov3", "timm_name": "vit_large_patch16_dinov3.lvd1689m",
+        "pretrained": None, "freeze_dino": True,
+        "out_indices": [5, 11, 17, 23],
+        "adapter": {"type": "spm_interaction", "channels": 256,
+                    "spm_stem_channels": 64, "interaction_heads": 8,
+                    "interaction_points": 4,
+                    "interaction_offset_range": 0.25}}
     return d

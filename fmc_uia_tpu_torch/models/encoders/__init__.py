@@ -2,8 +2,8 @@
 
 Ported: Swin (``swin_*``, ``timm:*swin*``) and ViT/DINOv3 (``vit_*``,
 ``dinov3*``, ``timm:`` names containing vit/deit/dino/eva) with the
-'resize' adapter. ResNet, ConvNeXt and EfficientNet raise and name the
-ROADMAP item that ports them.
+'resize' and 'spm_interaction' adapters. ResNet, ConvNeXt and
+EfficientNet raise and name the ROADMAP item that ports them.
 """
 
 from __future__ import annotations

@@ -17,8 +17,11 @@ parameter, ``cls_token`` + ``storage_tokens``, LayerScale ``ls1``/``ls2``).
 it in every forward, so its gradient exists and counts in the clip's
 global norm as in JAX; ``train.label_params`` freezes it.
 
-The 'spm_interaction' adapter is not ported yet and raises naming its
-ROADMAP item.
+Two adapters turn the raw maps into the 4-stage pyramid: 'resize'
+(``FourScaleAdapter``) and 'spm_interaction' (a CNN pyramid from the
+image, ``SpatialPyramidModule``, whose every level queries a projected
+ViT map through an ``InteractionBlock``; under the ``spm_adapter``
+profiler range).
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fmc_uia_tpu_torch.models.encoders.adapters import (
-    ITEM_ADAPTERS,
+    SPM_RANGE,
     FourScaleAdapter,
+    InteractionBlock,
+    SpatialPyramidModule,
 )
 from fmc_uia_tpu_torch.models.encoders.swin import _LN
 from fmc_uia_tpu_torch.models.layers import (
@@ -264,13 +269,17 @@ class ViTBackbone(nn.Module):
 
 
 class ViTMultiScaleEncoder(nn.Module):
-    """ViT backbone + the 'resize' adapter (FourScaleAdapter): the
+    """ViT backbone + an adapter ('resize' or 'spm_interaction'): the
     4-stage pyramid contract, (adapter_channels,) * 4 channels."""
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
                  patch_size: int = 16,
                  out_indices: Sequence[int] = (2, 5, 8, 11),
                  adapter_type: str = "resize", adapter_channels: int = 256,
+                 spm_stem_channels: int = 64, interaction_heads: int = 8,
+                 interaction_points: int = 4,
+                 interaction_offset_range: float = 0.25,
+                 vit_layer_mapping: Optional[Sequence[int]] = None,
                  num_prefix_tokens: int = 0, flash_attention: str = "auto",
                  rope: bool = False, num_storage_tokens: int = 4,
                  rope_base: float = 100.0,
@@ -279,13 +288,9 @@ class ViTMultiScaleEncoder(nn.Module):
                  layerscale: bool = False, image_size: Optional[int] = None,
                  dtype=torch.float32):
         super().__init__()
-        if adapter_type == "spm_interaction":
-            raise NotImplementedError(
-                "adapter type 'spm_interaction' (SpatialPyramidModule + "
-                "DeformableCrossAttention2D + InteractionBlock) is not ported "
-                f"to fmc_uia_tpu_torch yet ({ITEM_ADAPTERS})")
-        if adapter_type != "resize":
+        if adapter_type not in ("resize", "spm_interaction"):
             raise ValueError(f"Unsupported adapter_type: {adapter_type}")
+        self.adapter_type = adapter_type
         self.adapter_channels = adapter_channels
         self.dtype = dtype
         self.backbone = ViTBackbone(
@@ -300,8 +305,21 @@ class ViTMultiScaleEncoder(nn.Module):
         if image_size is not None:
             g = image_size // patch_size
             self.backbone.make_pos_embed(g, g)
-        self.adapter = FourScaleAdapter(embed_dim, adapter_channels,
+        ch = adapter_channels
+        if adapter_type == "resize":
+            self.adapter = FourScaleAdapter(embed_dim, ch, dtype=dtype)
+            return
+        self.vit_layer_mapping = (list(vit_layer_mapping)
+                                  if vit_layer_mapping is not None
+                                  else [0, 1, 2, 3])
+        self.spm = SpatialPyramidModule((ch,) * 4, spm_stem_channels,
                                         dtype=dtype)
+        for i in range(4):
+            self.add_module(f"vit_proj{i}", Conv(embed_dim, ch, 1,
+                                                 use_bias=False, dtype=dtype))
+            self.add_module(f"interaction{i}", InteractionBlock(
+                ch, interaction_heads, interaction_points,
+                interaction_offset_range, dtype=dtype))
 
     @property
     def out_channels(self) -> Tuple[int, int, int, int]:
@@ -312,7 +330,17 @@ class ViTMultiScaleEncoder(nn.Module):
         raw = self.backbone(x, train=train)[:4]
         while len(raw) < 4:
             raw.append(raw[-1])
-        return self.adapter(raw, (x.shape[1], x.shape[2]))
+        if self.adapter_type == "resize":
+            return self.adapter(raw, (x.shape[1], x.shape[2]))
+        with torch.profiler.record_function(SPM_RANGE):
+            pyramid = self.spm(x.to(self.dtype))
+            fused = []
+            for i, cnn_feat in enumerate(pyramid):
+                vit_feat = getattr(self, f"vit_proj{i}")(
+                    raw[min(self.vit_layer_mapping[i], len(raw) - 1)])
+                fused.append(getattr(self, f"interaction{i}")(cnn_feat,
+                                                              vit_feat))
+        return fused
 
 
 _VIT_VARIANTS = {
@@ -403,6 +431,12 @@ def build_vit_encoder(name: str, config, dtype=torch.float32
     return ViTMultiScaleEncoder(
         patch_size=patch_size, flash_attention=flash,
         adapter_type=adapter_type, adapter_channels=adapter_channels,
+        spm_stem_channels=int(adapter_cfg.get("spm_stem_channels", 64)),
+        interaction_heads=int(adapter_cfg.get("interaction_heads", 8)),
+        interaction_points=int(adapter_cfg.get("interaction_points", 4)),
+        interaction_offset_range=float(
+            adapter_cfg.get("interaction_offset_range", 0.25)),
+        vit_layer_mapping=enc_cfg.get("vit_layer_mapping"),
         num_prefix_tokens=num_prefix,
         image_size=None if image_size is None else int(image_size),
         dtype=dtype, **rope_kwargs, **kwargs)

@@ -242,6 +242,23 @@ class GroupNorm(nn.Module):
         return ((x.float() - mu) * mul + self.bias).to(self.dtype)
 
 
+class ConvGNAct(nn.Module):
+    """flax ``ConvGNAct``: a 'SAME' 3x3 conv without bias (stride 1 or
+    2), GroupNorm in the compute dtype, SiLU. The submodules keep flax's
+    auto names, ``Conv_0`` and ``GroupNorm_0``."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(cin, features, 3, stride=stride, use_bias=False,
+                           dtype=dtype)
+        self.GroupNorm_0 = GroupNorm(features, gn_groups(features),
+                                     dtype=dtype)
+
+    def forward(self, x):
+        return F.silu(self.GroupNorm_0(self.Conv_0(x)))
+
+
 class BankedConv(nn.Module):
     """Per-task 2D convolution bank. Kernel: [T, O, I, kh, kw]."""
 

@@ -1,9 +1,10 @@
 """The port stands alone: importing every module of fmc_uia_tpu_torch
 loads no jax, flax or fmc_uia_tpu module, nor pandas, cv2, PIL or yaml;
 chip_smoke.py imports none of them; its C++ sources include nothing of
-fmc_uia_tpu; entry points asked for CUDA on a host without a GPU raise;
-the flagship config dict equals configs/config.yaml with the bench
-overrides.
+fmc_uia_tpu; entry points asked for CUDA on a host without a GPU raise
+(the HTTP front and the DINOv3 SPM preset's build too); the encoders not
+yet ported raise; the flagship config dict equals configs/config.yaml
+with the bench overrides.
 """
 
 import ast
@@ -104,6 +105,13 @@ def test_entry_points_refuse_missing_cuda():
         fit(config=cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate(model, [], reg, [0.3] * 3, [0.2] * 3)
+    from fmc_uia_tpu_torch import serve
+    from fmc_uia_tpu_torch.flagship import dinov3_spm_config_dict
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--checkpoint", "unused"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(Config(config_dict=dinov3_spm_config_dict()))
 
 
 def test_unported_families_raise():
@@ -161,19 +169,11 @@ def test_dino_build_refuses_missing_cuda():
         build_model(Config(config_dict=dino_patch8_config_dict()))
 
 
-def test_unported_vit_paths_raise():
+def test_unported_encoder_families_raise():
+    """The encoders still to port (ROADMAP queue 1 item 8): ResNet,
+    ConvNeXt, EfficientNet and the timm names that map to them."""
     from fmc_uia_tpu_torch.models import build_model
-    from fmc_uia_tpu_torch.models.encoders.adapters import _resize_feature
 
-    enc = {"name": "dinov3", "timm_name": "vit_small_patch16_dinov3",
-           "adapter": {"type": "spm_interaction"}}
-    cfg = Config(config_dict=make_tiny_config(model={"encoder": enc}).config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
-    # patch 14 at 224²: a 16² map to stride 16's 14² is a non-integer
-    # downsample (jax.image.resize 'linear', antialiased)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _resize_feature(torch.zeros(1, 16, 16, 4), 14, 14)
     for name in ("resnet_tiny", "convnext_t", "efficientnet-b0",
                  "timm:resnet50"):
         cfg = Config(config_dict=make_tiny_config(
