@@ -222,12 +222,33 @@ pass):
    ids equal, boxes and points within 1e-4 of the frame), 32 concurrent
    requests counted by ``/v1/stats``; the server is killed at the end.
 
+11. cache + pretrained — phase 6's data written again. (a) phase 6's
+   ``fit`` with ``data.device_cache``, 2 epochs of 80 steps (epoch 2, the
+   measured one, runs about 11 s), validation: the staged MB, img/s, the
+   loop's seconds and queue wait per epoch against phase 5's staged and
+   phase 6's streaming img/s (limit 0.9 of staged, printed, not failed),
+   launches as phase 6, and the first eval batch of every task
+   and the first 4 train batches gathered from the cache against a
+   streaming engine's, bitwise on the card. (b) a 400 MB budget: the
+   tasks that stream are printed and the fit finishes. (c) one epoch of 6
+   steps with ``data.use_adaptive_norm``, cached: f32 banks, K3 0. The
+   img/s of (b) and (c) are smoke timings (6 steps, warm-up included),
+   not throughputs. (d)
+   the SPM preset's ``fit`` (3 steps, validation) from a seeded synthetic
+   DINOv3 ViT-L/16 checkpoint: the backbone of ``best_model.pt`` bitwise
+   the checkpoint's (``freeze_dino``), one segmentation answer f32 card
+   vs CPU (1e-3); K3 once a step, no other kernel. (e) the flagship's
+   ``fit`` (3 steps) from a swin_b window-12 checkpoint, its tables
+   resampled to window 8: K1/K2/K3 counted. (f) ``python -m
+   fmc_uia_tpu_torch.utils.convert --verify`` on both files. Each fit's
+   counts are zeroed just before it and read just after.
+
 The line before the card's name is ``{"kernels": [...]}`` (K1f/K2f
 launches from phase 4, K1b/K2b from phase 5, K3 from phase 6, K4f from
 phase 7, K4b from phase 8; phase 9 checks its own counts and leaves the
 line as it was; ``launches_spm``: each kernel's launches over phase 10's
-serving run, timed training and fit); the last line is ``{"ok": true,
-"device": {...}}``.
+serving run, timed training and fit; ``launches_phase11``: over phase
+11's fits); the last line is ``{"ok": true, "device": {...}}``.
 Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
 
     python3 chip_smoke.py --staged-train
@@ -248,6 +269,11 @@ on one card.
 runs the SPM preset's grad check (phase 10c) with the CPU taking from
 the card no kink, the ReLU signs, the bilinear cells, or both, and
 prints each way's worst leaf per type (no checks), one JSON line.
+
+    python3 chip_smoke.py --phase11
+
+builds the kernels and runs phase 11 alone (without phases 5 and 6 its
+throughput stands alone), one JSON line.
 """
 
 from __future__ import annotations
@@ -2259,19 +2285,41 @@ def host_frame_ms(path):
     return out
 
 
+def write_flagship_frames(tmp, tasks, tag):
+    """Phase 6's data under ``tmp``/data (phase 11 writes it again): the
+    flagship's tasks x FIT_PER_TASK 576x768 PNGs, one task per call
+    (seeded by its index) on 8 threads (zlib and numpy release the GIL).
+    Returns (root, seconds, MB)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fmc_uia_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    root = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda it: generate_synthetic_dataset(
+            root, tasks=[it[1]], samples_per_task=FIT_PER_TASK,
+            image_hw=FIT_FRAME, seed=it[0]), enumerate(tasks)))
+    gen_s = time.perf_counter() - t0
+    data_mb = sum(os.path.getsize(os.path.join(r, f))
+                  for r, _, fs in os.walk(root) for f in fs) / 1e6
+    log(f"{tag} wrote {len(tasks)} tasks x {FIT_PER_TASK} frames "
+        f"{FIT_FRAME[0]}x{FIT_FRAME[1]} (PNG, {data_mb:.0f} MB) in "
+        f"{gen_s:.1f} s")
+    return root, gen_s, data_mb
+
+
 def fit_phase(name, smi, report, staged_img_s):
     """The flagship trained from PNG files through ``fit`` and resumed;
     returns the launch counts of both runs."""
     import copy
     import shutil
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     import torch
 
     from fmc_uia_tpu_torch.config import Config
-    from fmc_uia_tpu_torch.data.synthetic import generate_synthetic_dataset
     from fmc_uia_tpu_torch.fit import fit
     from fmc_uia_tpu_torch.flagship import flagship_config_dict
     from fmc_uia_tpu_torch.ops import preprocess as pp
@@ -2282,21 +2330,7 @@ def fit_phase(name, smi, report, staged_img_s):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
     try:
         d = flagship_config_dict()
-        t0 = time.perf_counter()
-        # one task per call (seeded by its index) on 8 threads: zlib and
-        # numpy release the GIL
-        with ThreadPoolExecutor(8) as ex:
-            list(ex.map(lambda it: generate_synthetic_dataset(
-                os.path.join(tmp, "data"), tasks=[it[1]],
-                samples_per_task=FIT_PER_TASK, image_hw=FIT_FRAME,
-                seed=it[0]), enumerate(d["tasks"])))
-        gen_s = time.perf_counter() - t0
-        data_mb = sum(os.path.getsize(os.path.join(r, f))
-                      for r, _, fs in os.walk(os.path.join(tmp, "data"))
-                      for f in fs) / 1e6
-        log(f"[fit] wrote {len(d['tasks'])} tasks x {FIT_PER_TASK} frames "
-            f"{FIT_FRAME[0]}x{FIT_FRAME[1]} (PNG, {data_mb:.0f} MB) in "
-            f"{gen_s:.1f} s")
+        _, gen_s, data_mb = write_flagship_frames(tmp, d["tasks"], "[fit]")
         frame_ms = host_frame_ms(os.path.join(
             tmp, "data", "images", f"{d['tasks'][0]['task_id']}_0000.png"))
         log(f"[fit] host ms per frame, one thread (median of 11): "
@@ -3474,6 +3508,455 @@ def run_phases_9_10(name, smi, report, out_dir, fit_root):
         f"serving run, timed training and fit: {launches}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the device-resident dataset cache, adaptive normalisation and
+# pretrained encoders from a local checkpoint
+# ---------------------------------------------------------------------------
+CACHE_PARTIAL_MB = 400    # phase 11b's budget: about half the tasks stream
+CACHE_FIT_STEPS = 80      # steps per epoch of phase 11a (epoch 2 >= 10 s)
+CACHE_SHORT_STEPS = 6     # steps of phases 11b and 11c
+PRETRAINED_STEPS = 3      # steps of phases 11d and 11e
+CACHE_BITWISE_TRAIN = 4   # train batches held bitwise in phase 11a
+
+
+def flagship_fit_want(steps, evals):
+    """The flagship fit's launches by kernel: K1f/K2f per step and eval
+    batch, K1b/K2b per step, K3 per step (0 under adaptive normalisation
+    is asked by the caller), K4 none."""
+    from fmc_uia_tpu_torch.ops import preprocess as pp
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+
+    want = {c.__name__: 0 for c in all_kernels()}
+    want.update({sb.attention_branch.__name__: 24 * (steps + evals),
+                 sb.attention_branch_backward.__name__: 24 * steps,
+                 sb.mlp_branch.__name__: 4 * (steps + evals),
+                 sb.mlp_branch_backward.__name__: 4 * steps,
+                 pp.augment_normalize.__name__: steps})
+    return want
+
+
+def counted_fit(tag, d, totals):
+    """``fit`` of config dict ``d`` on the card with every kernel's count
+    zeroed just before it and read just after (added to ``totals``); the
+    engines ``fit`` builds are kept. Returns (result, seconds, launches,
+    (train engine, val engine), K3 by kernel)."""
+    import copy
+
+    import torch
+
+    import fmc_uia_tpu_torch.fit as fit_mod
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.ops import preprocess as pp
+
+    built = {}
+    orig = fit_mod.build_data_engines
+
+    def keep(*a, **k):
+        built["engines"] = orig(*a, **k)
+        return built["engines"]
+
+    fit_mod.build_data_engines = keep
+    try:
+        torch.cuda.synchronize()
+        for c in all_kernels():
+            c.launches = 0
+        by_kernel = pp.augment_normalize.launches_by_kernel
+        by_kernel.update(vector=0, edge=0)
+        t0 = time.perf_counter()
+        r = fit_mod.fit(config=Config(config_dict=copy.deepcopy(d)),
+                        device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in all_kernels()}
+        k3 = dict(by_kernel)
+    finally:
+        fit_mod.build_data_engines = orig
+    for k, v in launches.items():
+        totals[k] += v
+    torch.cuda.empty_cache()
+    with open(os.path.join(r["experiment_dir"],
+                           "training_history.json")) as f:
+        hist = json.load(f)
+    if not all(math.isfinite(v["mean"]) for e in hist
+               for v in e["train_losses"].values()):
+        fail(f"{tag}: non-finite train losses")
+    log(f"{tag} fit {secs:.1f} s; launches {launches}; K3 by kernel {k3}")
+    return r, secs, launches, built["engines"][:2], k3
+
+
+def check_fit_launches(tag, r, launches, k3, adaptive=False):
+    steps = sum(e["steps"] for e in r["epoch_stats"])
+    want = flagship_fit_want(steps, r["eval_batches"])
+    if adaptive:
+        want["augment_normalize"] = 0
+    if launches != want:
+        fail(f"{tag} launches {launches} != {want}")
+    if k3 != {"vector": want["augment_normalize"], "edge": 0}:
+        fail(f"{tag}: K3 kernels {k3}, not {want['augment_normalize']} of "
+             "the chunk kernel")
+    return steps
+
+
+def epoch_rows(r):
+    return [{"epoch": e["epoch"], "steps": e["steps"],
+             "loop_s": e["loop_s"], "img_s": e["images"] / e["loop_s"],
+             "queue_wait_share": e["queue_wait_s"] / e["loop_s"],
+             "host_ms_per_batch": 1e3 * e["host_load_s"] / e["batches"],
+             "put_ms_per_batch": 1e3 * e["host_put_s"] / e["batches"]}
+            for e in r["epoch_stats"]]
+
+
+def same_on_card(tag, got, host):
+    """A cached batch against the host path's batch of the same rows, the
+    host's put on the card as ``Trainer.put_batch`` puts it: bitwise."""
+    import numpy as np
+    import torch
+
+    img = torch.from_numpy(host["image"]).cuda()
+    lab = torch.from_numpy(np.ascontiguousarray(host["label"])).cuda()
+    if not lab.is_floating_point():
+        lab = lab.long()
+    ok = (got["image"].is_cuda and got["image"].dtype == img.dtype
+          and torch.equal(got["image"], img) and got["label"].dtype ==
+          lab.dtype and torch.equal(got["label"], lab)
+          and np.array_equal(got["valid"], host["valid"])
+          and got["task_id"] == host["task_id"])
+    if not ok:
+        fail(f"{tag}: a cached batch of {host['task_id']} differs from the "
+             "streamed one")
+
+
+def cached_batches_check(tag, d, cache):
+    """Phase 11a: the first eval batch of every task and the first
+    CACHE_BITWISE_TRAIN train batches, gathered from ``cache`` and
+    streamed by a fresh engine without it: bitwise on the card."""
+    import copy
+
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.data.pipeline import build_data_engines
+
+    plain = copy.deepcopy(d)
+    plain["data"]["device_cache"] = False
+    train, val, _ = build_data_engines(Config(config_dict=plain))
+    try:
+        seen = set()
+        for rows in val._eval_batches():
+            tid = val.dataset.rows[rows[0]]["task_id"]
+            if tid in seen:
+                continue
+            seen.add(tid)
+            host = val._load_batch(rows)
+            val.device_cache = cache
+            same_on_card(tag, val._load_batch(rows), host)
+            val.device_cache = None
+        n_train = 0
+        for rows in train._train_batches():
+            same_on_card(tag, cache.get_batch(rows), train._load_batch(rows))
+            n_train += 1
+            if n_train == CACHE_BITWISE_TRAIN:
+                break
+    finally:
+        train.close()
+        val.close()
+    log(f"{tag} cached vs streamed, bitwise on the card: the first eval "
+        f"batch of each of {len(seen)} tasks and {n_train} train batches")
+    return len(seen), n_train
+
+
+def synth_checkpoint(manifest, seed, path):
+    """A checkpoint file of random f32 tensors (seeded) with a manifest's
+    keys and shapes: N(0, 0.02^2), the relative-position index a long
+    buffer of zeros, the RoPE periods uniform in [1, 100). Returns its
+    MB."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, shape in manifest.items():
+        if k.endswith("relative_position_index"):
+            sd[k] = torch.zeros(shape, dtype=torch.long)
+        elif k.endswith("rope_embed.periods"):
+            sd[k] = 1.0 + 99.0 * torch.rand(shape, generator=g)
+        else:
+            sd[k] = 0.02 * torch.randn(shape, generator=g)
+    torch.save(sd, path)
+    return os.path.getsize(path) / 1e6
+
+
+def spm_pretrained_check(tag, d, r, ckpt_path, smi):
+    """Phase 11d after the fit: the backbone of ``best_model.pt`` bitwise
+    the checkpoint's (``freeze_dino``), and one segmentation answer of the
+    loaded model f32 on the card against f32 on the CPU (1e-3 of the
+    largest output)."""
+    import numpy as np
+    import torch
+
+    from fmc_uia_tpu_torch import checkpoint as ckpt_lib
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.ops.image import normalize_images
+    from fmc_uia_tpu_torch.tasks import TaskRegistry
+    from fmc_uia_tpu_torch.utils import convert
+
+    exp = r["experiment_dir"]
+    best = ckpt_lib.load_best_params(exp, "cpu")
+    want = convert.jax_leaves_to_port({"encoder": {"backbone":
+        convert.convert_dinov3(convert.load_torch_state_dict(ckpt_path))}})
+    bad = [k for k, a in want.items()
+           if not torch.equal(best[k], torch.from_numpy(a))]
+    if bad or len(want) < 24 * 12:
+        fail(f"{tag}: {len(bad)} of {len(want)} backbone leaves differ from "
+             f"the checkpoint after the fit: {bad[:6]}")
+    with open(os.path.join(exp, "config.yaml")) as f:
+        cfg = Config(config_dict=json.load(f))
+    reg = TaskRegistry.from_config(cfg)
+    card = build_model(cfg, reg, dtype=torch.float32, device="cuda",
+                       init=False)
+    card.load_state_dict(best)
+    cpu = build_model(cfg, reg, dtype=torch.float32, device="cpu",
+                      init=False)
+    cpu.load_state_dict(best)
+    spec = next(reg[t] for t in reg.task_ids
+                if reg[t].task_name == "segmentation")
+    img = np.random.RandomState(11).randint(
+        0, 256, (1, SUBMIT_IMAGE, SUBMIT_IMAGE, 3)).astype(np.uint8)
+    norm = cfg.get("data.augmentation.normalize")
+    x = normalize_images(torch.from_numpy(img), norm["mean"], norm["std"])
+    _, err = compare_models(card, cpu, x, spec, 1e-3,
+                            f"{tag} f32 card vs cpu")
+    del card, cpu
+    torch.cuda.empty_cache()
+    log(f"{tag} backbone after the fit bitwise the checkpoint's: "
+        f"{len(want)} leaves; {spec.task_id} f32 card vs CPU err "
+        f"{err:.3e} (tol 1e-3 of the largest output) | {smi}")
+    return {"backbone_leaves": len(want), "card_vs_cpu_err": err}
+
+
+def verify_cli(tag, path):
+    """``python -m fmc_uia_tpu_torch.utils.convert --verify`` on the card,
+    in a subprocess: exit 0 and PASS."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fmc_uia_tpu_torch.utils.convert", "--verify",
+         path], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith("[verify]"):
+            log(f"{tag}   {line}")
+    if proc.returncode != 0 or "RESULT: PASS" not in proc.stdout:
+        fail(f"{tag} --verify {os.path.basename(path)}: exit "
+             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-2000:]}")
+    log(f"{tag} --verify {os.path.basename(path)}: PASS in {secs:.1f} s")
+    return secs
+
+
+def phase11(name, smi, report):
+    """The device-resident dataset cache, adaptive normalisation and
+    pretrained encoders from a local checkpoint (module docstring, phase
+    11). Returns each kernel's launches over the phase's fits."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fmc_uia_tpu_torch.flagship import (
+        dinov3_spm_config_dict,
+        flagship_config_dict,
+    )
+    from fmc_uia_tpu_torch.utils import timm_manifests as M
+
+    t11 = time.perf_counter()
+    totals = {c.__name__: 0 for c in all_kernels()}
+    rep = {}
+    seconds = {}
+    staged = report.get("train", {}).get("img_s")
+    streamed = [e["img_s"] for e in report.get("fit", {}).get("epochs", [])
+                if e["epoch"] > 1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase11_")
+    try:
+        base = flagship_config_dict()
+        root, gen_s, data_mb = write_flagship_frames(tmp, base["tasks"],
+                                                     "[cache]")
+        base["data"].update(root_path=root, fused_preprocess=True,
+                            device_cache=True)
+        base["experiment"].update(save_checkpoints=False)
+        base["validation"].update(enabled=True, freq=1)
+
+        # (a) phase 6's fit with the cache on
+        t0 = time.perf_counter()
+        tag = "[cache]"
+        d = copy.deepcopy(base)
+        d["experiment"]["output_dir"] = os.path.join(tmp, "out_a")
+        d["training"].update(num_epochs=2, steps_per_epoch=CACHE_FIT_STEPS)
+        r, fit_s, launches, (train, val), k3 = counted_fit(tag, d, totals)
+        cache = train.device_cache
+        if (cache is None or val.device_cache is not cache
+                or cache.skipped_tasks
+                or not cache.covers(train.indices + val.indices)):
+            fail(f"{tag} the cache does not cover every row")
+        steps = check_fit_launches(tag, r, launches, k3)
+        n_val, n_train = cached_batches_check(tag, d, cache)
+        epochs = epoch_rows(r)
+        last = epochs[-1]
+        rep["a"] = dict(staged_mb=cache.nbytes / 1e6, fit_s=fit_s,
+                        epochs=epochs, launches=launches, train_steps=steps,
+                        eval_batches=r["eval_batches"],
+                        bitwise_tasks=n_val, bitwise_train=n_train,
+                        staged_img_s=staged, streamed_img_s=streamed)
+        for e in epochs:
+            log(f"{tag} epoch {e['epoch']}: {e['steps']} steps in "
+                f"{e['loop_s']:.2f} s, {e['img_s']:.2f} img/s from the "
+                f"cache; queue wait "
+                f"{100 * e['queue_wait_share']:.2f} % of the loop; host "
+                f"{e['host_ms_per_batch']:.2f} ms (gather enqueue) + "
+                f"{e['put_ms_per_batch']:.2f} ms (put) per batch")
+        vs = (f"{last['img_s'] / staged:.3f} of phase 5 staged "
+              f"{staged:.2f}" if staged else "phase 5 not run")
+        log(f"{tag} staged {cache.nbytes / 1e6:.0f} MB of {data_mb:.0f} MB "
+            f"PNG; epoch 2 ({last['loop_s']:.2f} s) {last['img_s']:.2f} "
+            f"img/s = {vs}; phase 6 "
+            f"streaming {', '.join(f'{v:.2f}' for v in streamed) or 'not run'}"
+            f"; limit 0.9 of staged | {name} | {smi}")
+        seconds["a"] = time.perf_counter() - t0
+
+        # (b) a budget that forces partial staging
+        t0 = time.perf_counter()
+        tag = "[cache-partial]"
+        d = copy.deepcopy(base)
+        d["data"]["device_cache_budget_mb"] = CACHE_PARTIAL_MB
+        d["experiment"]["output_dir"] = os.path.join(tmp, "out_b")
+        d["training"].update(num_epochs=1, steps_per_epoch=CACHE_SHORT_STEPS)
+        r, fit_s, launches, (train, _), k3 = counted_fit(tag, d, totals)
+        cache = train.device_cache
+        if cache is None or not cache.skipped_tasks or not cache.position:
+            fail(f"{tag} a {CACHE_PARTIAL_MB} MB budget staged "
+                 f"{'nothing' if cache is None else 'every task'}")
+        check_fit_launches(tag, r, launches, k3)
+        rep["b"] = dict(budget_mb=CACHE_PARTIAL_MB,
+                        staged_mb=cache.nbytes / 1e6,
+                        streamed_tasks=list(cache.skipped_tasks),
+                        staged_tasks=len(cache._images), fit_s=fit_s,
+                        epochs=epoch_rows(r), launches=launches)
+        log(f"{tag} budget {CACHE_PARTIAL_MB} MB: {len(cache._images)} "
+            f"tasks staged ({cache.nbytes / 1e6:.0f} MB), "
+            f"{len(cache.skipped_tasks)} stream: {cache.skipped_tasks}; "
+            f"the fit finished; smoke timing (6 steps, warm-up included, "
+            f"not a throughput) {rep['b']['epochs'][-1]['img_s']:.2f} img/s")
+        seconds["b"] = time.perf_counter() - t0
+
+        # (c) adaptive normalisation, cached (f32 banks), K3 0
+        t0 = time.perf_counter()
+        tag = "[cache-adaptive]"
+        d = copy.deepcopy(base)
+        d["data"]["use_adaptive_norm"] = True
+        d["data"]["augmentation"]["normalize"] = {"mean": [0, 0, 0],
+                                                  "std": [1, 1, 1]}
+        d["validation"]["enabled"] = False
+        d["experiment"]["output_dir"] = os.path.join(tmp, "out_c")
+        d["training"].update(num_epochs=1, steps_per_epoch=CACHE_SHORT_STEPS)
+        r, fit_s, launches, (train, _), k3 = counted_fit(tag, d, totals)
+        cache = train.device_cache
+        if cache is None or any(b.dtype != torch.float32
+                                for b in cache._images.values()):
+            fail(f"{tag} the banks are not f32")
+        check_fit_launches(tag, r, launches, k3, adaptive=True)
+        rep["c"] = dict(staged_mb=cache.nbytes / 1e6, fit_s=fit_s,
+                        epochs=epoch_rows(r), launches=launches)
+        log(f"{tag} f32 banks {cache.nbytes / 1e6:.0f} MB; smoke timing "
+            f"(6 steps, warm-up included, not a throughput) "
+            f"{rep['c']['epochs'][-1]['img_s']:.2f} img/s; K3 0 launches")
+        del cache, train
+        torch.cuda.empty_cache()
+        seconds["c"] = time.perf_counter() - t0
+
+        # (d) the SPM preset from a DINOv3 ViT-L/16 checkpoint
+        t0 = time.perf_counter()
+        tag = "[pretrained-spm]"
+        dino_path = os.path.join(tmp, "dinov3_vitl16.pth")
+        mb = synth_checkpoint(M.dinov3_manifest(1024, 24, 16, 16, 4), 21,
+                              dino_path)
+        log(f"{tag} wrote a seeded DINOv3 ViT-L/16 checkpoint ({mb:.0f} MB)")
+        d = dinov3_spm_config_dict()
+        d["model"]["encoder"]["pretrained"] = dino_path
+        d["data"].update(root_path=root, fused_preprocess=True)
+        d["experiment"].update(output_dir=os.path.join(tmp, "out_d"),
+                               save_checkpoints=False)
+        d["validation"].update(enabled=True, freq=1)
+        d["training"].update(num_epochs=1, steps_per_epoch=PRETRAINED_STEPS)
+        r, fit_s, launches, _, k3 = counted_fit(tag, d, totals)
+        steps = sum(e["steps"] for e in r["epoch_stats"])
+        want = {c.__name__: 0 for c in all_kernels()}
+        want["augment_normalize"] = steps
+        if launches != want:
+            fail(f"{tag} launches {launches} != {want}")
+        rep["d"] = dict(checkpoint_mb=mb, fit_s=fit_s, launches=launches,
+                        **spm_pretrained_check(tag, d, r, dino_path, smi))
+        seconds["d"] = time.perf_counter() - t0
+
+        # (e) the flagship from a swin_b window-12 checkpoint (window 8)
+        t0 = time.perf_counter()
+        tag = "[pretrained-swin]"
+        swin_path = os.path.join(tmp, "swin_base_patch4_window12.pth")
+        mb = synth_checkpoint(M.swin_manifest(128, (2, 2, 18, 2),
+                                              (4, 8, 16, 32), 12), 22,
+                              swin_path)
+        d = copy.deepcopy(base)
+        d["data"]["device_cache"] = False
+        d["model"]["encoder"]["pretrained"] = swin_path
+        d["validation"]["enabled"] = False
+        d["experiment"]["output_dir"] = os.path.join(tmp, "out_e")
+        d["training"].update(num_epochs=1, steps_per_epoch=PRETRAINED_STEPS)
+        r, fit_s, launches, _, k3 = counted_fit(tag, d, totals)
+        check_fit_launches(tag, r, launches, k3)
+        rep["e"] = dict(checkpoint_mb=mb, fit_s=fit_s, launches=launches)
+        log(f"{tag} swin_b window 12 ({mb:.0f} MB): its relative-position "
+            f"tables resampled 23² -> 15² on load; {PRETRAINED_STEPS} steps")
+        seconds["e"] = time.perf_counter() - t0
+
+        # (f) the --verify CLI on both files
+        t0 = time.perf_counter()
+        rep["f"] = {os.path.basename(p): verify_cli("[verify]", p)
+                    for p in (dino_path, swin_path)}
+        seconds["f"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep.update(seconds=seconds, launches=totals,
+               total_s=time.perf_counter() - t11)
+    report["phase11"] = rep
+    log(f"[phase11] {rep['total_s']:.1f} s (gen {gen_s:.1f}; "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"); launches over its fits: {totals}")
+    return totals
+
+
+def phase11_main() -> int:
+    """``--phase11``: the kernels' build and phase 11 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from fmc_uia_tpu_torch.ops import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    report = {}
+    smi = nvidia_smi_line()
+    totals = phase11(torch.cuda.get_device_name(0), smi, report)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_phase11.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps({"phase11_s": report["phase11"]["total_s"],
+                      "launches": totals, "card": smi}))
+    return 0
+
+
 def kinks_main() -> int:
     """``--kinks``: what each kind of kink explains in the SPM preset's
     grad check (phase 10c): the check's pair and batches, the card's step
@@ -3554,6 +4037,8 @@ def main() -> int:
         return k3_main()
     if sys.argv[1:] == ["--kinks"]:
         return kinks_main()
+    if sys.argv[1:] == ["--phase11"]:
+        return phase11_main()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; nothing to drive",
               file=sys.stderr)
@@ -3784,6 +4269,9 @@ def main() -> int:
     finally:
         shutil.rmtree(data_tmp, ignore_errors=True)
     spm_launches = report.pop("spm_launches")
+    # -- 11. the device cache, adaptive normalisation, pretrained encoders ---
+    torch.cuda.empty_cache()
+    phase11_launches = phase11(name, smi, report)
 
     # -- kernels line ----------------------------------------------------------
     def entry(kname, source, replaces, count):
@@ -3868,8 +4356,12 @@ def main() -> int:
     ]
     # phase 10's path (its serving run, timed training and fit): K3 once a
     # fit step, no other kernel
+    # phase 11's fits (the cache, partial staging, adaptive normalisation,
+    # the two pretrained fits): K3 once a step but under adaptive
+    # normalisation, the Swin kernels on the flagship fits, no K4
     for e in kernels:
         e["launches_spm"] = spm_launches[e["name"]]
+        e["launches_phase11"] = phase11_launches[e["name"]]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

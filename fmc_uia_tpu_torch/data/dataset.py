@@ -16,6 +16,14 @@ whose cells all parse as numbers holds floats, any other holds strings; an
 empty cell, pandas' NA strings and an absent column are missing
 (``pd.notna`` false). Images and masks are decoded by ``image_io`` (no cv2,
 PIL or pandas).
+
+``data.use_adaptive_norm`` standardises each frame on the host over its
+valid (non-background) region, as the JAX package does with cv2; here in
+numpy (``detect_valid_mask``, ``adaptive_normalize``), to cv2's numbers:
+Otsu's threshold as ``THRESH_OTSU`` picks it, the 5x5 ellipse, closing and
+opening with a border that neither dilates nor erodes, and the Gaussian
+adaptive threshold with its mean rounded to uint8. The frames are then
+f32, resized as cv2 resizes float images.
 """
 
 from __future__ import annotations
@@ -29,9 +37,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from fmc_uia_tpu_torch.data.image_io import (
+    Undecodable,
     read_image,
     read_mask,
     resize_bilinear,
+    resize_bilinear_f32,
     resize_nearest,
     to_grayscale_3ch,
 )
@@ -76,7 +86,125 @@ def read_index(csv_files: Sequence[str]) -> List[Dict]:
 def _resize_image(img: np.ndarray, size: int) -> np.ndarray:
     if img.shape[0] == size and img.shape[1] == size:
         return img
+    if img.dtype == np.float32:
+        return resize_bilinear_f32(img, size, size)
     return resize_bilinear(img, size, size)
+
+
+# cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (5, 5))
+_ELLIPSE_5 = np.array([[0, 0, 1, 0, 0],
+                       [1, 1, 1, 1, 1],
+                       [1, 1, 1, 1, 1],
+                       [1, 1, 1, 1, 1],
+                       [0, 0, 1, 0, 0]], bool)
+_ADAPTIVE_BLOCK = 51  # cv2.adaptiveThreshold(..., GAUSSIAN_C, 51, -10)
+_ADAPTIVE_C = 10
+
+
+def otsu_threshold(gray: np.ndarray) -> float:
+    """cv2's ``THRESH_OTSU`` threshold of a uint8 image: the first level
+    of largest between-class variance, in cv2's order of f64 operations
+    (``getThreshVal_Otsu_8u``)."""
+    hist = np.bincount(gray.ravel(), minlength=256).tolist()
+    scale = 1.0 / gray.size
+    mu = 0.0
+    for i in range(256):
+        mu += i * float(hist[i])
+    mu *= scale
+    eps = float(np.finfo(np.float32).eps)
+    mu1 = q1 = max_sigma = 0.0
+    max_val = 0
+    for i in range(256):
+        p_i = hist[i] * scale
+        mu1 *= q1
+        q1 += p_i
+        q2 = 1.0 - q1
+        if min(q1, q2) < eps or max(q1, q2) > 1.0 - eps:
+            continue
+        mu1 = (mu1 + i * p_i) / q1
+        mu2 = (mu - q1 * mu1) / q2
+        sigma = q1 * q2 * (mu1 - mu2) * (mu1 - mu2)
+        if sigma > max_sigma:
+            max_sigma, max_val = sigma, i
+    return float(max_val)
+
+
+def _gaussian_mean_u8(gray: np.ndarray) -> np.ndarray:
+    """The mean of cv2's Gaussian adaptive threshold: the 51-tap Gaussian
+    (sigma 0.3 * ((51 - 1) * 0.5 - 1) + 0.8 = 8) over the f32 image with a
+    replicated border, rows then columns, rounded to uint8."""
+    r = _ADAPTIVE_BLOCK // 2
+    sigma = 0.3 * ((_ADAPTIVE_BLOCK - 1) * 0.5 - 1) + 0.8
+    x = np.arange(_ADAPTIVE_BLOCK) - r
+    k = np.exp(-0.5 / (sigma * sigma) * x * x)
+    k = (k / k.sum()).astype(np.float32)
+    pad = np.pad(gray.astype(np.float32), r, mode="edge")
+    view = np.lib.stride_tricks.sliding_window_view
+    rows = view(pad, _ADAPTIVE_BLOCK, axis=1) @ k
+    blur = view(rows, _ADAPTIVE_BLOCK, axis=0) @ k
+    return np.clip(np.rint(blur), 0, 255).astype(np.uint8)
+
+
+def _morph(mask: np.ndarray, dilate: bool) -> np.ndarray:
+    """cv2 dilate / erode of a bool mask by the 5x5 ellipse; the border is
+    neutral (absent for a dilation, set for an erosion), as the default
+    border of ``cv2.morphologyEx``."""
+    H, W = mask.shape
+    pad = np.pad(mask, 2, constant_values=not dilate)
+    out = None
+    for dy, dx in zip(*np.nonzero(_ELLIPSE_5)):
+        win = pad[dy:dy + H, dx:dx + W]
+        if out is None:
+            out = win.copy()
+        elif dilate:
+            out |= win
+        else:
+            out &= win
+    return out
+
+
+def detect_valid_mask(image: np.ndarray, bg_threshold="auto") -> np.ndarray:
+    """The valid (non-background) region of an ultrasound frame, as the
+    JAX package's cv2 branch finds it: a threshold (``'auto'``: Otsu's
+    level x 0.5, at least 10; ``'adaptive'``: above the Gaussian local
+    mean by more than 10; a number: above it), then closing and opening by
+    the 5x5 ellipse; under 10 % coverage, ``gray > 5``."""
+    gray = image[:, :, 0]
+    if gray.dtype != np.uint8:
+        gray = (np.clip(gray, 0, 1) * 255).astype(np.uint8)
+    if bg_threshold == "auto":
+        threshold = 10
+        if (gray > 5).sum() > 0:
+            threshold = max(otsu_threshold(gray) * 0.5, 10)
+        mask = gray > threshold
+    elif bg_threshold == "adaptive":
+        mask = (gray.astype(np.int16) - _gaussian_mean_u8(gray)
+                > _ADAPTIVE_C)
+    else:
+        mask = gray > float(bg_threshold)
+    mask = _morph(_morph(mask, dilate=True), dilate=False)   # close
+    mask = _morph(_morph(mask, dilate=False), dilate=True)   # open
+    if mask.sum() < mask.size * 0.1:
+        mask = gray > 5
+    return mask.astype(bool)
+
+
+def adaptive_normalize(image: np.ndarray, bg_threshold="auto"
+                       ) -> np.ndarray:
+    """f32 [H, W, C] of ``image``/255 standardised per channel over the
+    valid region (f32 mean and std; a std below 1e-6 counts as 1); the
+    background keeps ``image``/255."""
+    valid = detect_valid_mask(image, bg_threshold)
+    out = image.astype(np.float32) / 255.0
+    if valid.sum() > 0:
+        for c in range(out.shape[2]):
+            pixels = out[:, :, c][valid]
+            mean = pixels.mean()
+            std = pixels.std()
+            if std < 1e-6:
+                std = 1.0
+            out[:, :, c][valid] = (pixels - mean) / std
+    return out
 
 
 def _resize_mask(mask: np.ndarray, size: int) -> np.ndarray:
@@ -94,8 +222,9 @@ class MultiTaskDataset:
       max_reg_points: pad regression labels to this many points (per-type
         head-bank padding); defaults to the max seen in the index.
       force_grayscale: luma replicated to 3 channels.
-      use_adaptive_norm: not ported (it needs cv2's Otsu threshold and
-        morphology); True raises.
+      use_adaptive_norm: gray frames standardised over their valid region
+        (``adaptive_normalize``), f32.
+      bg_threshold: the valid region's threshold (``detect_valid_mask``).
       cache_samples: keep decoded + resized samples in host RAM (every
         step of an item is deterministic, so the sample is a pure function
         of its row).
@@ -105,16 +234,13 @@ class MultiTaskDataset:
                  max_reg_points: Optional[int] = None,
                  force_grayscale: bool = False,
                  use_adaptive_norm: bool = False,
+                 bg_threshold="auto",
                  cache_samples: bool = False):
-        if use_adaptive_norm:
-            raise NotImplementedError(
-                "data.use_adaptive_norm (per-image adaptive normalization: "
-                "cv2's Otsu threshold and morphology) is not ported to "
-                "fmc_uia_tpu_torch yet (ROADMAP.md, port queue item 'Data "
-                "pipeline')")
         self.data_root = data_root
         self.image_size = int(image_size)
         self.force_grayscale = bool(force_grayscale)
+        self.use_adaptive_norm = bool(use_adaptive_norm)
+        self.bg_threshold = bg_threshold
         self.cache_samples = bool(cache_samples)
         self._sample_cache: Dict[int, Dict] = {}
         self.csv_path = os.path.join(data_root, "csv_files")
@@ -171,16 +297,23 @@ class MultiTaskDataset:
             # skip-corrupt-image retry (the neighbour's sample, stamped
             # with its own source_index)
             return self[(idx + 1) % len(self)]
-        if self.force_grayscale:
+        if self.force_grayscale or self.use_adaptive_norm:
             image = to_grayscale_3ch(image)
+        if self.use_adaptive_norm:
+            image = adaptive_normalize(image, self.bg_threshold)
         orig_h, orig_w = image.shape[:2]
         image = _resize_image(image, S)
 
         if task_name == "segmentation":
             mask = None
             if record.get("mask_path") is not None:
-                mask = read_mask(os.path.normpath(
-                    os.path.join(self.csv_path, record["mask_path"])))
+                try:
+                    mask = read_mask(os.path.normpath(os.path.join(
+                        self.csv_path, record["mask_path"])))
+                except Undecodable:
+                    # an interlaced mask no installed decoder reads: the
+                    # corrupt-image retry, not an all-background label
+                    return self[(idx + 1) % len(self)]
             if mask is None:
                 label = np.zeros((S, S), np.int32)
             else:

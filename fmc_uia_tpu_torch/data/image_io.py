@@ -14,8 +14,10 @@ first use, loaded with ctypes, which also releases the GIL). Colour types
   luma weights of ``to_grayscale_3ch`` (libpng's own conversion inside
   cv2 may differ from these by 1).
 
-Interlaced PNGs raise, naming the file. A file that is not a PNG is read
-with cv2 or PIL when one of them is importable, and raises otherwise. A
+An interlaced PNG, which ``decode_png`` refuses, is read with cv2 or PIL
+when one of them is importable (as the JAX package reads it); without
+both it gives None, with one message a process naming interlacing. A file
+that is not a PNG is read with cv2 or PIL too, and raises without both. A
 corrupt or missing file gives None, as the JAX package's ``_decode_image``
 does, so that the dataset's skip-to-next retry works.
 
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
+import threading
 import zlib
 from typing import Optional, Sequence
 
@@ -44,6 +47,19 @@ _LUMA = (9798, 19235, 3735)
 
 class _Corrupt(Exception):
     """A PNG stream that cannot be decoded."""
+
+
+class _Interlaced(ValueError):
+    """An Adam7-interlaced PNG, which ``decode_png`` does not decode."""
+
+
+class Undecodable(ValueError):
+    """An interlaced PNG where neither cv2 nor PIL is installed to decode
+    it: no other reader of this process can read the file either."""
+
+
+_interlace_noted = False  # the one message a process, under the lock
+_interlace_lock = threading.Lock()
 
 
 def _lib():
@@ -99,8 +115,8 @@ def _unpack_bits(rows: np.ndarray, depth: int, width: int) -> np.ndarray:
 def decode_png(data: bytes, gray: bool, name: str = "<bytes>"
                ) -> np.ndarray:
     """Decode PNG bytes to uint8 RGB [H, W, 3] or, with ``gray``, [H, W].
-    Raises ``ValueError`` on an interlaced image and ``_Corrupt`` on a
-    stream that cannot be decoded."""
+    Raises ``_Interlaced`` (a ``ValueError``) on an interlaced image and
+    ``_Corrupt`` on a stream that cannot be decoded."""
     if not data.startswith(PNG_SIGNATURE):
         raise _Corrupt("not a PNG")
     hdr, palette, idat = None, None, []
@@ -117,7 +133,7 @@ def decode_png(data: bytes, gray: bool, name: str = "<bytes>"
         raise _Corrupt("no IHDR")
     width, height, depth, ctype, _, _, interlace = hdr
     if interlace:
-        raise ValueError(f"{name}: interlaced PNGs are not supported")
+        raise _Interlaced(f"{name}: interlaced PNGs are not supported")
     if ctype not in _CHANNELS or depth not in (1, 2, 4, 8, 16) or (
             depth < 8 and ctype not in (0, 3)) or (depth == 16 and ctype == 3):
         raise _Corrupt(f"colour type {ctype} at {depth} bits")
@@ -169,11 +185,17 @@ def _read(path: str, gray: bool) -> Optional[np.ndarray]:
             return decode_png(data, gray, path)
         except _Corrupt:
             return None
+        except _Interlaced:
+            return _read_other(path, data, gray, interlaced=True)
     return _read_other(path, data, gray)
 
 
-def _read_other(path: str, data: bytes, gray: bool) -> Optional[np.ndarray]:
-    """A file that is not a PNG, through cv2 or else PIL."""
+def _read_other(path: str, data: bytes, gray: bool,
+                interlaced: bool = False) -> Optional[np.ndarray]:
+    """A file that is not a PNG, or an interlaced PNG, through cv2 or else
+    PIL; None where it fails to decode. Without both, an interlaced PNG
+    raises ``Undecodable`` (printed once a process) and any other file
+    ``ValueError``."""
     try:
         import cv2
     except ImportError:
@@ -187,6 +209,15 @@ def _read_other(path: str, data: bytes, gray: bool) -> Optional[np.ndarray]:
     try:
         from PIL import Image
     except ImportError:
+        if interlaced:
+            global _interlace_noted
+            with _interlace_lock:
+                first, _interlace_noted = not _interlace_noted, True
+            if first:
+                print(f"[data] {path}: an interlaced PNG, and neither cv2 "
+                      "nor PIL is installed to decode it; skipped (as is "
+                      "every interlaced PNG after it, without a message)")
+            raise Undecodable(f"{path}: an interlaced PNG") from None
         raise ValueError(f"{path}: not a PNG, and neither cv2 nor PIL is "
                          "installed to decode it") from None
     import io
@@ -199,12 +230,20 @@ def _read_other(path: str, data: bytes, gray: bool) -> Optional[np.ndarray]:
 
 
 def read_image(path: str) -> Optional[np.ndarray]:
-    """Decode an image file to RGB uint8 [H, W, 3]; None on failure."""
-    return _read(path, gray=False)
+    """Decode an image file to RGB uint8 [H, W, 3]; None on failure (an
+    ``Undecodable`` file included)."""
+    try:
+        return _read(path, gray=False)
+    except Undecodable:
+        return None
 
 
 def read_mask(path: str) -> Optional[np.ndarray]:
-    """Decode a mask file to uint8 [H, W]; None on failure."""
+    """Decode a mask file to uint8 [H, W]; None on failure (a missing or
+    corrupt mask, which the dataset turns into a zero label as the JAX
+    package does). Raises ``Undecodable``, so that the dataset skips the
+    row rather than train on an all-background label: the JAX package's
+    cv2 decodes such a mask."""
     return _read(path, gray=True)
 
 
@@ -288,6 +327,32 @@ def _resize(img: np.ndarray, dh: int, dw: int, fn) -> np.ndarray:
 def resize_bilinear(img: np.ndarray, dh: int, dw: int) -> np.ndarray:
     """Bilinear uint8 HWC (or HW) resize, cv2 INTER_LINEAR's conventions."""
     return _resize(img, dh, dw, _lib().resize_bilinear_u8)
+
+
+def _linear_taps(n_out: int, n_in: int):
+    """cv2 INTER_LINEAR's source taps and f32 weight along one axis:
+    half-pixel centres, a tap left of the first pixel or on the last one
+    clamped with weight 0."""
+    f = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    w = f - i0.astype(np.float32)
+    edge = (i0 < 0) | (i0 >= n_in - 1)
+    w[edge] = 0.0
+    i0 = np.clip(i0, 0, n_in - 1)
+    return i0, np.minimum(i0 + 1, n_in - 1), w
+
+
+def resize_bilinear_f32(img: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    """Bilinear resize of an f32 HWC image (``data.use_adaptive_norm``'s
+    standardised frames), as cv2 INTER_LINEAR resizes float images: f32
+    weights, rows then columns, no rounding."""
+    img = np.asarray(img, np.float32)
+    y0, y1, wy = _linear_taps(dh, img.shape[0])
+    x0, x1, wx = _linear_taps(dw, img.shape[1])
+    wx = wx[:, None] if img.ndim == 3 else wx
+    rows = img[:, x0] * (np.float32(1) - wx) + img[:, x1] * wx
+    wy = wy.reshape((dh,) + (1,) * (rows.ndim - 1))
+    return rows[y0] * (np.float32(1) - wy) + rows[y1] * wy
 
 
 def resize_nearest(img: np.ndarray, dh: int, dw: int) -> np.ndarray:

@@ -6,6 +6,8 @@ ahead of the device by a producer thread. Every train batch is single-task
 (the sampler's invariant); val batches are grouped per task too, padded to
 the batch size with a ``valid`` mask. The decode, inflate and resize calls
 release the GIL (``image_io``), so the pool's threads run in parallel.
+With ``data.device_cache`` the rows a device cache covers are gathered on
+the card instead (``data/device_cache.py``).
 """
 
 from __future__ import annotations
@@ -19,8 +21,12 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from fmc_uia_tpu_torch.data.dataset import MultiTaskDataset
+from fmc_uia_tpu_torch.data.device_cache import (
+    _narrow_labels,
+    build_device_cache,
+)
 from fmc_uia_tpu_torch.data.sampler import MultiTaskUniformSampler
-from fmc_uia_tpu_torch.tasks import SEGMENTATION, TaskRegistry
+from fmc_uia_tpu_torch.tasks import TaskRegistry
 
 _ITEM = ("{what} is not ported to fmc_uia_tpu_torch yet (ROADMAP.md, port "
          "queue item '{item}')")
@@ -47,16 +53,6 @@ def split_train_val(task_ids: Sequence[str], val_split: float, seed: int
     rng.shuffle(train_indices)
     rng.shuffle(val_indices)
     return train_indices, val_indices
-
-
-def _narrow_labels(task_name: str, labels: np.ndarray,
-                   num_classes: int) -> np.ndarray:
-    """Segmentation masks are class ids < 256: ship them as uint8 (4x fewer
-    host->device bytes); the consumers widen them on the device."""
-    if (task_name == SEGMENTATION and labels.dtype == np.int32
-            and num_classes <= 255):
-        return labels.astype(np.uint8)
-    return labels
 
 
 def _collate(samples: Sequence[Dict], registry: TaskRegistry,
@@ -88,6 +84,8 @@ class DataEngine:
     ``put_fn``, when set, is applied to each batch on the producer thread;
     ``fit`` points it at ``Trainer.put_batch`` so that the batch's
     host->device copy is enqueued before the step loop asks for it.
+    ``device_cache``, when set, gathers the batches whose rows it covers on
+    the device (its tensors pass ``put_batch`` without a copy).
     ``stats`` holds the last iteration's counts: batches and their images
     (a train batch of a task with fewer than half a batch of rows holds
     fewer than ``batch_size``: the sampler's wraparound takes each row at
@@ -117,6 +115,7 @@ class DataEngine:
         self.drop_last = drop_last
         self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
         self.put_fn = None
+        self.device_cache = None
         self.stats: Dict[str, float] = {}
 
     def __len__(self) -> int:
@@ -160,6 +159,8 @@ class DataEngine:
             # pad the final chunk to the fixed batch size (repeat the last
             # row): every batch has one shape
             rows = rows + [rows[-1]] * (self.batch_size - n_valid)
+        if self.device_cache is not None and self.device_cache.covers(rows):
+            return self.device_cache.get_batch(rows, n_valid=n_valid)
         samples = list(self._pool.map(self.dataset.__getitem__, rows))
         return _collate(samples, self.registry, n_valid=n_valid)
 
@@ -229,21 +230,20 @@ class DataEngine:
 
 
 def build_data_engines(config, registry: Optional[TaskRegistry] = None,
-                       mesh=None
+                       mesh=None, device="cuda"
                        ) -> Tuple[DataEngine, DataEngine, TaskRegistry]:
     """Train/val engines from the config, with the single-task filter and
-    the dataset-derived task list written into the config."""
+    the dataset-derived task list written into the config. With
+    ``data.device_cache`` both engines share one ``DeviceDatasetCache`` on
+    ``device`` (budget ``data.device_cache_budget_mb``, default 4096)."""
     if mesh is not None:
         raise NotImplementedError(_ITEM.format(
             what="data-parallel meshes", item="Parallel modes"))
-    if bool(config.get("data.device_cache", False)):
-        raise NotImplementedError(_ITEM.format(
-            what="data.device_cache (the device-resident dataset cache)",
-            item="Data pipeline"))
     dataset = MultiTaskDataset(
         config.data_root, image_size=config.image_size,
         force_grayscale=bool(config.get("data.force_grayscale", False)),
         use_adaptive_norm=bool(config.get("data.use_adaptive_norm", False)),
+        bg_threshold=config.get("data.bg_threshold", "auto"),
         cache_samples=bool(config.get("data.cache_samples", False)),
     )
     task_configs = dataset.derive_task_configs()
@@ -311,4 +311,17 @@ def build_data_engines(config, registry: Optional[TaskRegistry] = None,
         shuffle_sampler=None, num_workers=config.num_workers,
         drop_last=False,
     )
+    if bool(config.get("data.device_cache", False)):
+        budget = int(config.get("data.device_cache_budget_mb", 4096))
+        cache = build_device_cache(dataset, list(train_idx) + list(val_idx),
+                                   registry, budget * (1 << 20),
+                                   device=device,
+                                   workers=config.num_workers)
+        if cache is not None:
+            train_engine.device_cache = cache
+            val_engine.device_cache = cache
+            note = (f" ({len(cache.skipped_tasks)} task(s) stream)"
+                    if cache.skipped_tasks else "")
+            print(f"[data] device dataset cache: {cache.nbytes / 1e6:.0f} MB"
+                  f" staged to device memory{note}")
     return train_engine, val_engine, registry

@@ -22,8 +22,13 @@ Differences from the JAX package:
   replays the scheduler); the sampler is fast-forwarded as there.
 - ``experiment.compile_cache`` has no counterpart (PyTorch runs eagerly;
   the CUDA kernels build once per checkout into ``build/``).
-- Not ported, raising or saying so (ROADMAP.md): device meshes, loading a
-  pretrained encoder from a path, the training-curve plots.
+- ``model.encoder.pretrained`` (a local checkpoint path) is loaded by
+  ``utils/convert.load_pretrained_into``, where the JAX package loads it:
+  after the model is built, before the optimizer and any resume.
+- With ``data.device_cache`` the data engines gather the batches on the
+  card from banks staged once (``data/device_cache.py``); the best-model
+  evaluation on the train split reads the same banks.
+- Not ported, raising (ROADMAP.md): device meshes.
 
 CLI: ``python -m fmc_uia_tpu_torch --config <yaml> [--resume] [--device]``.
 """
@@ -51,11 +56,13 @@ from fmc_uia_tpu_torch.models import build_model
 from fmc_uia_tpu_torch.ops.image import input_prep_fns
 from fmc_uia_tpu_torch.train import _NOT_PORTED, Trainer
 from fmc_uia_tpu_torch.utils.common import count_parameters, set_seed
-from fmc_uia_tpu_torch.utils.logger import TrainingLogger
+from fmc_uia_tpu_torch.utils.convert import load_pretrained_into
+from fmc_uia_tpu_torch.utils.logger import (
+    TrainingLogger,
+    plot_comprehensive_training_curves,
+    plot_training_curves,
+)
 from fmc_uia_tpu_torch.utils.profiling import ProfileTrace, StepTimer
-
-_FIT_ITEM = "Fit, logging, evaluation"
-
 
 class _PreemptionGuard:
     """Preemption-safe training: set a flag on SIGTERM, act at a safe point.
@@ -217,11 +224,6 @@ def fit(config_path: Optional[str] = None, config=None,
     if mesh is not None or config.get("parallel.mesh"):
         raise NotImplementedError(_NOT_PORTED.format(
             what="device meshes (parallel.mesh)", item="Parallel modes"))
-    pretrained = config.get("model.encoder.pretrained")
-    if isinstance(pretrained, str) and pretrained not in ("", "none"):
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="loading a pretrained encoder from a checkpoint path "
-            "(model.encoder.pretrained)", item=_FIT_ITEM))
     set_seed(config.seed)
 
     # --resume continues the checkpoint's own experiment dir
@@ -231,12 +233,19 @@ def fit(config_path: Optional[str] = None, config=None,
         config.output_dir, config.exp_name,
         existing_dir=resume_found[0].parent if resume_found else None)
 
-    train_engine, val_engine, registry = build_data_engines(config)
+    train_engine, val_engine, registry = build_data_engines(config,
+                                                            device=dev)
     # the snapshot holds the dataset-derived task list
     logger.save_config(config.config)
     model = build_model(config, registry, device=dev)
     print(f"Model parameters: {count_parameters(model):,}")
-    if pretrained is True:
+    pretrained = config.get("model.encoder.pretrained")
+    if isinstance(pretrained, str) and pretrained not in ("", "none"):
+        load_pretrained_into(model.encoder,
+                             str(config.get("model.encoder.name")),
+                             pretrained)
+        print(f"Loaded pretrained encoder weights from {pretrained}")
+    elif pretrained is True:
         print("WARNING: model.encoder.pretrained=true requests a timm "
               "download (reference behavior); this environment has no "
               "egress — set it to a local checkpoint path instead. "
@@ -367,6 +376,7 @@ def fit(config_path: Optional[str] = None, config=None,
                 train_engine.dataset, train_engine.indices, registry,
                 config.batch_size, shuffle_sampler=None,
                 num_workers=config.num_workers, drop_last=False)
+            train_eval_engine.device_cache = train_engine.device_cache
             try:
                 rows = evaluate(model, train_eval_engine, registry, mean,
                                 std, prep=eval_prep, device=dev)
@@ -384,8 +394,11 @@ def fit(config_path: Optional[str] = None, config=None,
         train_engine.close()
         val_engine.close()
 
-    print(_NOT_PORTED.format(what="Plotting the training curves",
-                             item=_FIT_ITEM))
+    try:
+        plot_training_curves(ckpt_dir)
+        plot_comprehensive_training_curves(ckpt_dir)
+    except Exception as e:  # matplotlib absent, say: the fit has finished
+        print(f"Could not generate training curves plot: {e}")
     print(f"\nTraining complete. Best score {best_val_score:.4f} "
           f"(epoch {best_epoch}). Logs: {ckpt_dir}")
     return {

@@ -47,6 +47,7 @@ from fmc_uia_tpu_torch.ops import build
 _LN_EPS = 1e-6
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 _GELU_K = math.sqrt(2.0 / math.pi)
+MAX_WINDOW = 8  # K1's largest window: ws * ws <= 64 tokens
 
 
 def _q(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -306,8 +307,9 @@ def _attn_kernel_args(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     B, Hp, Wp, C = x.shape
     N = bias_hnn.shape[-1]
     ws = math.isqrt(N)
-    if ws * ws != N or N > 64:
-        raise ValueError(f"window of {N} tokens: need ws*ws with ws <= 8")
+    if ws * ws != N or ws > MAX_WINDOW:
+        raise ValueError(f"window of {N} tokens: need ws*ws with ws <= "
+                         f"{MAX_WINDOW}")
     if Hp % ws or Wp % ws:
         raise ValueError(f"padded grid ({Hp},{Wp}) not divisible by {ws}")
     if C % num_heads or C // num_heads > 32:

@@ -14,7 +14,17 @@ same columns:
   best_model_summary.txt  best-model train-set evaluation
 
 CSVs are written with ``csv`` (a missing value is an empty cell, as pandas
-writes NaN). The plots of the JAX package are not ported (ROADMAP.md).
+writes NaN). The JAX package's training-curve plots are drawn from those
+CSVs, read with ``csv`` (pandas' grouped means: keys sorted, missing
+values skipped), by ``plot_training_curves`` and
+``plot_comprehensive_training_curves``; matplotlib is imported inside them
+only:
+
+  training_curves.png                 loss, lr, epoch time, mean val metric
+  training_loss_per_task.png          2x3: loss per task group + average
+  validation_metrics_per_task.png     2x3: primary metric per group + avg
+  training_summary_comprehensive.png  2x2: train/val by group, per task,
+                                      lr and epoch time
 """
 
 from __future__ import annotations
@@ -252,3 +262,237 @@ class TrainingLogger:
         with open(self.experiment_dir / "best_model_summary.txt", "w",
                   encoding="utf-8") as f:
             f.write("\n".join(lines) + "\n")
+
+
+# ---------------------------------------------------------------------------
+# training-curve plots
+# ---------------------------------------------------------------------------
+def _read_csv(path: Path) -> List[Dict]:
+    """Rows of a CSV this logger wrote: ``epoch`` as int, the numeric
+    columns as float (an empty cell NaN), the rest as strings."""
+    if not path.exists():
+        return []
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    text = ("task_id", "task_name", "metric", "scope", "key")
+    for r in rows:
+        for k, v in r.items():
+            if k == "epoch":
+                r[k] = int(v)
+            elif k not in text:
+                r[k] = float(v) if v != "" else math.nan
+    return rows
+
+
+def _mean_by(rows: List[Dict], key: str, col: str):
+    """``groupby(key)[col].mean()``: the sorted keys and the means over
+    the present values (NaN where a key has none)."""
+    groups: Dict = {}
+    for r in rows:
+        groups.setdefault(r[key], []).append(r[col])
+    keys = sorted(groups)
+    means = []
+    for k in keys:
+        vals = [v for v in groups[k] if not math.isnan(v)]
+        means.append(sum(vals) / len(vals) if vals else math.nan)
+    return keys, means
+
+
+def plot_training_curves(experiment_dir) -> None:
+    """The 4-panel basic curves (``training_curves.png``)."""
+    experiment_dir = Path(experiment_dir)
+    if not (experiment_dir / "training_summary.csv").exists():
+        return
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    summary = _read_csv(experiment_dir / "training_summary.csv")
+    epochs = [r["epoch"] for r in summary]
+    fig, axes = plt.subplots(2, 2, figsize=(12, 8))
+    axes[0, 0].plot(epochs, [r["avg_train_loss"] for r in summary])
+    axes[0, 0].set_title("Avg train loss")
+    axes[0, 1].plot(epochs, [r["learning_rate"] for r in summary])
+    axes[0, 1].set_title("Learning rate")
+    axes[0, 1].set_yscale("log")
+    axes[1, 0].plot(epochs, [r["epoch_time"] for r in summary])
+    axes[1, 0].set_title("Epoch time (s)")
+    if (experiment_dir / "val_metrics.csv").exists():
+        val = _read_csv(experiment_dir / "val_metrics.csv")
+        axes[1, 1].plot(*_mean_by(val, "epoch", "value"))
+        axes[1, 1].set_title("Mean val metric")
+    for ax in axes.flat:
+        ax.set_xlabel("epoch")
+        ax.grid(alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(experiment_dir / "training_curves.png", dpi=120)
+    plt.close(fig)
+
+
+_GROUPS = ("classification", "segmentation", "detection", "regression")
+_GROUP_COLORS = {"classification": "#1f77b4", "segmentation": "#ff7f0e",
+                 "detection": "#2ca02c", "regression": "#d62728"}
+_AVG_COLOR = "#9467bd"
+_PRIMARY_METRICS = {  # per-group primary validation metric
+    "classification": ("Accuracy", "F1-Score"),
+    "segmentation": ("Dice", "IoU"),
+    "detection": ("IoU",),
+    "regression": ("MAE (pixels)", "MAE"),
+}
+
+
+def _group_of(task_name: str) -> Optional[str]:
+    tn = str(task_name).lower()
+    for g in _GROUPS:
+        if g in tn:
+            return g
+    return None
+
+
+def plot_comprehensive_training_curves(experiment_dir) -> None:
+    """The three per-group figures (``training_loss_per_task.png``,
+    ``validation_metrics_per_task.png`` when there are validation rows,
+    ``training_summary_comprehensive.png``)."""
+    experiment_dir = Path(experiment_dir)
+    if not (experiment_dir / "train_losses.csv").exists():
+        return
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    losses = _read_csv(experiment_dir / "train_losses.csv")
+    val = _read_csv(experiment_dir / "val_metrics.csv")
+    summary = _read_csv(experiment_dir / "training_summary.csv")
+    tid_group = {r["task_id"]: _group_of(r["task_name"]) for r in val}
+    group_loss = {g: _mean_by([r for r in losses
+                               if tid_group.get(r["task_id"]) == g],
+                              "epoch", "mean") for g in _GROUPS}
+    avg_loss = _mean_by(losses, "epoch", "mean")
+
+    # ---- figure 1: training loss per group + average -------------------
+    fig, axes = plt.subplots(2, 3, figsize=(18, 10))
+    fig.suptitle("Training Loss - Per Group & Average", fontsize=16,
+                 fontweight="bold")
+    panels = list(_GROUPS) + ["average", "all"]
+    for ax, panel in zip(axes.flat, panels):
+        if panel == "average":
+            ax.plot(*avg_loss, color=_AVG_COLOR, marker="s", markersize=3)
+            ax.set_title("Average (all tasks)")
+        elif panel == "all":
+            for g in _GROUPS:
+                if group_loss[g][0]:
+                    ax.plot(*group_loss[g], color=_GROUP_COLORS[g],
+                            label=g.title(), alpha=0.8)
+            ax.plot(*avg_loss, color=_AVG_COLOR, linestyle="--",
+                    label="Average")
+            ax.legend(fontsize=8)
+            ax.set_title("All groups")
+        else:
+            if group_loss[panel][0]:
+                ax.plot(*group_loss[panel], color=_GROUP_COLORS[panel],
+                        marker="o", markersize=3)
+            ax.set_title(panel.title())
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("train loss")
+        ax.grid(alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(experiment_dir / "training_loss_per_task.png", dpi=150,
+                bbox_inches="tight")
+    plt.close(fig)
+
+    # ---- figure 2: validation primary metric per group + average -------
+    def primary_series(g):
+        keys = _PRIMARY_METRICS[g]
+        return _mean_by([r for r in val if _group_of(r["task_name"]) == g
+                         and r["metric"] in keys], "epoch", "value")
+
+    if val:
+        fig, axes = plt.subplots(2, 3, figsize=(18, 10))
+        fig.suptitle("Validation Metrics - Per Group & Average",
+                     fontsize=16, fontweight="bold")
+        series = {g: primary_series(g) for g in _GROUPS}
+        # the overall average leaves out the regression MAE (its scale)
+        avg_val = _mean_by([r for r in val if r["metric"] != "MAE (pixels)"],
+                           "epoch", "value")
+        for ax, panel in zip(axes.flat, panels):
+            if panel == "average":
+                ax.plot(*avg_val, color=_AVG_COLOR, marker="s",
+                        markersize=3)
+                ax.set_title("Average (score metrics)")
+            elif panel == "all":
+                for g in _GROUPS:
+                    if series[g][0]:
+                        ax.plot(*series[g], color=_GROUP_COLORS[g],
+                                label=g.title(), alpha=0.8)
+                ax.legend(fontsize=8)
+                ax.set_title("All groups (primary metric)")
+            else:
+                if series[panel][0]:
+                    ax.plot(*series[panel], color=_GROUP_COLORS[panel],
+                            marker="o", markersize=3)
+                ax.set_title(f"{panel.title()} "
+                             f"({_PRIMARY_METRICS[panel][0]})")
+            ax.set_xlabel("epoch")
+            ax.grid(alpha=0.3)
+        fig.tight_layout()
+        fig.savefig(experiment_dir / "validation_metrics_per_task.png",
+                    dpi=150, bbox_inches="tight")
+        plt.close(fig)
+
+    # ---- figure 3: combined summary ------------------------------------
+    fig, axes = plt.subplots(2, 2, figsize=(14, 10))
+    fig.suptitle("Training & Validation Summary - All Tasks", fontsize=16,
+                 fontweight="bold")
+    ax = axes[0, 0]
+    for g in _GROUPS:
+        if group_loss[g][0]:
+            ax.plot(*group_loss[g], color=_GROUP_COLORS[g], label=g.title(),
+                    marker="o", markersize=3, alpha=0.7)
+    ax.plot(*avg_loss, color=_AVG_COLOR, linestyle="--", linewidth=2.5,
+            label="Average")
+    ax.set_title("Training loss by group")
+    ax.legend(fontsize=8)
+
+    ax = axes[0, 1]
+    if val:
+        for g in _GROUPS:
+            s = primary_series(g)
+            if s[0]:
+                ax.plot(*s, color=_GROUP_COLORS[g], label=g.title(),
+                        marker="o", markersize=3, alpha=0.7)
+        ax.legend(fontsize=8)
+    ax.set_title("Validation primary metric by group")
+
+    ax = axes[1, 0]
+    for tid in sorted({r["task_id"] for r in losses}):
+        rows = [r for r in losses if r["task_id"] == tid]
+        ax.plot([r["epoch"] for r in rows], [r["mean"] for r in rows],
+                alpha=0.6, linewidth=1, label=tid)
+    ax.legend(fontsize=5, ncol=3)
+    ax.set_title("Training loss per task")
+
+    ax = axes[1, 1]
+    if summary:
+        epochs = [r["epoch"] for r in summary]
+        line1 = ax.plot(epochs, [r["learning_rate"] for r in summary],
+                        color="#17becf", marker="o", markersize=3,
+                        label="Learning Rate")
+        ax.set_yscale("log")
+        ax.set_ylabel("Learning rate", color="#17becf")
+        ax2 = ax.twinx()
+        line2 = ax2.plot(epochs, [r["epoch_time"] for r in summary],
+                         color="#bcbd22", marker="^", markersize=3,
+                         label="Epoch Time")
+        ax2.set_ylabel("Epoch time (s)", color="#bcbd22")
+        lines = line1 + line2
+        ax.legend(lines, [ln.get_label() for ln in lines], fontsize=8)
+    ax.set_title("Learning Rate & Training Time")
+    for ax in axes.flat:
+        ax.set_xlabel("epoch")
+        ax.grid(alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(experiment_dir / "training_summary_comprehensive.png",
+                dpi=150, bbox_inches="tight")
+    plt.close(fig)

@@ -125,16 +125,22 @@ def test_corrupt_missing_and_interlaced(tmp_path):
     (tmp_path / "crc.png").write_bytes(bytes(flipped))
     assert image_io.read_image(str(tmp_path / "crc.png")) is None
     assert image_io.read_image(str(tmp_path / "none.png")) is None
-    # the interlace byte of IHDR set (with its CRC): refused by name
+    # the interlace byte of IHDR set (with its CRC), the rows left as they
+    # are: the decoder refuses it by name; read_image hands it to cv2,
+    # which cannot read it either, so it gives None, as the JAX package
     import struct
     import zlib
+
+    from fmc_uia_tpu.data.dataset import _decode_image
 
     il = bytearray(data)
     il[28] = 1
     il[29:33] = struct.pack(">I", zlib.crc32(bytes(il[12:29])))
     (tmp_path / "il.png").write_bytes(bytes(il))
     with pytest.raises(ValueError, match="il.png"):
-        image_io.read_image(str(tmp_path / "il.png"))
+        image_io.decode_png(bytes(il), False, str(tmp_path / "il.png"))
+    assert _decode_image(str(tmp_path / "il.png")) is None
+    assert image_io.read_image(str(tmp_path / "il.png")) is None
 
 
 @pytest.mark.parametrize("src,dst", [((180, 260), (96, 128)),
@@ -239,8 +245,15 @@ def test_grayscale_and_cache_options(roots):
     a, b = jd[5], ds[5]
     assert np.abs(a["image"].astype(int) - b["image"]).max() <= 1
     assert ds[5] is b  # the second read comes from the cache
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiTaskDataset(roots["port"], image_size=S, use_adaptive_norm=True)
+    # adaptive normalisation: f32 frames, within 1e-6 of the JAX package's
+    # (the masks agree exactly; the f32 resize within a few ulps of cv2's)
+    ads = MultiTaskDataset(roots["port"], image_size=S,
+                           use_adaptive_norm=True, bg_threshold="auto")
+    jads = JaxDataset(roots["port"], image_size=S, use_adaptive_norm=True,
+                      bg_threshold="auto")
+    a, b = jads[5], ads[5]
+    assert b["image"].dtype == a["image"].dtype == np.float32
+    np.testing.assert_allclose(b["image"], a["image"], rtol=0, atol=1e-6)
 
 
 def test_sampler_matches_jax_with_advance():
@@ -345,10 +358,14 @@ def test_single_task_filter_matches_jax(roots, over, match):
 
 
 def test_device_cache_and_mesh_raise(roots):
+    """data.device_cache builds one cache that both engines share (here on
+    the CPU); a mesh still raises."""
     _, pcfg = _configs(roots["port"])
     pcfg.config["data"]["device_cache"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_data_engines(pcfg)
+    train, val, _ = build_data_engines(pcfg, device="cpu")
+    assert train.device_cache is not None
+    assert val.device_cache is train.device_cache
+    assert train.device_cache.covers(train.indices + val.indices)
     _, pcfg = _configs(roots["port"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_data_engines(pcfg, mesh=object())

@@ -308,8 +308,10 @@ def test_fit_refusals(data_root, tmp_path):
     d = _tiny_dict(data_root, str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fit(config=Config(config_dict=d), device="cpu", mesh=object())
+    # a missing pretrained checkpoint raises FileNotFoundError, as in the
+    # JAX package (the loading itself: tests/test_torch_pretrained.py)
     d["model"]["encoder"]["pretrained"] = "/nonexistent/encoder.pth"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="encoder.pth"):
         fit(config=Config(config_dict=d), device="cpu")
 
 
