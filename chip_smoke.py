@@ -242,13 +242,34 @@ pass):
    resampled to window 8: K1/K2/K3 counted. (f) ``python -m
    fmc_uia_tpu_torch.utils.convert --verify`` on both files. Each fit's
    counts are zeroed just before it and read just after.
+12. ablations — ``ablation_a_config_dict`` and ``ablation_b_config_dict``
+   (every option of ROADMAP queue 1 item 7 on the flagship, full width).
+   For each: (a) ``Predictor`` at B = 8, one task of each type, launches
+   24/4 a forward; every head output (the deep-supervision main and aux
+   maps, the grid map) bf16 against f32 on the card (0.1 of the largest)
+   and f32 on the card against the CPU at B = 1 (1e-3), decoded ids equal
+   but at near ties, grid boxes from the same objectness cell equal
+   within the maps' error (another cell only at a near tie). (b) the
+   served model trained at B = 24: A four micro-steps a type (params
+   bitwise unchanged after the odd ones, changed after the even ones), B
+   two steps a type; finite losses, launches 24/24/4/4 a micro-step,
+   synced ms a step, img/s and peak memory. (d) ``train_burst``: under
+   A it raises, as in JAX; under B 4 steps against 4 ``train_batch``
+   calls on a twin from the same state (the first loss bitwise, the
+   others within 1e-3, the params within two Adam steps). (c) phase 5's
+   f32 grad check, card vs CPU. Then (e) B's ``fit`` (1 epoch of 6 steps,
+   validation, checkpoints, K3) on phase 6's data written again, and
+   ``python -m fmc_uia_tpu_torch.predict`` held against ``Predictor``
+   (grid boxes decoded). Counts are zeroed before each main-path run
+   (a, b, d, e) and read after it.
 
 The line before the card's name is ``{"kernels": [...]}`` (K1f/K2f
 launches from phase 4, K1b/K2b from phase 5, K3 from phase 6, K4f from
 phase 7, K4b from phase 8; phase 9 checks its own counts and leaves the
 line as it was; ``launches_spm``: each kernel's launches over phase 10's
 serving run, timed training and fit; ``launches_phase11``: over phase
-11's fits); the last line is ``{"ok": true, "device": {...}}``.
+11's fits; ``launches_phase12``: over phase 12's main-path runs); the
+last line is ``{"ok": true, "device": {...}}``.
 Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
 
     python3 chip_smoke.py --staged-train
@@ -274,6 +295,10 @@ prints each way's worst leaf per type (no checks), one JSON line.
 
 builds the kernels and runs phase 11 alone (without phases 5 and 6 its
 throughput stands alone), one JSON line.
+
+    python3 chip_smoke.py --phase12
+
+builds the kernels and runs phase 12 alone, one JSON line.
 """
 
 from __future__ import annotations
@@ -3957,6 +3982,441 @@ def phase11_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the ablation presets (queue 1 item 7: off-main-path heads,
+# conditioning and step options) on the flagship
+# ---------------------------------------------------------------------------
+ABLATION_MICRO = {"a": 4, "b": 2}  # staged micro-steps a type (phase 12b)
+ABLATION_BURST = 4                 # train_burst steps (phase 12d)
+ABLATION_FIT_STEPS = 6             # phase 12e: 1 epoch of this many steps
+
+
+def ablation_preset(which):
+    from fmc_uia_tpu_torch import flagship
+
+    return dict(key=f"ablation_{which}",
+                config=getattr(flagship, f"ablation_{which}_config_dict"))
+
+
+def flat_outputs(out):
+    """A head's output as {name: tensor}: a deep-supervision tuple as
+    ``main`` and ``aux{i}``, a CenterNet dict as it is, else ``out``."""
+    if isinstance(out, tuple):
+        return {"main": out[0],
+                **{f"aux{i}": a for i, a in enumerate(out[1])}}
+    return out if isinstance(out, dict) else {"out": out}
+
+
+def compare_flat(a, b, rel_tol, what):
+    """Each output of ``a`` within ``rel_tol`` of the largest magnitude of
+    ``b``'s; returns {name: max abs err}."""
+    errs = {}
+    for k, ref in b.items():
+        d = float((a[k].float().cpu() - ref.float().cpu()).abs().max())
+        top = float(ref.float().abs().max())
+        if not d <= rel_tol * max(top, 1e-3):
+            fail(f"{what} {k}: err {d:.3e} > {rel_tol} x {top:.3e}")
+        errs[k] = d
+    return errs
+
+
+def check_grid_boxes(boxes, got_map, ref_map, err, what):
+    """Grid boxes decoded from ``got_map`` (``boxes``, [B, 4]) against the
+    decode of ``ref_map`` ([B, h, w, 5]): where both pick the same
+    objectness cell, the boxes within ``err`` (the maps' largest
+    difference); where they pick other cells, the reference's objectness
+    at the two within 2 * err (a near tie). Returns (same cells, near
+    ties taken)."""
+    import torch
+
+    from fmc_uia_tpu_torch.ops.centernet import decode_grid_detection
+
+    B = ref_map.shape[0]
+    og = got_map[..., 4].reshape(B, -1).float().cpu()
+    orf = ref_map[..., 4].reshape(B, -1).float().cpu()
+    cg, cr = og.argmax(1), orf.argmax(1)
+    same = cg == cr
+    gap = (orf.gather(1, cr[:, None]) - orf.gather(1, cg[:, None]))[:, 0]
+    if bool(((~same) & (gap > 2 * err)).any()):
+        fail(f"{what}: a grid argmax moved away from a near tie (gap "
+             f"{float(gap.max()):.3e} > 2 x {err:.3e})")
+    ref_boxes = decode_grid_detection(ref_map.float().cpu())
+    d = (torch.as_tensor(boxes).float().cpu() - ref_boxes).abs().max(1).values
+    if bool((same & (d > err)).any()):
+        fail(f"{what}: grid boxes differ by {float(d[same].max()):.3e} at "
+             f"the same cell (> {err:.3e})")
+    return int(same.sum()), int((~same).sum())
+
+
+def ablation_serving(tag, cfg, registry, totals):
+    """Phase 12a: Predictor forwards at B = 8, one task of each type
+    (launches counted), then the raw outputs (every deep-supervision
+    output, the grid map) bf16 against f32 on the card at B = 8 (0.1 of
+    the largest) and f32 on the card against f32 on the CPU at B = 1
+    (1e-3), phase 3's rules; decoded seg / cls ids equal but at near
+    ties, grid boxes as ``check_grid_boxes``. Returns (the bf16 model,
+    report)."""
+    import numpy as np
+    import torch
+
+    from fmc_uia_tpu_torch.export import Predictor
+    from fmc_uia_tpu_torch.flagship import SERVING_TASKS
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+    from fmc_uia_tpu_torch.ops.centernet import decode_grid_detection
+    from fmc_uia_tpu_torch.ops.image import normalize_images
+
+    mean = cfg.get("data.augmentation.normalize.mean")
+    std = cfg.get("data.augmentation.normalize.std")
+    model = build_model(cfg, registry, dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    pred = Predictor(model, registry, mean, std, IMAGE, device="cuda")
+    imgs = np.random.RandomState(12).randint(
+        0, 256, (BATCH, IMAGE, IMAGE, 3)).astype(np.uint8)
+    for tid in SERVING_TASKS:  # first use
+        pred.predict_images(imgs, tid)
+    torch.cuda.synchronize()
+    sb.attention_branch.launches = sb.mlp_branch.launches = 0
+    t0 = time.perf_counter()
+    outs = {tid: pred.predict_images(imgs, tid) for tid in SERVING_TASKS}
+    fwd_ms = 1e3 * (time.perf_counter() - t0) / len(SERVING_TASKS)
+    got = (sb.attention_branch.launches, sb.mlp_branch.launches)
+    n = len(SERVING_TASKS)
+    if got != (24 * n, 4 * n):
+        fail(f"{tag} launches {got} != {(24 * n, 4 * n)}")
+    totals["attention_branch"] += got[0]
+    totals["mlp_branch"] += got[1]
+    model32 = build_model(cfg, registry, dtype=torch.float32, device="cuda",
+                          init=False)
+    model32.load_state_dict(model.state_dict())
+    cpu = build_model(cfg, registry, dtype=torch.float32, device="cpu",
+                      init=False)
+    cpu.load_state_dict(model.state_dict())
+    x = normalize_images(torch.from_numpy(imgs), mean, std)
+    xc = x.cuda()
+    rep = {}
+    for tid in SERVING_TASKS:
+        spec = registry[tid]
+        args = (spec.task_name, spec.global_index)
+        with torch.inference_mode():
+            a = flat_outputs(model(xc, *args))
+            b = flat_outputs(model32(xc, *args))
+            b1 = flat_outputs(model32(xc[:1], *args))
+            c1 = flat_outputs(cpu(x[:1], *args))
+        e16 = compare_flat(a, b, 0.1, f"{tag} {tid} bf16 vs f32")
+        e32 = compare_flat(b1, c1, 1e-3, f"{tag} {tid} f32 card vs cpu")
+        entry = {"outputs": sorted(b), "bf16_vs_f32_err": e16,
+                 "f32_card_vs_cpu_err": e32}
+        key = "main" if "main" in b else "out"
+        p = torch.from_numpy(outs[tid])
+        if spec.task_name in ("segmentation", "classification"):
+            entry["disagree"], entry["near_ties"] = near_tie_ok(
+                p, b[key].float().cpu(), e16[key], spec.num_classes)
+        elif spec.task_name == "detection" and "out" in b:
+            entry["grid_same_cells"], entry["grid_near_ties"] = (
+                check_grid_boxes(p, a["out"], b["out"], e16["out"],
+                                 f"{tag} {tid} bf16 vs f32"))
+            check_grid_boxes(decode_grid_detection(b1["out"].float().cpu()),
+                             b1["out"], c1["out"], e32["out"],
+                             f"{tag} {tid} f32 card vs cpu")
+        else:
+            entry["decoded_err"] = float((p - b[key].float().cpu()).abs()
+                                         .max())
+        rep[tid] = entry
+        log(f"{tag}   {tid:20s} {entry}")
+    del model32, cpu
+    torch.cuda.empty_cache()
+    return model, {"fwd_ms_b8": fwd_ms, "launches": got, "compare": rep}
+
+
+def ablation_staged(tag, which, cfg, registry, model, totals):
+    """Phase 12b: the Trainer at B = 24 on ``train_batches``,
+    ABLATION_MICRO[which] micro-steps a type in turn; under accumulation
+    the params bitwise unchanged after each odd micro-step and changed
+    after each even one, else changed after every step; finite losses;
+    launches 24/24/4/4 (K1f/K1b/K2f/K2b) a micro-step. Each step is
+    synced: ms a step, img/s and the peak memory."""
+    import numpy as np
+    import torch
+
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+    from fmc_uia_tpu_torch.train import Trainer
+
+    trainer = Trainer(cfg, model, registry, device="cuda")
+    batches = train_batches(registry, TRAIN_BATCH, IMAGE, seed=12)
+    params = list(model.parameters())
+    snap = [p.detach().clone() for p in params]
+    counters = (sb.attention_branch, sb.attention_branch_backward,
+                sb.mlp_branch, sb.mlp_branch_backward)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    k, ms, losses = 0, {}, {}
+    for t, b in batches.items():
+        for _ in range(ABLATION_MICRO[which]):
+            t0 = time.perf_counter()
+            logs = trainer.train_batch(b, 0)
+            torch.cuda.synchronize()
+            ms.setdefault(t, []).append(1e3 * (time.perf_counter() - t0))
+            losses.setdefault(t, []).append(float(logs["total_loss"]))
+            k += 1
+            changed = any(not torch.equal(p, q) for p, q in zip(params,
+                                                                 snap))
+            want = trainer.accum_steps <= 1 or k % trainer.accum_steps == 0
+            if changed != want:
+                fail(f"{tag} micro-step {k} ({t}): params "
+                     f"{'changed' if changed else 'unchanged'}")
+            if changed:
+                snap = [p.detach().clone() for p in params]
+    launches = {c.__name__: c.launches for c in counters}
+    want = {"attention_branch": 24 * k, "attention_branch_backward": 24 * k,
+            "mlp_branch": 4 * k, "mlp_branch_backward": 4 * k}
+    if launches != want:
+        fail(f"{tag} launches {launches} != {want}")
+    for kname, v in launches.items():
+        totals[kname] += v
+    if not all(math.isfinite(v) for vs in losses.values() for v in vs):
+        fail(f"{tag} non-finite losses {losses}")
+    del snap
+    # the first micro-step of a type is its first use (allocator, cuDNN
+    # heuristics): ms a step is the median of the others
+    warm = [v for vs in ms.values() for v in vs[1:]]
+    med = float(np.median(warm))
+    rep = {"micro_steps": k, "accumulation_steps": trainer.accum_steps,
+           "updates": trainer.optimizer.count, "ms_by_type": ms,
+           "losses": losses, "median_ms_warm": med,
+           "img_s": TRAIN_BATCH / (med / 1e3),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches}
+    return trainer, batches, rep
+
+
+def ablation_burst(tag, which, cfg, registry, model, trainer, batches,
+                   totals):
+    """Phase 12d: ``train_burst`` of ABLATION_BURST steps on the seg batch
+    against as many ``train_batch`` calls on a copy of the model, its
+    optimizer state and generator: the first loss bitwise, the others
+    within 1e-3 relative and the params within two Adam steps of each
+    other (the backward's sums may run in another order); under
+    accumulation it must raise, as in JAX."""
+    import torch
+
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+    from fmc_uia_tpu_torch.train import Trainer
+
+    b = batches["segmentation"]
+    if trainer.accum_steps > 1:
+        try:
+            trainer.train_burst(b, ABLATION_BURST)
+        except NotImplementedError as e:
+            log(f"{tag} train_burst under accumulation raises: {e}")
+            return {"raises": str(e)}
+        fail(f"{tag} train_burst ran under accumulation")
+    twin = build_model(cfg, registry, dtype=model.dtype, device="cuda",
+                       init=False)
+    twin.load_state_dict(model.state_dict())
+    t2 = Trainer(cfg, twin, registry, device="cuda")
+    t2.optimizer.load_state_dict(trainer.optimizer.state_dict())
+    t2.generator.set_state(trainer.generator.get_state())
+    counters = (sb.attention_branch, sb.attention_branch_backward,
+                sb.mlp_branch, sb.mlp_branch_backward)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    burst = trainer.train_burst(b, ABLATION_BURST)["losses"]
+    torch.cuda.synchronize()
+    burst_ms = 1e3 * (time.perf_counter() - t0)
+    steps = torch.stack([t2.train_batch(b, 0)["total_loss"]
+                         for _ in range(ABLATION_BURST)])
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    n = 2 * ABLATION_BURST
+    if launches != {"attention_branch": 24 * n,
+                    "attention_branch_backward": 24 * n,
+                    "mlp_branch": 4 * n, "mlp_branch_backward": 4 * n}:
+        fail(f"{tag} burst launches {launches}")
+    for kname, v in launches.items():
+        totals[kname] += v
+    burst, steps = burst.float().cpu(), steps.float().cpu()
+    rel = float(((burst - steps).abs() / steps.abs()).max())
+    # an Adam step moves an element by about lr x its group's multiplier
+    # whatever its grad's size, so a grad summed in another order may move
+    # it the other way: the params within two such steps a step
+    step = trainer.scheduler.current_lr() * max(
+        m for m, _ in trainer.optimizer.groups)
+    with torch.no_grad():
+        p_gap = max(float((p - q).abs().max())
+                    for p, q in zip(model.parameters(), twin.parameters()))
+    if (not bool(torch.isfinite(burst).all()) or burst[0] != steps[0]
+            or rel > 1e-3 or p_gap > 2 * ABLATION_BURST * step):
+        fail(f"{tag} burst {burst.tolist()} vs steps {steps.tolist()} "
+             f"(worst loss rel {rel:.2e}, params {p_gap:.2e} apart, "
+             f"bound {2 * ABLATION_BURST * step:.2e})")
+    del twin, t2
+    torch.cuda.empty_cache()
+    return {"losses": burst.tolist(), "train_batch_losses": steps.tolist(),
+            "worst_loss_rel": rel, "param_gap": p_gap,
+            "param_gap_bound": 2 * ABLATION_BURST * step,
+            "burst_ms": burst_ms, "launches": launches}
+
+
+def ablation_fit(tag, which, totals, smi):
+    """Phase 12e: the preset's ``fit`` (K3, 1 epoch of ABLATION_FIT_STEPS
+    steps, validation, checkpoints) on phase 6's data written again, its
+    launches as the flagship's formula, then ``python -m
+    fmc_uia_tpu_torch.predict`` in a subprocess held against an in-process
+    ``Predictor`` (``check_predictions``: the grid boxes decoded)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fmc_uia_tpu_torch import checkpoint as ckpt_lib
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.tasks import TaskRegistry
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase12_")
+    try:
+        d = ablation_preset(which)["config"]()
+        root, gen_s, _ = write_flagship_frames(tmp, d["tasks"], tag)
+        d["data"].update(root_path=root, fused_preprocess=True)
+        d["experiment"]["output_dir"] = os.path.join(tmp, "out")
+        d["validation"].update(enabled=True, freq=1)
+        d["training"].update(num_epochs=1,
+                             steps_per_epoch=ABLATION_FIT_STEPS)
+        r, fit_s, launches, _, k3 = counted_fit(tag, d, totals)
+        steps = check_fit_launches(tag, r, launches, k3)
+        exp = r["experiment_dir"]
+        if not os.path.exists(os.path.join(exp, "best_model.pt")):
+            fail(f"{tag} no best_model.pt")
+        out = os.path.join(tmp, "preds")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fmc_uia_tpu_torch.predict",
+             "--checkpoint", exp, "--data", root, "--out", out],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            capture_output=True, text=True, timeout=600)
+        predict_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"{tag} predict exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        with open(os.path.join(exp, "config.yaml")) as f:
+            cfg = Config(config_dict=json.load(f))
+        registry = TaskRegistry.from_config(cfg)
+        model = build_model(cfg, registry, device="cuda", init=False)
+        model.load_state_dict(ckpt_lib.load_best_params(exp, "cuda"))
+        chk = check_predictions(
+            out, root, model, registry,
+            cfg.get("data.augmentation.normalize.mean"),
+            cfg.get("data.augmentation.normalize.std"), IMAGE)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    e = epoch_rows(r)[0]
+    log(f"{tag} fit {fit_s:.1f} s ({steps} steps of B={TRAIN_BATCH}, "
+        f"{r['eval_batches']} eval batches; smoke timing {e['img_s']:.2f} "
+        f"img/s, warm-up included); predict (subprocess) {predict_s:.1f} s"
+        f" for {chk['records']} frames, every value the in-process "
+        f"Predictor's (boxes worst "
+        f"{chk['worst_box_point_err_over_size']:.1e} of the frame) | {smi}")
+    return {"gen_s": gen_s, "fit_s": fit_s, "steps": steps,
+            "eval_batches": r["eval_batches"], "epoch": e,
+            "launches": launches, "k3_kernels": k3, "predict_s": predict_s,
+            "predictions": chk}
+
+
+def phase12(name, smi, report):
+    """The two ablation presets at full width (module docstring, phase
+    12). Returns each kernel's launches over the phase's main-path runs:
+    12a's Predictor forwards, 12b's staged steps, 12d's burst and steps
+    and 12e's fit (not the comparisons, the grad check or the predict
+    check)."""
+    import torch
+
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.tasks import TaskRegistry
+
+    t12 = time.perf_counter()
+    totals = {c.__name__: 0 for c in all_kernels()}
+    rep, seconds = {}, {}
+    for which in ("a", "b"):
+        preset = ablation_preset(which)
+        key, tag = preset["key"], f"[{preset['key']}]"
+        cfg = Config(config_dict=preset["config"]())
+        registry = TaskRegistry.from_config(cfg)
+        r = rep[which] = report[key] = {}
+        t0 = time.perf_counter()
+        # the served model trains next (its cached masks were made under
+        # inference mode)
+        model, r["serving"] = ablation_serving(f"{tag} (a)", cfg, registry,
+                                               totals)
+        log(f"{tag} (a) Predictor B={BATCH}: {r['serving']['fwd_ms_b8']:.1f}"
+            f" ms a forward (synced), launches {r['serving']['launches']}")
+        seconds[f"{which}a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trainer, batches, r["staged"] = ablation_staged(
+            f"{tag} (b)", which, cfg, registry, model, totals)
+        st = r["staged"]
+        log(f"{tag} (b) staged B={TRAIN_BATCH}: {st['micro_steps']} "
+            f"micro-steps, {st['updates']} updates (accumulation "
+            f"{st['accumulation_steps']}); {st['median_ms_warm']:.1f} ms a "
+            f"step (median, synced, first of each type left out) = "
+            f"{st['img_s']:.2f} img/s; peak {st['peak_gib']:.2f} GiB; "
+            f"losses {st['losses']} | {name} | {smi}")
+        seconds[f"{which}b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r["burst"] = ablation_burst(f"{tag} (d)", which, cfg, registry,
+                                    model, trainer, batches, totals)
+        log(f"{tag} (d) burst: {r['burst']}")
+        seconds[f"{which}d"] = time.perf_counter() - t0
+        del model, trainer, batches
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        check_train_grads(report, dict(preset, key=key))
+        seconds[f"{which}c"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rep["b"]["fit"] = report["ablation_b"]["fit"] = ablation_fit(
+        "[ablation_b] (e)", "b", totals, smi)
+    seconds["be"] = time.perf_counter() - t0
+    report["phase12"] = {"seconds": seconds, "launches": totals,
+                         "total_s": time.perf_counter() - t12}
+    log(f"[phase12] {report['phase12']['total_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"); launches over its main-path runs: {totals}")
+    return totals
+
+
+def phase12_main() -> int:
+    """``--phase12``: the kernels' build and phase 12 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from fmc_uia_tpu_torch.ops import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    report = {}
+    smi = nvidia_smi_line()
+    totals = phase12(torch.cuda.get_device_name(0), smi, report)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_phase12.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps({"phase12_s": report["phase12"]["total_s"],
+                      "launches": totals, "card": smi}))
+    return 0
+
+
 def kinks_main() -> int:
     """``--kinks``: what each kind of kink explains in the SPM preset's
     grad check (phase 10c): the check's pair and batches, the card's step
@@ -4039,6 +4499,8 @@ def main() -> int:
         return kinks_main()
     if sys.argv[1:] == ["--phase11"]:
         return phase11_main()
+    if sys.argv[1:] == ["--phase12"]:
+        return phase12_main()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; nothing to drive",
               file=sys.stderr)
@@ -4272,6 +4734,9 @@ def main() -> int:
     # -- 11. the device cache, adaptive normalisation, pretrained encoders ---
     torch.cuda.empty_cache()
     phase11_launches = phase11(name, smi, report)
+    # -- 12. the ablation presets: off-main-path heads and step options ------
+    torch.cuda.empty_cache()
+    phase12_launches = phase12(name, smi, report)
 
     # -- kernels line ----------------------------------------------------------
     def entry(kname, source, replaces, count):
@@ -4362,6 +4827,7 @@ def main() -> int:
     for e in kernels:
         e["launches_spm"] = spm_launches[e["name"]]
         e["launches_phase11"] = phase11_launches[e["name"]]
+        e["launches_phase12"] = phase12_launches[e["name"]]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

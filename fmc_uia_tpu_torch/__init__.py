@@ -24,7 +24,10 @@ its balance loss and statistics, ``export_predictions`` and the
 ViT-L/16 SPM-interaction preset (``configs/vit_large_patch16_dinov3.yaml``:
 the spatial pyramid, the deformable cross-attention's bilinear gather,
 the antialiased resize) and the HTTP front (``python -m
-fmc_uia_tpu_torch.serve``).
+fmc_uia_tpu_torch.serve``) — and the off-main-path heads (UNet-like,
+deep-supervision, grid, baseline), FiLM variants, the task prompt, the
+grid / L1 / SmoothL1 losses, SGD and Adam, gradient accumulation and
+``Trainer.train_burst``.
 """
 
 __version__ = "0.1.0"

@@ -4,10 +4,14 @@ The port has its own format and does not read the JAX package's Orbax
 checkpoints:
 
   * ``checkpoint_epoch_N.pt``: one ``torch.save`` of the full train state
-    — the model's state dict, ``GroupedAdamW``'s ``mu``, ``nu`` and
-    ``count``, the adaptive log-vars, the Trainer's generator state and
-    the scheduler's state — beside ``checkpoint_epoch_N.meta.json`` (epoch,
-    best score) and ``checkpoint_epoch_N.config.yaml`` (JSON text).
+    — the model's state dict, the optimizer's state (its kind, ``count``
+    and ``mu``/``nu`` or SGD's ``trace``), the adaptive log-vars, the
+    gradient accumulator (under ``training.accumulation_steps`` > 1; the
+    host's micro-step count is not saved, as the JAX package saves
+    ``TrainState.grad_accum`` and not it), the Trainer's generator state
+    and the scheduler's state — beside ``checkpoint_epoch_N.meta.json``
+    (epoch, best score) and ``checkpoint_epoch_N.config.yaml`` (JSON
+    text).
   * ``best_model.pt``: the model's state dict.
 
 Loading uses ``torch.load(weights_only=True)``: tensors, numbers, strings
@@ -25,10 +29,10 @@ import torch
 
 def train_state(trainer) -> Dict:
     """Everything a resumed run needs to continue exactly."""
-    opt = trainer.optimizer
     return {
         "model": trainer.model.state_dict(),
-        "optimizer": {"mu": opt.mu, "nu": opt.nu, "count": int(opt.count)},
+        "optimizer": trainer.optimizer.state_dict(),
+        "grad_accum": trainer.grad_accum,
         "adaptive": (None if trainer.adaptive is None
                      else {k: v.detach() for k, v in
                            trainer.adaptive.items()}),
@@ -42,15 +46,13 @@ def train_state(trainer) -> Dict:
 def load_train_state(trainer, state: Dict) -> None:
     """Restore ``train_state`` into a Trainer built like the saved one."""
     trainer.model.load_state_dict(state["model"])
-    opt = trainer.optimizer
-    for dst, src in ((opt.mu, state["optimizer"]["mu"]),
-                     (opt.nu, state["optimizer"]["nu"])):
-        if [len(g) for g in dst] != [len(g) for g in src]:
-            raise ValueError("optimizer state does not match the model's "
-                             "parameter groups")
-        for d, s in zip(dst, src):
-            torch._foreach_copy_(d, s)
-    opt.count = int(state["optimizer"]["count"])
+    trainer.optimizer.load_state_dict(state["optimizer"])
+    acc = state.get("grad_accum")
+    if (trainer.grad_accum is None) != (acc is None):
+        raise ValueError("gradient accumulation on/off differs from the "
+                         "checkpoint")
+    if acc is not None:
+        torch._foreach_copy_(trainer.grad_accum, acc)
     if (trainer.adaptive is None) != (state["adaptive"] is None):
         raise ValueError("adaptive loss on/off differs from the checkpoint")
     if trainer.adaptive is not None:

@@ -34,7 +34,7 @@ from fmc_uia_tpu_torch.data.image_io import (
 from fmc_uia_tpu_torch.device import resolve_device
 from fmc_uia_tpu_torch.metrics import masked_argmax
 from fmc_uia_tpu_torch.models.layers import take
-from fmc_uia_tpu_torch.ops.centernet import decode_centernet
+from fmc_uia_tpu_torch.ops.centernet import decode_detection
 from fmc_uia_tpu_torch.ops.image import normalize_images
 from fmc_uia_tpu_torch.tasks import (
     CLASSIFICATION,
@@ -88,13 +88,13 @@ class Predictor:
         x = normalize_images(self._to_device(images_u8), self.mean,
                              self.std, dtype=torch.float32)
         out = self.model(x, spec.task_name, tidx)
+        if isinstance(out, tuple):  # deep supervision: main only
+            out = out[0]
         if spec.task_name in (SEGMENTATION, CLASSIFICATION):
             # int32 class ids, as jnp.argmax returns
             return masked_argmax(out, take(self.nc_table, tidx)).int()
         if spec.task_name == DETECTION:
-            return decode_centernet(out["heatmap"].float(),
-                                    out["size"].float(),
-                                    out["offset"].float())
+            return decode_detection(out)
         assert spec.task_name == REGRESSION
         return out.float()
 

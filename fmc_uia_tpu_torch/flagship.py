@@ -11,6 +11,12 @@ FPN, TaskFiLM, 27 tasks.
 at 224², window 7, B = 64, the MoE at stages 2-3, adaptive loss weights.
 ``dinov3_spm_config_dict`` is ``configs/vit_large_patch16_dinov3.yaml`` as
 it stands: DINOv3 ViT-L/16 at 224² with the SPM-interaction adapter.
+``ablation_a_config_dict`` and ``ablation_b_config_dict`` are the
+flagship with its off-main-path options turned on (every width, depth
+and the image size kept): deep supervision, the grid head, multi-stage
+embedding FiLM, an additive task prompt, SmoothL1, SGD and accumulation
+(A); the baseline heads, the UNet-like seg head, embedding FiLM, a
+multiplicative prompt, L1 and Adam (B).
 
 Dicts and not the YAML files, because the GPU machine may lack PyYAML
 (tests/test_torch_isolation.py and tests/test_torch_moe.py hold them
@@ -216,4 +222,57 @@ def dinov3_spm_config_dict() -> dict:
                     "spm_stem_channels": 64, "interaction_heads": 8,
                     "interaction_points": 4,
                     "interaction_offset_range": 0.25}}
+    return d
+
+
+def ablation_a_config_dict() -> dict:
+    """The flagship with: a deep-supervision seg head (3 aux outputs,
+    weights 0.5/0.3/0.2), the grid detection head with its loss
+    (``Detection``), ``TaskEmbeddingFiLM`` on the FPN and on every encoder
+    stage (``film.multi_stage``), an additive task prompt on the seg and
+    det inputs, the SmoothL1 regression loss, SGD with momentum 0.9 and
+    ``training.accumulation_steps`` 2. The regression loss is set under
+    ``loss_configs.Regression``, the key the loss lookup reads (the task
+    type; the lower-case ``regression`` key is not read, in the JAX
+    package either), and mirrored under ``regression``."""
+    d = flagship_config_dict()
+    d["experiment"].update(name="swin_b_ablation_a",
+                           output_dir="outputs/ablation_a")
+    m = d["model"]
+    m["heads"]["segmentation"]["use_deep_supervision"] = True
+    m["heads"]["detection"]["type"] = "grid"
+    m["film"].update(use_task_embedding=True, multi_stage=True)
+    m["task_prompt"].update(enabled=True, inject_mode="add",
+                            apply_to_task_names=["segmentation",
+                                                 "detection"])
+    t = d["training"]
+    t["loss_configs"]["detection"]["type"] = "Detection"
+    t["loss_configs"]["regression"] = {"type": "SmoothL1Loss"}
+    t["loss_configs"]["Regression"] = {"type": "SmoothL1Loss"}
+    t["optimizer"].update(type="SGD", momentum=0.9)
+    t["accumulation_steps"] = 2
+    return d
+
+
+def ablation_b_config_dict() -> dict:
+    """The flagship with: ``model.heads.use_baseline`` (the baseline cls,
+    grid det and reg banks; det loss ``Detection``), the UNet-like seg
+    head, a single-stage ``TaskEmbeddingFiLM``, a multiplicative task
+    prompt on every task type, the L1 regression loss (under
+    ``Regression``, mirrored under ``regression``, as in
+    ``ablation_a_config_dict``) and Adam (no weight decay, as optax's
+    ``scale_by_adam``)."""
+    d = flagship_config_dict()
+    d["experiment"].update(name="swin_b_ablation_b",
+                           output_dir="outputs/ablation_b")
+    m = d["model"]
+    m["heads"]["use_baseline"] = True
+    m["heads"]["segmentation"]["type"] = "unet_like"
+    m["film"].update(use_task_embedding=True, multi_stage=False)
+    m["task_prompt"].update(enabled=True, inject_mode="mul")
+    t = d["training"]
+    t["loss_configs"]["detection"]["type"] = "Detection"
+    t["loss_configs"]["regression"] = {"type": "L1Loss"}
+    t["loss_configs"]["Regression"] = {"type": "L1Loss"}
+    t["optimizer"]["type"] = "Adam"
     return d

@@ -1,12 +1,14 @@
 """Losses of the train step (port of ``fmc_uia_tpu/losses.py``): Dice
 (smp multiclass semantics), cross entropy, CenterNet focal + masked L1,
-MSE with masked columns, and the Kendall-style adaptive weighting.
+the grid detection loss (BCE on objectness + smooth-L1 on positive
+boxes), MSE / L1 / SmoothL1 with masked columns, binary focal and GIoU
+(exported, unused by the train step, as in the JAX package), and the
+Kendall-style adaptive weighting.
 
 Pure functions of (predictions, targets[, class/column counts]) returning
 f32 scalars. Banked heads pad logits to the type's largest class count;
 classes past a task's count are set to -1e30 before the softmax, and
-regression columns past ``2 * points`` are left out of the mean. The grid
-detection, L1, SmoothL1, focal and GIoU losses are not ported yet.
+regression columns past ``2 * points`` are left out of the mean.
 """
 
 from __future__ import annotations
@@ -16,8 +18,6 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-_NOT_PORTED = ("{what} is not ported to fmc_uia_tpu_torch yet (ROADMAP.md, "
-               "port queue item 'Off-main-path heads and conditioning')")
 _NEG = -1e30
 
 
@@ -100,12 +100,75 @@ def centernet_loss(predictions: Dict[str, torch.Tensor],
             + offset_weight * masked_l1("offset"))
 
 
-def mse_loss(pred: torch.Tensor, target: torch.Tensor,
-             num_valid_cols=None) -> torch.Tensor:
-    """Mean squared error over the first ``num_valid_cols`` columns (all
-    when None): sum over those / (rows * max(num_valid_cols, 1))."""
-    d = pred.float() - target.float()
-    per = d * d
+def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    ax = x.abs()
+    return torch.where(ax < beta, 0.5 * ax * ax / beta, ax - 0.5 * beta)
+
+
+def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+               alpha: float = 0.25, gamma: float = 2.0,
+               reduction: str = "mean") -> torch.Tensor:
+    """Binary focal loss on logits (kept for API parity; no step uses
+    it)."""
+    x, t = logits.float(), targets.float()
+    bce = torch.clamp_min(x, 0.0) - x * t + torch.log1p(torch.exp(-x.abs()))
+    loss = alpha * torch.pow(1.0 - torch.exp(-bce), gamma) * bce
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def giou_loss(preds: torch.Tensor, targets: torch.Tensor,
+              eps: float = 1e-7) -> torch.Tensor:
+    """Mean 1 - generalized IoU of corner boxes [..., 4]."""
+    p = preds.float().reshape(-1, 4)
+    t = targets.float().reshape(-1, 4)
+    x1 = torch.maximum(p[:, 0], t[:, 0])
+    y1 = torch.maximum(p[:, 1], t[:, 1])
+    x2 = torch.minimum(p[:, 2], t[:, 2])
+    y2 = torch.minimum(p[:, 3], t[:, 3])
+    inter = torch.clamp_min(x2 - x1, 0) * torch.clamp_min(y2 - y1, 0)
+    area_p = (torch.clamp_min(p[:, 2] - p[:, 0], 0)
+              * torch.clamp_min(p[:, 3] - p[:, 1], 0))
+    area_t = (torch.clamp_min(t[:, 2] - t[:, 0], 0)
+              * torch.clamp_min(t[:, 3] - t[:, 1], 0))
+    union = area_p + area_t - inter + eps
+    iou = inter / union
+    xc1 = torch.minimum(p[:, 0], t[:, 0])
+    yc1 = torch.minimum(p[:, 1], t[:, 1])
+    xc2 = torch.maximum(p[:, 2], t[:, 2])
+    yc2 = torch.maximum(p[:, 3], t[:, 3])
+    area_c = (torch.clamp_min(xc2 - xc1, 0) * torch.clamp_min(yc2 - yc1, 0)
+              + eps)
+    return (1.0 - (iou - (area_c - union) / area_c)).mean()
+
+
+def detection_grid_loss(predictions: torch.Tensor, targets: torch.Tensor,
+                        classification_weight: float = 2.0,
+                        box_regression_weight: float = 1.0
+                        ) -> torch.Tensor:
+    """The grid head's loss on [B, 5] = [box(4), objectness] rows:
+    BCE-with-logits (mean) on objectness plus smooth-L1 over the boxes of
+    the positive rows (target objectness > 0.5), 0 when there are
+    none."""
+    pb, po = predictions[:, :4].float(), predictions[:, 4].float()
+    tb, to = targets[:, :4].float(), targets[:, 4].float()
+    cls = (torch.clamp_min(po, 0.0) - po * to
+           + torch.log1p(torch.exp(-po.abs()))).mean()
+    pos = (to > 0.5).float()[:, None]
+    n_pos = pos.sum() * 4.0
+    box = torch.where(n_pos > 0,
+                      (smooth_l1(pb - tb) * pos).sum()
+                      / torch.clamp_min(n_pos, 1.0),
+                      torch.zeros((), device=pos.device))
+    return classification_weight * cls + box_regression_weight * box
+
+
+def _masked_col_mean(per: torch.Tensor, num_valid_cols) -> torch.Tensor:
+    """Mean over the first ``num_valid_cols`` columns (all when None):
+    sum over those / (rows * max(num_valid_cols, 1))."""
     if num_valid_cols is None:
         return per.mean()
     D = per.shape[-1]
@@ -113,6 +176,24 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor,
     mask = (torch.arange(D, device=per.device) < n).float()
     return (per * mask).sum() / (per.shape[0]
                                  * torch.clamp(n.float(), min=1.0))
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor,
+             num_valid_cols=None) -> torch.Tensor:
+    d = pred.float() - target.float()
+    return _masked_col_mean(d * d, num_valid_cols)
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor,
+            num_valid_cols=None) -> torch.Tensor:
+    return _masked_col_mean((pred.float() - target.float()).abs(),
+                            num_valid_cols)
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
+                   num_valid_cols=None) -> torch.Tensor:
+    return _masked_col_mean(smooth_l1(pred.float() - target.float()),
+                            num_valid_cols)
 
 
 # ---------------------------------------------------------------------------
@@ -164,8 +245,15 @@ def build_loss_fn(task_name: str, loss_config: Dict):
         return cross_entropy_loss
     if task_name == "detection":
         if loss_type.lower() not in ("centernet", ""):
-            raise NotImplementedError(_NOT_PORTED.format(
-                what=f"the grid detection loss ({loss_type!r})"))
+            cw = float(loss_config.get("classification_weight", 2.0))
+            bw = float(loss_config.get("box_regression_weight", 1.0))
+
+            def grid_loss(predictions, targets):
+                return detection_grid_loss(predictions, targets,
+                                           classification_weight=cw,
+                                           box_regression_weight=bw)
+
+            return grid_loss
         kw = dict(heatmap_alpha=float(loss_config.get("heatmap_alpha", 2.0)),
                   heatmap_gamma=float(loss_config.get("heatmap_gamma", 4.0)),
                   size_weight=float(loss_config.get("size_weight", 1.0)),
@@ -176,9 +264,10 @@ def build_loss_fn(task_name: str, loss_config: Dict):
 
         return det_loss
     if task_name == "Regression":
-        if loss_type in ("L1Loss", "SmoothL1Loss"):
-            raise NotImplementedError(_NOT_PORTED.format(
-                what=f"the {loss_type} regression loss"))
+        if loss_type == "L1Loss":
+            return l1_loss
+        if loss_type == "SmoothL1Loss":
+            return smooth_l1_loss
         return mse_loss
     raise ValueError(f"Unknown task name: {task_name}")
 

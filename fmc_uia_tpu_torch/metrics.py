@@ -1,13 +1,13 @@
 """Metrics and the evaluation loop (port of ``fmc_uia_tpu/metrics.py``).
 
-Accuracy + macro-F1 (classification), foreground Dice (segmentation),
-pixel MAE (Regression, denormalized by the reference's fixed 224x224),
-corner IoU (detection, CenterNet peak decode). Each per-type eval function
-runs the model in eval mode under ``torch.no_grad`` and returns small
-per-batch statistics on the device; ``evaluate`` reads them all back at the
-end and aggregates per task as the JAX package does. It returns a list of
-row dicts (``"Task ID"``, ``"Task Name"``, metric columns) where the JAX
-package returns a DataFrame.
+Accuracy + macro-F1 (classification), foreground Dice (segmentation), pixel MAE
+(Regression, denormalized by the reference's fixed 224x224), corner IoU
+(detection, CenterNet peak or grid argmax decode; a deep-supervision seg head
+is scored on its main output). Each per-type eval function runs the model in
+eval mode under ``torch.no_grad`` and returns small per-batch statistics on the
+device; ``evaluate`` reads them all back at the end and aggregates per task as
+the JAX package does. It returns a list of row dicts (``"Task ID"``, ``"Task
+Name"``, metric columns) where the JAX package returns a DataFrame.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 
 from fmc_uia_tpu_torch.device import resolve_device
 from fmc_uia_tpu_torch.models.layers import take
-from fmc_uia_tpu_torch.ops.centernet import decode_centernet
+from fmc_uia_tpu_torch.ops.centernet import decode_detection
 from fmc_uia_tpu_torch.ops.image import normalize_images
 from fmc_uia_tpu_torch.tasks import (
     CLASSIFICATION,
@@ -147,6 +147,8 @@ def make_eval_steps(model, registry: TaskRegistry, mean, std, prep=None):
 
     def seg_step(images, labels, task_index, valid):
         out = forward(images, SEGMENTATION, task_index)
+        if isinstance(out, tuple):  # deep supervision: main only
+            out = out[0]
         ncls = take(nc_table, task_index)
         return {"dice": dice_coefficient(labels, out, ncls,
                                          sample_mask=valid)}
@@ -157,9 +159,7 @@ def make_eval_steps(model, registry: TaskRegistry, mean, std, prep=None):
         return {"preds": masked_argmax(out, ncls), "labels": labels}
 
     def det_step(images, labels, task_index, valid):
-        out = forward(images, DETECTION, task_index)
-        boxes = decode_centernet(out["heatmap"].float(), out["size"].float(),
-                                 out["offset"].float())
+        boxes = decode_detection(forward(images, DETECTION, task_index))
         valid_gt = (labels >= 0).all(dim=1) & valid
         ious = batch_iou(labels, boxes)
         n_valid = valid_gt.float().sum()

@@ -189,7 +189,8 @@ class DeformableCrossAttention2D(nn.Module):
             gy = np.linspace(-1.0, 1.0, H, dtype=np.float32)
             gx = np.linspace(-1.0, 1.0, W, dtype=np.float32)
             base = np.stack(np.meshgrid(gx, gy, indexing="xy"), axis=-1)
-            self._grids[key] = torch.from_numpy(base).to(device)
+            with torch.inference_mode(False):  # as the Swin mask cache
+                self._grids[key] = torch.from_numpy(base).to(device)
         return self._grids[key]
 
     def sample_coords(self, query_map: torch.Tensor) -> torch.Tensor:

@@ -138,8 +138,11 @@ class SwinBlock(nn.Module):
         key = (H, W, shift, str(device))
         if key not in self._masks:
             m = block_attn_mask(H, W, self.ws, shift)
-            self._masks[key] = (None if m is None
-                                else torch.as_tensor(m, device=device))
+            # a normal tensor even when first made under inference mode
+            # (a served model): a train step saves it for backward
+            with torch.inference_mode(False):
+                self._masks[key] = (None if m is None
+                                    else torch.as_tensor(m, device=device))
         return self._masks[key]
 
     def _keep_mask(self, x, train, generator):

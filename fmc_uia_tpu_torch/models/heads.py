@@ -2,11 +2,15 @@
 
 One module per task TYPE; its parameters carry a leading ``num_banks``
 axis and the forward selects one slice by the device-side local index.
-Ported families: ``SegHeadBank`` (default seg), ``ClsHeadBank`` (GAP),
-``CenterNetHeadBank`` (dict output, heatmap bias -2.19) and
-``RegHeadBank`` (GAP + MLP + (tanh+1)/2). The others raise and name their
-ROADMAP item. Every bank takes ``train`` and ``generator``; the cls and reg
-banks apply their dropout in train mode, the others have none.
+Families: ``SegHeadBank`` (default seg), ``UNetLikeSegHeadBank``,
+``DeepSupervisionSegHeadBank`` (returns ``(main, [aux...])``),
+``ClsHeadBank`` (GAP), ``BaselineClsHeadBank``, ``CenterNetHeadBank``
+(dict output, heatmap bias -2.19), ``GridDetectionHeadBank`` and
+``BaselineGridDetectionHeadBank`` (a [B, h, w, 4 + 1] map: sigmoid box,
+objectness logit), ``RegHeadBank`` (GAP + MLP + (tanh+1)/2) and
+``BaselineRegHeadBank``. Every bank takes ``train`` and ``generator``;
+the cls and reg banks apply their dropout in train mode, the others have
+none.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from fmc_uia_tpu_torch.models.layers import (
     dropout,
     gn_groups,
     resize_to,
+    upsample_2x,
 )
 from fmc_uia_tpu_torch.tasks import (
     CLASSIFICATION,
@@ -33,10 +38,6 @@ from fmc_uia_tpu_torch.tasks import (
     SEGMENTATION,
     TaskRegistry,
 )
-
-_NOT_PORTED = ("{what} is not ported to fmc_uia_tpu_torch yet (ROADMAP.md, "
-               "port queue item 'Off-main-path heads and conditioning')")
-
 
 def _gap(x):
     return x.mean(dim=(1, 2))
@@ -73,6 +74,70 @@ class SegHeadBank(nn.Module):
         return x
 
 
+class UNetLikeSegHeadBank(nn.Module):
+    """Conv + GN + SiLU + bilinear 2x per factor of 2 of ``upsampling``,
+    ``num_blocks - 1`` extra conv + GN + SiLU, a 1x1 classifier."""
+
+    def __init__(self, num_banks: int, cin: int, num_classes: int,
+                 mid_channels: Optional[int] = None, upsampling: int = 4,
+                 num_blocks: int = 2, dtype=torch.float32):
+        super().__init__()
+        mid = mid_channels or cin
+        n_up, scale = 0, upsampling
+        while scale > 1:
+            n_up, scale = n_up + 1, scale // 2
+        self.n_up, self.n_extra = n_up, max(0, num_blocks - 1)
+        for i in range(n_up):
+            self.add_module(f"up_{i}", BankedConv(
+                num_banks, cin if i == 0 else mid, mid, 3, use_bias=False,
+                dtype=dtype))
+            self.add_module(f"up_gn_{i}", BankedGroupNorm(
+                num_banks, mid, gn_groups(mid)))
+        for j in range(self.n_extra):
+            self.add_module(f"extra_{j}", BankedConv(
+                num_banks, mid if n_up or j else cin, mid, 3,
+                use_bias=False, dtype=dtype))
+            self.add_module(f"extra_gn_{j}", BankedGroupNorm(
+                num_banks, mid, gn_groups(mid)))
+        self.out = BankedConv(num_banks, mid if n_up or self.n_extra
+                              else cin, num_classes, 1, dtype=dtype)
+
+    def forward(self, x, idx, train: bool = False, generator=None):
+        for i in range(self.n_up):
+            x = getattr(self, f"up_{i}")(x, idx)
+            x = F.silu(getattr(self, f"up_gn_{i}")(x, idx))
+            x = upsample_2x(x, method="bilinear")
+        for j in range(self.n_extra):
+            x = getattr(self, f"extra_{j}")(x, idx)
+            x = F.silu(getattr(self, f"extra_gn_{j}")(x, idx))
+        return self.out(x, idx)
+
+
+class DeepSupervisionSegHeadBank(nn.Module):
+    """A 1x1 main classifier resized bilinearly by ``upsampling``, and
+    ``num_aux_outputs`` 1x1 auxiliary classifiers at the input's
+    resolution; returns ``(main, [aux...])``."""
+
+    def __init__(self, num_banks: int, cin: int, num_classes: int,
+                 num_aux_outputs: int = 3, upsampling: int = 4,
+                 dtype=torch.float32):
+        super().__init__()
+        self.upsampling = upsampling
+        self.main = BankedConv(num_banks, cin, num_classes, 1, dtype=dtype)
+        self.num_aux = num_aux_outputs
+        for i in range(num_aux_outputs):
+            self.add_module(f"aux_{i}", BankedConv(num_banks, cin,
+                                                   num_classes, 1,
+                                                   dtype=dtype))
+
+    def forward(self, x, idx, train: bool = False, generator=None):
+        main = self.main(x, idx)
+        main = resize_to(main, main.shape[1] * self.upsampling,
+                         main.shape[2] * self.upsampling)
+        return main, [getattr(self, f"aux_{i}")(x, idx)
+                      for i in range(self.num_aux)]
+
+
 class ClsHeadBank(nn.Module):
     """GAP (+ optional banked MLP) + dropout + banked linear."""
 
@@ -93,6 +158,20 @@ class ClsHeadBank(nn.Module):
             h = dropout(h, self.dropout, train, generator)
         h = dropout(h, self.dropout, train, generator)
         return self.fc(h, idx)
+
+
+class BaselineClsHeadBank(nn.Module):
+    """GAP + dropout + banked linear."""
+
+    def __init__(self, num_banks: int, cin: int, num_classes: int,
+                 dropout: float = 0.2, dtype=torch.float32):
+        super().__init__()
+        self.fc = BankedDense(num_banks, cin, num_classes, dtype=dtype)
+        self.dropout = float(dropout)
+
+    def forward(self, x, idx, train: bool = False, generator=None):
+        return self.fc(dropout(_gap(x), self.dropout, train, generator),
+                       idx)
 
 
 class CenterNetHeadBank(nn.Module):
@@ -127,6 +206,68 @@ class CenterNetHeadBank(nn.Module):
         return {"heatmap": heatmap, "size": size, "offset": offset}
 
 
+def _grid_out(out):
+    """Sigmoid on the 4 box channels, objectness (and any further
+    channel) left as logits."""
+    return torch.cat([torch.sigmoid(out[..., :4]), out[..., 4:]], dim=-1)
+
+
+class GridDetectionHeadBank(nn.Module):
+    """3x3 projection + GN + ReLU, a residual refine (two conv + GN) with
+    SE channel attention, ReLU, a 1x1 conv to ``num_anchors * (4 +
+    num_classes)`` channels: a [B, h, w, 4 + C] map."""
+
+    def __init__(self, num_banks: int, cin: int, num_classes: int = 1,
+                 mid_channels: int = 128, num_anchors: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        mid = mid_channels
+        for name, c_in in (("in_conv", cin), ("refine1", mid),
+                           ("refine2", mid)):
+            self.add_module(name, BankedConv(num_banks, c_in, mid, 3,
+                                             use_bias=False, dtype=dtype))
+        for name in ("in_gn", "refine1_gn", "refine2_gn"):
+            self.add_module(name, BankedGroupNorm(num_banks, mid,
+                                                  gn_groups(mid)))
+        self.attn1 = BankedDense(num_banks, mid, mid // 4, dtype=dtype)
+        self.attn2 = BankedDense(num_banks, mid // 4, mid, dtype=dtype)
+        self.out = BankedConv(num_banks, mid, num_anchors * (4 + num_classes),
+                              1, dtype=dtype)
+
+    def forward(self, x, idx, train: bool = False, generator=None):
+        h = F.relu(self.in_gn(self.in_conv(x, idx), idx))
+        r = F.relu(self.refine1_gn(self.refine1(h, idx), idx))
+        r = self.refine2_gn(self.refine2(r, idx), idx)
+        a = F.relu(self.attn1(_gap(r), idx))
+        a = torch.sigmoid(self.attn2(a, idx))
+        h = r * a[:, None, None, :] + h
+        return _grid_out(self.out(F.relu(h), idx))
+
+
+class BaselineGridDetectionHeadBank(nn.Module):
+    """Two 3x3 conv + GN + ReLU, a 1x1 conv to the grid map."""
+
+    def __init__(self, num_banks: int, cin: int, num_classes: int = 1,
+                 mid_channels: int = 128, num_anchors: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        mid = mid_channels
+        for i in range(2):
+            self.add_module(f"conv{i}", BankedConv(
+                num_banks, cin if i == 0 else mid, mid, 3, use_bias=False,
+                dtype=dtype))
+            self.add_module(f"gn{i}", BankedGroupNorm(num_banks, mid,
+                                                      gn_groups(mid)))
+        self.out = BankedConv(num_banks, mid, num_anchors * (4 + num_classes),
+                              1, dtype=dtype)
+
+    def forward(self, x, idx, train: bool = False, generator=None):
+        for i in range(2):
+            x = F.relu(getattr(self, f"gn{i}")(
+                getattr(self, f"conv{i}")(x, idx), idx))
+        return _grid_out(self.out(x, idx))
+
+
 class RegHeadBank(nn.Module):
     """GAP + banked MLP (+ (tanh + 1) / 2 -> [0, 1])."""
 
@@ -146,62 +287,91 @@ class RegHeadBank(nn.Module):
         return h
 
 
+class BaselineRegHeadBank(nn.Module):
+    """GAP + banked linear to 2P coordinates (no squashing)."""
+
+    def __init__(self, num_banks: int, cin: int, num_points: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.fc = BankedDense(num_banks, cin, num_points * 2, dtype=dtype)
+
+    def forward(self, x, idx, train: bool = False, generator=None):
+        return self.fc(_gap(x), idx)
+
+
 def build_head_banks(config, registry: TaskRegistry, in_channels,
                      dtype=torch.float32) -> Dict[str, nn.Module]:
-    """One head bank per present task type. ``in_channels`` maps a task
-    type to the channels of the features its head reads."""
+    """One head bank per present task type, chosen as the JAX package
+    chooses it (``model.heads.use_baseline`` picks the baseline cls, grid
+    det and reg banks). ``in_channels`` maps a task type to the channels
+    of the features its head reads."""
     heads_cfg = config.get("model.heads", {}) or {}
-    if heads_cfg.get("use_baseline", False):
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="baseline head banks (model.heads.use_baseline)"))
+    use_baseline = bool(heads_cfg.get("use_baseline", False))
     banks: Dict[str, nn.Module] = {}
 
     if registry.num_of_type(SEGMENTATION) > 0:
         cfg = heads_cfg.get("segmentation", {}) or {}
-        if (cfg.get("use_deep_supervision", False)
-                or cfg.get("type", "standard") == "unet_like"):
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="DeepSupervisionSegHeadBank / UNetLikeSegHeadBank"))
+        T, cin = registry.num_of_type(SEGMENTATION), in_channels[SEGMENTATION]
+        C = registry.max_classes(SEGMENTATION)
         mid = cfg.get("mid_channels")
-        banks[SEGMENTATION] = SegHeadBank(
-            registry.num_of_type(SEGMENTATION), in_channels[SEGMENTATION],
-            registry.max_classes(SEGMENTATION),
-            mid_channels=int(mid) if mid else None,
-            num_layers=int(cfg.get("num_layers", 2)),
-            upsampling=int(cfg.get("upsampling", 4)), dtype=dtype)
+        mid = int(mid) if mid else None
+        up = int(cfg.get("upsampling", 4))
+        if cfg.get("use_deep_supervision", False):
+            banks[SEGMENTATION] = DeepSupervisionSegHeadBank(
+                T, cin, C, num_aux_outputs=int(cfg.get("num_aux_outputs", 3)),
+                upsampling=up, dtype=dtype)
+        elif cfg.get("type", "standard") == "unet_like":
+            banks[SEGMENTATION] = UNetLikeSegHeadBank(
+                T, cin, C, mid_channels=mid, upsampling=up,
+                num_blocks=int(cfg.get("num_blocks", 2)), dtype=dtype)
+        else:
+            banks[SEGMENTATION] = SegHeadBank(
+                T, cin, C, mid_channels=mid,
+                num_layers=int(cfg.get("num_layers", 2)), upsampling=up,
+                dtype=dtype)
 
     if registry.num_of_type(CLASSIFICATION) > 0:
         cfg = heads_cfg.get("classification", {}) or {}
-        if cfg.get("type") == "baseline":
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="BaselineClsHeadBank"))
-        mlp = cfg.get("mlp_hidden_dim")
-        banks[CLASSIFICATION] = ClsHeadBank(
-            registry.num_of_type(CLASSIFICATION),
-            in_channels[CLASSIFICATION],
-            registry.max_classes(CLASSIFICATION),
-            mlp_hidden_dim=int(mlp) if mlp else None,
-            dropout=float(cfg.get("dropout", 0.2)), dtype=dtype)
+        T = registry.num_of_type(CLASSIFICATION)
+        cin = in_channels[CLASSIFICATION]
+        C = registry.max_classes(CLASSIFICATION)
+        drop = float(cfg.get("dropout", 0.2))
+        if use_baseline or cfg.get("type") == "baseline":
+            banks[CLASSIFICATION] = BaselineClsHeadBank(
+                T, cin, C, dropout=drop, dtype=dtype)
+        else:
+            mlp = cfg.get("mlp_hidden_dim")
+            banks[CLASSIFICATION] = ClsHeadBank(
+                T, cin, C, mlp_hidden_dim=int(mlp) if mlp else None,
+                dropout=drop, dtype=dtype)
 
     if registry.num_of_type(DETECTION) > 0:
         cfg = heads_cfg.get("detection", {}) or {}
-        if cfg.get("type", "centernet") != "centernet":
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="grid / baseline detection head banks"))
-        banks[DETECTION] = CenterNetHeadBank(
-            registry.num_of_type(DETECTION), in_channels[DETECTION],
-            mid_channels=int(cfg.get("mid_channels", 128)), dtype=dtype)
+        T, cin = registry.num_of_type(DETECTION), in_channels[DETECTION]
+        mid = int(cfg.get("mid_channels", 128))
+        det_type = cfg.get("type", "centernet")
+        if det_type == "centernet" and not use_baseline:
+            banks[DETECTION] = CenterNetHeadBank(T, cin, mid_channels=mid,
+                                                 dtype=dtype)
+        else:
+            cls = (BaselineGridDetectionHeadBank
+                   if use_baseline or det_type == "baseline"
+                   else GridDetectionHeadBank)
+            banks[DETECTION] = cls(
+                T, cin, num_classes=registry.max_classes(DETECTION),
+                mid_channels=mid,
+                num_anchors=int(cfg.get("num_anchors", 1)), dtype=dtype)
 
     if registry.num_of_type(REGRESSION) > 0:
         cfg = heads_cfg.get("regression", {}) or {}
-        if cfg.get("type") == "baseline":
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="BaselineRegHeadBank"))
-        hidden = cfg.get("hidden_dims") or [256, 128]
-        banks[REGRESSION] = RegHeadBank(
-            registry.num_of_type(REGRESSION), in_channels[REGRESSION],
-            registry.max_classes(REGRESSION),
-            hidden_dims=tuple(int(d) for d in hidden),
-            dropout=float(cfg.get("dropout", 0.1)),
-            use_tanh=bool(cfg.get("use_tanh", True)), dtype=dtype)
+        T, cin = registry.num_of_type(REGRESSION), in_channels[REGRESSION]
+        P = registry.max_classes(REGRESSION)
+        if use_baseline or cfg.get("type") == "baseline":
+            banks[REGRESSION] = BaselineRegHeadBank(T, cin, P, dtype=dtype)
+        else:
+            hidden = cfg.get("hidden_dims") or [256, 128]
+            banks[REGRESSION] = RegHeadBank(
+                T, cin, P, hidden_dims=tuple(int(d) for d in hidden),
+                dropout=float(cfg.get("dropout", 0.1)),
+                use_tanh=bool(cfg.get("use_tanh", True)), dtype=dtype)
     return banks

@@ -1,13 +1,15 @@
 """Multi-task model (port of ``fmc_uia_tpu/models/multitask.py``).
 
-Shared encoder -> optional MoE blocks on encoder stages -> per-task-type
-FPN -> TaskFiLM -> banked head. The task type is a Python string choosing
-the branch; the task index is a tensor, mapped to the head bank's local
-index through the registry's table on the device. Outputs keep the JAX
-layouts: seg [B, H, W, Cmax], cls [B, Cmax], det a dict of NHWC maps, reg
-[B, 2P]. The MoE blocks' balance losses and statistics, which the JAX
-model ``sow``s into ``intermediates``, come back from
-``forward(..., return_intermediates=True)``.
+Optional task prompt on the normalised image -> shared encoder -> optional MoE
+blocks on encoder stages -> optional per-stage FiLM (``MultiFiLM``) ->
+per-task-type FPN -> FiLM -> banked head. The task type is a Python string
+choosing the branch; the task index is a tensor, mapped to the head bank's
+local index through the registry's table on the device. Outputs keep the JAX
+layouts: seg [B, H, W, Cmax], cls [B, Cmax], det a dict of NHWC maps, reg [B,
+2P]; a grid det head gives [B, h, w, 4 + 1] and a deep-supervision seg head
+``(main, [aux...])``. The MoE blocks' balance losses and statistics, which the
+JAX model ``sow``s into ``intermediates``, come back from ``forward(...,
+return_intermediates=True)``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from fmc_uia_tpu_torch.device import resolve_device
 from fmc_uia_tpu_torch.models.conditioning import (
     build_film,
     build_moe_blocks,
-    check_unported,
+    build_multi_film,
+    build_task_prompt,
 )
 from fmc_uia_tpu_torch.models.decoders import build_decoders
 from fmc_uia_tpu_torch.models.encoders import build_encoder
@@ -40,7 +43,6 @@ from fmc_uia_tpu_torch.tasks import (
 class MultiTaskModel(nn.Module):
     def __init__(self, config, registry: TaskRegistry, dtype=torch.float32):
         super().__init__()
-        check_unported(config)
         self.registry = registry
         self.dtype = dtype
         self.encoder = build_encoder(config, dtype=dtype)
@@ -50,6 +52,13 @@ class MultiTaskModel(nn.Module):
                                          dtype=dtype).items():
             self.add_module(f"moe_stage{i}", block)
             self.moe_stages.append(i)
+        self.multi_film = build_multi_film(config, len(registry), enc_ch)
+        self.task_prompt = build_task_prompt(config,
+                                             registry.to_task_configs())
+        names = (config.get("model.task_prompt", {}) or {}).get(
+            "apply_to_task_names")
+        self.prompt_apply_names = (None if names is None else
+                                   tuple(str(n).lower() for n in names))
         alias, decoders = build_decoders(config, enc_ch, dtype=dtype)
         self.decoder_alias = alias
         for name, mod in decoders.items():
@@ -111,8 +120,15 @@ class MultiTaskModel(nn.Module):
         local_idx = take(self.local_index_table, task_index)
         rand = dict(train=train, generator=generator)
         inter = {"moe_aux": [], "moe_importance": [], "moe_load": []}
-        features = self.encoder(images.to(self.dtype), **rand)
+        x = images.to(self.dtype)
+        if self.task_prompt is not None and (
+                self.prompt_apply_names is None
+                or task_type.lower() in self.prompt_apply_names):
+            x = self.task_prompt(x, task_index)
+        features = self.encoder(x, **rand)
         features = self._apply_moe(features, task_index, inter, **rand)
+        if self.multi_film is not None:
+            features = self.multi_film(features, task_index)
         head = getattr(self, f"head_banks_{task_type}")
         if self._needs_fpn(task_type):
             x = getattr(self, self.decoder_alias[task_type])(features, **rand)

@@ -96,3 +96,25 @@ def decode_centernet(heatmap: torch.Tensor, size: torch.Tensor,
     boxes = torch.stack(
         [cx - bw * 0.5, cy - bh * 0.5, cx + bw * 0.5, cy + bh * 0.5], dim=1)
     return torch.clamp(boxes, 0.0, 1.0)
+
+
+def decode_grid_detection(outputs: torch.Tensor) -> torch.Tensor:
+    """Best box per image from a grid detection map [B, H, W, 4 + 1]
+    (channels: the sigmoid box, then objectness): the 4 box channels at
+    the objectness argmax, the first maximum in row-major order on ties,
+    as jnp.argmax (``torch.argmax`` returns the first maximal index;
+    tests/test_torch_offpath_heads.py holds it on a planted tie)."""
+    B, H, W, _ = outputs.shape
+    best = torch.argmax(outputs[..., 4].reshape(B, H * W), dim=1)
+    bidx = torch.arange(B, device=outputs.device)
+    return outputs[bidx, torch.div(best, W, rounding_mode="floor"),
+                   best % W, :4]
+
+
+def decode_detection(out) -> torch.Tensor:
+    """Boxes [B, 4] f32 from a detection head's output: a CenterNet dict
+    or a grid map, as the JAX package's eval and export decode them."""
+    if isinstance(out, dict):
+        return decode_centernet(out["heatmap"].float(), out["size"].float(),
+                                out["offset"].float())
+    return decode_grid_detection(out.float())

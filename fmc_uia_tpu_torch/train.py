@@ -6,11 +6,18 @@ One train step per task type, as in the JAX package:
     dropout) -> CenterNet targets -> loss (+ the MoE balance loss) ->
     backward (the fused Swin branches and the ViT global attention
     through their backward kernels) -> clip model grads -> grouped-LR
-    AdamW
+    AdamW / Adam / SGD
 
-Optimizer parity with the optax chain of ``build_optimizer``:
+A deep-supervision seg head adds its auxiliary losses (each aux map
+resized bilinearly to the label, weighted by ``aux_loss_weights``); a
+grid det head is scored at the GT box centre's cell.
+
+Optimizer parity with the optax chains of ``build_optimizer``: AdamW is
 ``scale_by_adam(b1=0.9, b2=0.999, eps=1e-8)`` -> ``add_decayed_weights(wd)``
--> ``scale(group multiplier)`` -> ``params += -lr * update``, with one
+-> ``scale(group multiplier)``; Adam the same without the decay (whatever
+``weight_decay`` says); SGD ``trace(momentum)`` -> ``add_decayed_weights``
+-> ``scale`` (the decay added after the momentum trace, unlike
+``torch.optim.SGD``); then ``params += -lr * update``, with one
 multiplier per label (encoder x0.1, heads x1.0, adaptive log-vars
 adaptive_lr / lr, frozen untouched: ``freeze_encoder``, ``freeze_dino``'s
 backbone, DINOv3's ``rope_periods``). Every parameter is updated every step,
@@ -20,8 +27,16 @@ Clipping applies to the model's grads only, by ``max_norm / (norm +
 1e-6)``; the adaptive log-vars' grads are zeroed during the adaptive
 warmup epochs.
 
-Gradient accumulation, burst mode, AOT warm-compile and device meshes are
-not ported yet; asking for them raises.
+``training.accumulation_steps`` = n > 1: each micro-step's grads (the
+adaptive log-vars' gated first) are divided by n and added to an f32
+accumulator, whatever the batch's task type; every n-th micro-step (the
+host's count, not saved in checkpoints, as in JAX) clips the accumulated
+model grads, updates and zeroes the accumulator. The generator advances on
+every micro-step, the optimizer's count on updates only.
+``train_burst(batch, n)`` runs n steps on one batch with no host sync.
+
+AOT warm-compile has no counterpart and raises; device meshes raise and
+name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ import torch.nn as nn
 from fmc_uia_tpu_torch import losses as losses_lib
 from fmc_uia_tpu_torch.device import resolve_device
 from fmc_uia_tpu_torch.ops.centernet import make_centernet_targets
+from fmc_uia_tpu_torch.models.layers import resize_to
 from fmc_uia_tpu_torch.ops.image import input_prep_fns, random_flips
 from fmc_uia_tpu_torch.tasks import (
     CLASSIFICATION,
@@ -46,7 +62,6 @@ from fmc_uia_tpu_torch.tasks import (
 
 _NOT_PORTED = ("{what} is not ported to fmc_uia_tpu_torch yet (ROADMAP.md, "
                "port queue item '{item}')")
-_ITEM_OFF_PATH = "Off-main-path heads and conditioning"
 _ITEM_PARALLEL = "Parallel modes"
 
 
@@ -75,35 +90,74 @@ def label_params(model: nn.Module, freeze_encoder: bool = False,
     return {name: label(name) for name, _ in model.named_parameters()}
 
 
-class GroupedAdamW:
-    """AdamW in optax's order over groups of f32 parameters, one LR
-    multiplier per group (see the module docstring). Moments are f32,
-    zero-initialised; the step count is shared."""
+class GroupedOptimizer:
+    """Optax's AdamW, Adam or SGD (``kind``) over groups of f32
+    parameters, one LR multiplier per group (see the module docstring).
+    State is f32, zero-initialised: ``mu`` and ``nu`` (Adam kinds) or
+    ``trace`` (SGD); the step count is shared."""
 
     def __init__(self, groups: List[Tuple[float, List[nn.Parameter]]],
-                 weight_decay: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 weight_decay: float, kind: str = "AdamW", b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 momentum: float = 0.9):
+        if kind not in ("AdamW", "Adam", "SGD"):
+            raise ValueError(f"Unknown optimizer type: {kind}")
         self.groups = [(float(m), list(ps)) for m, ps in groups if ps]
-        self.wd, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
+        self.kind = kind
+        self.wd = 0.0 if kind == "Adam" else weight_decay
+        self.b1, self.b2, self.eps, self.momentum = b1, b2, eps, momentum
         self.count = 0
-        self.mu = [[torch.zeros_like(p) for p in ps] for _, ps in self.groups]
-        self.nu = [[torch.zeros_like(p) for p in ps] for _, ps in self.groups]
+
+        def zeros():
+            return [[torch.zeros_like(p) for p in ps] for _, ps in
+                    self.groups]
+
+        self.buffers = ({"trace": zeros()} if kind == "SGD"
+                        else {"mu": zeros(), "nu": zeros()})
+
+    def state_dict(self) -> Dict:
+        return {"kind": self.kind, "count": int(self.count),
+                **self.buffers}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        if state.get("kind", "AdamW") != self.kind:
+            raise ValueError(f"optimizer {state.get('kind')!r} in the "
+                             f"checkpoint, {self.kind!r} configured")
+        for key, dst in self.buffers.items():
+            src = state[key]
+            if [len(g) for g in dst] != [len(g) for g in src]:
+                raise ValueError("optimizer state does not match the "
+                                 "model's parameter groups")
+            for d, s in zip(dst, src):
+                torch._foreach_copy_(d, s)
+        self.count = int(state["count"])
+
+    def _adam(self, i, g):
+        mu, nu = self.buffers["mu"][i], self.buffers["nu"][i]
+        bc1 = 1.0 - self.b1 ** self.count
+        bc2 = 1.0 - self.b2 ** self.count
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        return torch._foreach_div(torch._foreach_div(mu, bc1), den)
+
+    def _sgd(self, i, g):
+        trace = self.buffers["trace"][i]  # g + momentum * trace
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, g)
+        return [t.clone() for t in trace]
 
     @torch.no_grad()
     def step(self, lr: float) -> None:
         self.count += 1
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
-        for (mult, ps), mu, nu in zip(self.groups, self.mu, self.nu):
+        for i, (mult, ps) in enumerate(self.groups):
             g = [p.grad for p in ps]
-            torch._foreach_mul_(mu, self.b1)
-            torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
-            torch._foreach_mul_(nu, self.b2)
-            torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
-            den = torch._foreach_div(nu, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, self.eps)
-            upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+            upd = self._sgd(i, g) if self.kind == "SGD" else self._adam(i, g)
             if self.wd:
                 torch._foreach_add_(upd, ps, alpha=self.wd)
             torch._foreach_mul_(upd, mult)
@@ -113,13 +167,11 @@ class GroupedAdamW:
 
 def build_optimizer(config, model: nn.Module,
                     adaptive: Optional[nn.ParameterDict] = None
-                    ) -> GroupedAdamW:
-    """The grouped AdamW of ``training.optimizer`` (type AdamW only)."""
+                    ) -> GroupedOptimizer:
+    """The grouped optimizer of ``training.optimizer`` (``type`` AdamW,
+    Adam or SGD with ``momentum``)."""
     opt_cfg = config.get("training.optimizer", {}) or {}
     opt_type = str(opt_cfg.get("type", "AdamW"))
-    if opt_type != "AdamW":
-        raise NotImplementedError(_NOT_PORTED.format(
-            what=f"optimizer type {opt_type!r}", item=_ITEM_OFF_PATH))
     base_lr = float(config.learning_rate)
     grouped = bool(opt_cfg.get("use_grouped_lr", True))
     enc_mult = (float(opt_cfg.get("encoder_lr_multiplier", 0.1))
@@ -138,7 +190,9 @@ def build_optimizer(config, model: nn.Module,
         adaptive_lr = float(config.get("training.adaptive_loss.learning_rate",
                                        base_lr))
         groups.append((adaptive_lr / base_lr, list(adaptive.values())))
-    return GroupedAdamW(groups, float(config.weight_decay))
+    return GroupedOptimizer(groups, float(config.weight_decay),
+                            kind=opt_type,
+                            momentum=float(opt_cfg.get("momentum", 0.9)))
 
 
 class LRScheduler:
@@ -226,7 +280,9 @@ class Trainer:
     returns ``moe_importance`` / ``moe_load`` (per expert, the mean over
     blocks) and, when ``model.moe.balance_loss_weight`` > 0, ``moe_aux``
     (the blocks' balance losses summed, added to the total times that
-    weight), as the JAX step logs them."""
+    weight), as the JAX step logs them. Under gradient accumulation it
+    returns ``total_loss``, ``raw_loss`` and ``task_weight`` only, as the
+    JAX accumulation step does."""
 
     def __init__(self, config, model: nn.Module,
                  registry: Optional[TaskRegistry] = None, device="cuda",
@@ -234,14 +290,6 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(_NOT_PORTED.format(
                 what="data/tensor-parallel meshes", item=_ITEM_PARALLEL))
-        if int(config.get("training.accumulation_steps", 1) or 1) > 1:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="gradient accumulation (training.accumulation_steps)",
-                item=_ITEM_OFF_PATH))
-        if bool(config.get("model.heads.segmentation.use_deep_supervision",
-                           False)):
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="deep-supervision seg losses", item=_ITEM_OFF_PATH))
         dev = resolve_device(device)
         p0 = next(model.parameters())
         if p0.device.type != dev.type:
@@ -252,9 +300,12 @@ class Trainer:
         self.config = config
         self.model = model
         self.registry = registry
+        check_det_head_loss(config, registry)
         loss_fns, loss_weights, adaptive_init = losses_lib.build_all_losses(
             config, registry)
         self.loss_fns = loss_fns
+        self.aux_weights = [float(w) for w in config.get(
+            "model.heads.segmentation.aux_loss_weights", [0.5, 0.3, 0.2])]
         self.adaptive = None
         if adaptive_init is not None:
             self.adaptive = nn.ParameterDict({
@@ -292,6 +343,12 @@ class Trainer:
                                  else list(self.adaptive.values()))
         for p in self._params + self._adaptive_params:
             p.grad = torch.zeros_like(p)
+        self.accum_steps = int(config.get("training.accumulation_steps", 1)
+                               or 1)
+        self._micro_step = 0  # host count, not saved (as in JAX)
+        self.grad_accum = (None if self.accum_steps <= 1 else
+                           [torch.zeros_like(p, dtype=torch.float32)
+                            for p in self._params + self._adaptive_params])
 
     # -- batches -------------------------------------------------------------
     def put_batch(self, batch: Dict) -> Dict:
@@ -329,17 +386,39 @@ class Trainer:
         """The task type's loss of the model's outputs (f32 scalar)."""
         ncls = self.nc_table.index_select(0, task_index.reshape(1))[0]
         fn = self.loss_fns[task_type]
+        if task_type == SEGMENTATION and isinstance(outputs, tuple):
+            # deep supervision: main + sum_i w_i loss(aux_i at label size)
+            main, auxs = outputs
+            loss = fn(main, labels, num_valid_classes=ncls)
+            th, tw = labels.shape[1:3]
+            for w, aux in zip(self.aux_weights, auxs):
+                loss = loss + w * fn(resize_to(aux.float(), th, tw), labels,
+                                     num_valid_classes=ncls)
+            return loss
         if task_type in (SEGMENTATION, CLASSIFICATION):
             return fn(outputs, labels, num_valid_classes=ncls)
-        if task_type == DETECTION:
+        if task_type == DETECTION and isinstance(outputs, dict):
             H, W = outputs["heatmap"].shape[1:3]
             targets = make_centernet_targets(labels, H, W)
             return fn({k: v.float() for k, v in outputs.items()}, targets)
+        if task_type == DETECTION:
+            # grid head: the prediction at the GT box centre's cell,
+            # targets [box (zeros when the box is invalid), valid]
+            B, H, W, _ = outputs.shape
+            cx = (labels[:, 0] + labels[:, 2]) * 0.5
+            cy = (labels[:, 1] + labels[:, 3]) * 0.5
+            gw = torch.clamp(torch.floor(cx * W).long(), 0, W - 1)
+            gh = torch.clamp(torch.floor(cy * H).long(), 0, H - 1)
+            picked = outputs[torch.arange(B, device=outputs.device), gh,
+                             gw].float()
+            valid = (labels >= 0).all(dim=1)
+            clean = torch.where(valid[:, None], labels, 0.0)
+            return fn(picked, torch.cat([clean, valid.float()[:, None]], 1))
         return fn(outputs.float(), labels, num_valid_cols=2 * ncls)
 
-    def compute_grads(self, batch: Dict, epoch: int = 0) -> Dict:
-        """Augment, forward in train mode, loss, backward and clip: leaves
-        the step's grads in ``.grad`` and returns the logs."""
+    def _backward(self, batch: Dict) -> Dict:
+        """Augment, forward in train mode, loss and backward: the step's
+        grads in ``.grad`` (zeroed first), unclipped; returns the logs."""
         b = self.put_batch(batch)
         task_type = b["task_type"]
         task_index = self._index(b)
@@ -372,18 +451,47 @@ class Trainer:
                 moe_logs[key] = torch.stack(inter[key]).float().mean(
                     0).detach()
         total.backward()
-        logs = {"total_loss": total.detach(), "raw_loss": raw.detach(),
+        return {"total_loss": total.detach(), "raw_loss": raw.detach(),
                 "task_weight": weight.detach(), **moe_logs}
+
+    def _gate_adaptive(self, epoch: int) -> None:
+        """Zero the adaptive log-vars' grads in the warmup epochs."""
+        if self.adaptive is not None and epoch < self.adaptive_warmup:
+            torch._foreach_zero_([p.grad for p in self._adaptive_params])
+
+    def compute_grads(self, batch: Dict, epoch: int = 0) -> Dict:
+        """Augment, forward in train mode, loss, backward and clip: leaves
+        the step's grads in ``.grad`` and returns the logs."""
+        logs = self._backward(batch)
         if self.grad_clip > 0:
             logs["grad_norm"] = torch.nn.utils.clip_grad_norm_(
                 self._params, self.grad_clip)
-        if self.adaptive is not None and epoch < self.adaptive_warmup:
-            torch._foreach_zero_([p.grad for p in self._adaptive_params])
+        self._gate_adaptive(epoch)
         return logs
 
+    def _accumulate(self, batch: Dict, epoch: int) -> Dict:
+        """One micro-step of gradient accumulation (module docstring)."""
+        logs = self._backward(batch)
+        self._gate_adaptive(epoch)
+        grads = [p.grad for p in self._params + self._adaptive_params]
+        torch._foreach_add_(self.grad_accum, torch._foreach_div(
+            grads, float(self.accum_steps)))
+        self._micro_step += 1
+        if self._micro_step % self.accum_steps == 0:
+            torch._foreach_copy_(grads, self.grad_accum)
+            if self.grad_clip > 0:
+                torch.nn.utils.clip_grad_norm_(self._params, self.grad_clip)
+            self.optimizer.step(self.scheduler.current_lr())
+            torch._foreach_zero_(self.grad_accum)
+        return {k: logs[k] for k in ("total_loss", "raw_loss",
+                                     "task_weight")}
+
     def train_batch(self, batch: Dict, epoch: int) -> Dict:
-        logs = self.compute_grads(batch, epoch)
-        self.optimizer.step(self.scheduler.current_lr())
+        if self.accum_steps > 1:
+            logs = self._accumulate(batch, epoch)
+        else:
+            logs = self.compute_grads(batch, epoch)
+            self.optimizer.step(self.scheduler.current_lr())
         self.host_step += 1
         return logs
 
@@ -400,13 +508,49 @@ class Trainer:
                     "sigmas": {t: float(torch.exp(0.5 * v))
                                for t, v in lv.items()}}
 
-    def train_burst(self, batch: Dict, n_steps: int, epoch: int = 0):
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="burst mode (Trainer.train_burst)", item=_ITEM_OFF_PATH))
+    def train_burst(self, batch: Dict, n_steps: int, epoch: int = 0
+                    ) -> Dict[str, torch.Tensor]:
+        """``n_steps`` optimizer steps on the SAME batch of one task type
+        (the generator advancing every step, as in ``train_batch``), the
+        batch put on the device once; nothing waits for the device.
+        Returns ``{"total_loss": the last step's, "losses": [n_steps]}``
+        as device tensors. Raises under gradient accumulation, as JAX."""
+        if self.accum_steps > 1:
+            raise NotImplementedError(
+                "burst mode with accumulation_steps > 1")
+        b = self.put_batch(batch)
+        losses = []
+        for _ in range(int(n_steps)):
+            losses.append(self.compute_grads(b, epoch)["total_loss"])
+            self.optimizer.step(self.scheduler.current_lr())
+        losses = torch.stack(losses)
+        return {"total_loss": losses[-1], "losses": losses}
 
     def warm_compile(self, example_batches, parallel: bool = True,
                      aot_dir=None):
         raise NotImplementedError(
             "AOT warm-compile has no counterpart: PyTorch runs eagerly; the "
-            "CUDA kernels build at first use (ROADMAP.md, port queue item "
-            f"'{_ITEM_OFF_PATH}')")
+            "CUDA kernels build at first use (ROADMAP.md, 'These need no "
+            "counterpart')")
+
+
+def check_det_head_loss(config, registry: TaskRegistry) -> None:
+    """The JAX Trainer's guided error: a CenterNet loss needs the
+    CenterNet head, a grid loss a grid head (baseline or ``type`` other
+    than centernet)."""
+    if registry.num_of_type(DETECTION) == 0:
+        return
+    loss_cfg = (config.get("training.loss_configs", {}) or {}).get(
+        "detection", {}) or {}
+    det_loss = str(loss_cfg.get("type", "CenterNet")).lower()
+    det_head = str(config.get("model.heads.detection.type",
+                              "centernet")).lower()
+    use_baseline = bool(config.get("model.heads.use_baseline", False))
+    head_is_centernet = det_head == "centernet" and not use_baseline
+    if head_is_centernet != (det_loss in ("centernet", "")):
+        raise ValueError(
+            f"Detection head/loss mismatch: head type {det_head!r} vs loss "
+            f"type {det_loss!r}. Fix: set "
+            "training.loss_configs.detection.type='Detection' for a grid "
+            "head, or model.heads.detection.type='centernet' for the "
+            "CenterNet loss.")

@@ -88,7 +88,9 @@ def jax_leaves_to_port(tree: Mapping) -> Dict[str, np.ndarray]:
             key = name.replace("/", ".")
             if key in leaves:
                 raise ValueError(f"two JAX leaves map to {key!r}")
-            leaves[key] = np.ascontiguousarray(a, np.float32)
+            # (ascontiguousarray alone would make a 0-d leaf 1-d)
+            leaves[key] = np.ascontiguousarray(a, np.float32).reshape(
+                a.shape)
     return leaves
 
 
@@ -131,7 +133,7 @@ def port_params_as_jax_tree(module: torch.nn.Module) -> Dict:
         a = p.detach().cpu().float().numpy()
         if name.rsplit(".", 1)[-1] == "kernel":
             a = np.transpose(a, np.argsort(_KERNEL_PERM[a.ndim]))
-        leaves[name] = np.ascontiguousarray(a)
+        leaves[name] = np.ascontiguousarray(a).reshape(a.shape)
     return _unflatten(leaves)
 
 

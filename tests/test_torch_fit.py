@@ -7,14 +7,14 @@ metric on bridged weights over the same batches (two f32 forwards of a
 tiny Swin; a seg pixel or class whose top two logits sit within the
 forwards' difference could flip, which this seed does not meet); a
 resumed run bitwise equal to the unbroken one (same arithmetic on the same
-data in the same order).
+data in the same order). The fit through the CLI and the preemption test
+are in tests/test_torch_fit_cli.py.
 """
 
 import copy
 import json
 import os
 import signal
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -22,14 +22,12 @@ import numpy as np
 import pandas as pd
 import pytest
 import torch
-import yaml
 
 from fmc_uia_tpu import metrics as JM
 from fmc_uia_tpu.config import Config as JaxConfig
 from fmc_uia_tpu.models import build_model as jax_build_model
 from fmc_uia_tpu.models.multitask import MultiTaskModel as JaxModel
 from fmc_uia_tpu.tasks import TaskRegistry as JaxRegistry
-from fmc_uia_tpu_torch import checkpoint as ckpt_lib
 from fmc_uia_tpu_torch import metrics as PM
 from fmc_uia_tpu_torch.config import Config
 from fmc_uia_tpu_torch.data.pipeline import build_data_engines
@@ -162,43 +160,6 @@ def test_evaluate_matches_jax(data_root, tmp_path):
 # ---------------------------------------------------------------------------
 # fit
 # ---------------------------------------------------------------------------
-def test_fit_end_to_end_through_the_cli(data_root, tmp_path, monkeypatch):
-    """Two epochs x 4 steps, K3's plain version in the train prep, through
-    ``python -m fmc_uia_tpu_torch`` with a config file."""
-    from fmc_uia_tpu_torch.__main__ import main
-
-    d = _tiny_dict(data_root, str(tmp_path / "out"), fused_preprocess=True)
-    path = tmp_path / "cfg.yaml"
-    path.write_text(yaml.safe_dump(d))
-    monkeypatch.setattr(sys, "argv", ["fmc_uia_tpu_torch", "--config",
-                                      str(path), "--device", "cpu"])
-    main()
-    (exp,) = [p for p in (tmp_path / "out").iterdir() if p.is_dir()]
-    for f in ["training_history.json", "train_losses.csv",
-              "training_summary.csv", "val_metrics.csv", "config.yaml",
-              "final_summary.json", "final_summary.txt",
-              "best_model_summary.txt", "best_model.pt",
-              "checkpoint_epoch_2.pt"]:
-        assert (exp / f).exists(), f
-    hist = json.loads((exp / "training_history.json").read_text())
-    assert [e["epoch"] for e in hist] == [1, 2]
-    assert all(np.isfinite(v["mean"]) for e in hist
-               for v in e["train_losses"].values())
-    snap = yaml.safe_load((exp / "config.yaml").read_text())
-    assert snap["runtime"]["tasks_from_dataset"]
-    assert len(snap["tasks"]) == 6
-    loss = pd.read_csv(exp / "train_losses.csv")
-    assert list(loss.columns) == ["epoch", "task_id", "mean", "std", "min",
-                                  "max", "count"]
-    val = pd.read_csv(exp / "val_metrics.csv")
-    assert list(val.columns) == ["epoch", "task_id", "task_name", "metric",
-                                 "value"]
-    assert "Group mean primary metrics" in (
-        exp / "best_model_summary.txt").read_text()
-    found = ckpt_lib.latest_checkpoint(tmp_path / "out")
-    assert found is not None and found[1]["epoch"] == 2
-
-
 def test_fit_result(data_root, tmp_path):
     d = _tiny_dict(data_root, str(tmp_path / "out"), fused_preprocess=True)
     d["training"]["profile"] = {"enabled": True, "start_step": 1,
@@ -224,44 +185,6 @@ def test_preemption_guard_sigterm_sets_flag():
         assert g.requested
     finally:
         g.close()
-
-
-def test_preemption_checkpoints_and_resumes(data_root, tmp_path,
-                                            monkeypatch):
-    """SIGTERM mid-epoch writes a checkpoint of the interrupted epoch and
-    returns; --resume picks it up in the same experiment dir."""
-    import fmc_uia_tpu_torch.fit as fit_mod
-
-    d = _tiny_dict(data_root, str(tmp_path / "out"), fused_preprocess=True)
-    d["experiment"]["checkpoint_freq"] = 50  # only preemption saves
-
-    class FakeGuard:
-        def __init__(self, enabled=True):
-            self.checks = 0
-
-        @property
-        def requested(self):
-            self.checks += 1
-            return self.checks > 3
-
-        def close(self):
-            pass
-
-    monkeypatch.setattr(fit_mod, "_PreemptionGuard", FakeGuard)
-    result = fit(config=Config(config_dict=copy.deepcopy(d)), device="cpu")
-    assert result["preempted"] is True
-    found = ckpt_lib.latest_checkpoint(d["experiment"]["output_dir"])
-    assert found is not None and found[1]["epoch"] == 0
-    monkeypatch.undo()
-    before = sorted(p for p in (tmp_path / "out").iterdir() if p.is_dir())
-    result2 = fit(config=Config(config_dict=copy.deepcopy(d)), resume=True,
-                  device="cpu")
-    assert "preempted" not in result2 and result2["best_epoch"] >= 1
-    after = sorted(p for p in (tmp_path / "out").iterdir() if p.is_dir())
-    assert after == before
-    hist = json.load(open(after[0] / "training_history.json"))
-    assert [e["epoch"] for e in hist] == [1, 2]
-    assert (after[0] / "best_model.pt").exists()
 
 
 @pytest.mark.parametrize("adaptive", [False, True])

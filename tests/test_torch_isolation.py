@@ -115,16 +115,26 @@ def test_entry_points_refuse_missing_cuda():
 
 
 def test_unported_families_raise():
+    """resnet_tiny (queue 1 item 8) still raises; the task prompt and the
+    grid head (item 7) build and run a forward."""
     from fmc_uia_tpu_torch.models import build_model
 
-    for over in ({"model": {"encoder": {"name": "resnet_tiny"}}},
-                 {"model": {"encoder": {"name": "swin_nano"},
-                            "task_prompt": {"enabled": True}}},
-                 {"model": {"encoder": {"name": "swin_nano"},
-                            "heads": {"detection": {"type": "grid"}}}}):
-        cfg = Config(config_dict=make_tiny_config(**over).config)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, device="cpu")
+    cfg = Config(config_dict=make_tiny_config(
+        model={"encoder": {"name": "resnet_tiny"}}).config)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(cfg, device="cpu")
+    x = torch.zeros(1, 64, 64, 3)
+    for over, ttype, shape in (
+            ({"task_prompt": {"enabled": True}}, "segmentation",
+             (1, 64, 64, 2)),
+            ({"heads": {"detection": {"type": "grid"}}}, "detection",
+             (1, 16, 16, 5))):
+        cfg = Config(config_dict=make_tiny_config(model=dict(
+            over, encoder={"name": "swin_nano"})).config)
+        model = build_model(cfg, device="cpu")
+        gidx = model.registry.of_type(ttype)[0].global_index
+        with torch.no_grad():
+            assert tuple(model(x, ttype, gidx).shape) == shape
 
 
 def test_flagship_dict_equals_yaml_with_bench_overrides():

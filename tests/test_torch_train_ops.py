@@ -195,10 +195,13 @@ def test_adaptive_weighting_matches_jax():
 
 
 def test_unported_losses_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PL.build_loss_fn("detection", {"type": "Detection"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PL.build_loss_fn("Regression", {"type": "SmoothL1Loss"})
+    """The grid detection loss and the L1 / SmoothL1 regression losses,
+    refused before queue 1 item 7, now build."""
+    assert PL.build_loss_fn("detection", {"type": "Detection"}).__name__ \
+        == "grid_loss"
+    assert PL.build_loss_fn("Regression", {"type": "SmoothL1Loss"}) is (
+        PL.smooth_l1_loss)
+    assert PL.build_loss_fn("Regression", {"type": "L1Loss"}) is PL.l1_loss
 
 
 # ---------------------------------------------------------------------------
@@ -433,20 +436,25 @@ def test_lr_scheduler_matches_jax(sched):
 
 
 def test_trainer_unported_options_raise():
-    """Accumulation, meshes, burst mode and warm-compile name their
-    ROADMAP item, and so does the MoE's ragged dispatch where the Trainer's
-    model is built; every parameter carries a zeroed grad from the
-    start."""
+    """Meshes and the MoE's ragged dispatch name their ROADMAP item, and
+    warm-compile raises; accumulation and burst mode (queue 1 item 7)
+    run; every parameter carries a zeroed grad from the start."""
     from fmc_uia_tpu_torch.models import build_model
     from fmc_uia_tpu_torch.train import Trainer
+    from torch_port_utils import train_batch_np
 
     enc = {"encoder": {"name": "swin_nano", "window_size": 8}}
     cfg = Config(config_dict=make_tiny_config(model=enc).config)
     model = build_model(cfg, device="cpu")
-    bad = Config(config_dict=make_tiny_config(
+    accum = Config(config_dict=make_tiny_config(
         model=enc, training={"accumulation_steps": 2}).config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(bad, model, device="cpu")
+    t_acc = Trainer(accum, build_model(accum, device="cpu"), device="cpu")
+    batch = train_batch_np(np.random.RandomState(0), "classification",
+                           t_acc.registry)
+    t_acc.train_batch(batch, 0)
+    assert t_acc.optimizer.count == 0 and t_acc._micro_step == 1
+    t_acc.train_batch(batch, 0)
+    assert t_acc.optimizer.count == 1
     ragged = Config(config_dict=make_tiny_config(model=dict(
         enc, moe={"enabled": True, "dispatch": "ragged"})).config)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -456,7 +464,7 @@ def test_trainer_unported_options_raise():
     trainer = Trainer(cfg, model, device="cpu")
     assert all(torch.equal(p.grad, torch.zeros_like(p))
                for p in model.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.train_burst({}, 2)
+    out = trainer.train_burst(batch, 2)
+    assert out["losses"].shape == (2,) and trainer.optimizer.count == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer.warm_compile({})

@@ -8,7 +8,7 @@ augmentation, dropout and drop path off).
   leaf within 1e-4 of its largest magnitude -- the frozen backbone and
   ``rope_periods`` included: JAX clips ``grads["model"]`` before the
   frozen labels zero their updates, so their grads count in the norm.
-* The update: the port's ``GroupedAdamW`` on the port's grads against
+* The update: the port's ``GroupedOptimizer`` on the port's grads against
   the JAX package's optax chain (``build_optimizer``) on the JAX grads,
   from the same weights: every trained element's step within 1e-3 of one
   step's size (lr x its group multiplier; a first Adam step is about

@@ -3,6 +3,16 @@ seeded numpy weights in the shape of a JAX params tree, fed to both
 packages."""
 
 import numpy as np
+import torch
+
+# A whole-suite run puts six pytest workers (``-n 6``) on the host's
+# cores, and a CPU ``fit``'s data-loader threads run torch ops beside the
+# main thread: at torch's default of one intra-op thread a core, the
+# workers' thread teams oversubscribe the cores and the fit tests slow
+# down many times over. One thread a process: the port's test files
+# import this module, so collection sets it in every worker before any
+# test runs.
+torch.set_num_threads(1)
 
 
 def random_like_tree(shapes, seed: int):
@@ -69,6 +79,41 @@ SEPARATE_FPN_OVERRIDES = {
         separate_classification_fpn=True, separate_regression_fpn=True,
         use_fpn_for_classification=True, use_fpn_for_regression=True)),
     "data": TRAIN_OVERRIDES["data"],
+}
+# the options of flagship.ablation_a_config_dict / ablation_b_config_dict
+# at a tiny width: swin_nano 64² (window 8, fused branches), augmentation,
+# dropout and drop path off. A: a deep-supervision seg head, the grid det
+# head and loss, embedding FiLM on the FPN and every stage, an additive
+# prompt on seg and det, SmoothL1, SGD, accumulation over 2 micro-steps.
+# B: the baseline cls / grid det / reg heads, the UNet-like seg head,
+# embedding FiLM, a multiplicative prompt on every type, L1, Adam.
+_NANO = dict(TRAIN_OVERRIDES["model"]["encoder"], name="swin_nano",
+             scan_stages=[])
+_TINY_HEADS = TRAIN_OVERRIDES["model"]["heads"]
+ABLATION_A_OVERRIDES = {
+    "model": dict(TRAIN_OVERRIDES["model"], encoder=_NANO, heads=dict(
+        _TINY_HEADS, segmentation={"use_deep_supervision": True},
+        detection={"type": "grid"}),
+        film={"use_task_embedding": True, "multi_stage": True,
+              "embedding_dim": 16},
+        task_prompt={"enabled": True, "inject_mode": "add",
+                     "apply_to_task_names": ["segmentation", "detection"]}),
+    "data": TRAIN_OVERRIDES["data"],
+    "training": {"loss_configs": {"detection": {"type": "Detection"},
+                                  "Regression": {"type": "SmoothL1Loss"}},
+                 "optimizer": {"type": "SGD", "momentum": 0.9},
+                 "accumulation_steps": 2},
+}
+ABLATION_B_OVERRIDES = {
+    "model": dict(TRAIN_OVERRIDES["model"], encoder=_NANO, heads=dict(
+        _TINY_HEADS, use_baseline=True,
+        segmentation={"type": "unet_like"}),
+        film={"use_task_embedding": True, "embedding_dim": 16},
+        task_prompt={"enabled": True, "inject_mode": "mul"}),
+    "data": TRAIN_OVERRIDES["data"],
+    "training": {"loss_configs": {"detection": {"type": "Detection"},
+                                  "Regression": {"type": "L1Loss"}},
+                 "optimizer": {"type": "Adam"}},
 }
 TRAIN_TASKS = {"segmentation": "T2B_organ_b",
                "classification": "T1_planes", "detection": "T4_box",
