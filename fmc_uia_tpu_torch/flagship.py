@@ -17,6 +17,11 @@ and the image size kept): deep supervision, the grid head, multi-stage
 embedding FiLM, an additive task prompt, SmoothL1, SGD and accumulation
 (A); the baseline heads, the UNet-like seg head, embedding FiLM, a
 multiplicative prompt, L1 and Adam (B).
+``flagship_with_encoder`` is the flagship with another ``model.encoder``
+(every other key kept); ``ENCODER_PRESETS`` holds the encoders of ROADMAP
+queue 1 item 8 at full width: ResNet-50, ConvNeXt-B (``timm:`` name),
+EfficientNet-B4, and the flagship's swin_b with the fused attention on
+stages 0-1 only or on none (``fused_block: false``).
 
 Dicts and not the YAML files, because the GPU machine may lack PyYAML
 (tests/test_torch_isolation.py and tests/test_torch_moe.py hold them
@@ -276,3 +281,24 @@ def ablation_b_config_dict() -> dict:
     t["loss_configs"]["Regression"] = {"type": "L1Loss"}
     t["optimizer"]["type"] = "Adam"
     return d
+
+
+def flagship_with_encoder(encoder: dict) -> dict:
+    """The flagship dict (512², 27 tasks, bf16, TaskFiLM, B = 24) with
+    ``model.encoder`` replaced by a copy of ``encoder``."""
+    d = flagship_config_dict()
+    d["model"]["encoder"] = copy.deepcopy(encoder)
+    return d
+
+
+_SWIN_B = _FLAGSHIP["model"]["encoder"]
+
+# the encoders of the item-8 presets, by preset name
+ENCODER_PRESETS = {
+    "resnet50": {"name": "resnet50", "pretrained": None},
+    "convnext_base": {"name": "timm:convnext_base", "pretrained": None,
+                      "drop_path_rate": 0.1},
+    "efficientnet_b4": {"name": "efficientnet-b4", "pretrained": None},
+    "swin_b_fused01": dict(_SWIN_B, fused_stages=[0, 1]),
+    "swin_b_unfused": dict(_SWIN_B, fused_block=False),
+}

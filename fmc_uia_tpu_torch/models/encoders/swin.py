@@ -1,25 +1,33 @@
 """Swin Transformer encoder (port of ``fmc_uia_tpu/models/encoders/swin.py``).
 
-NHWC throughout, f32 params, compute in ``dtype``. Each block's attention
-half runs through the fused attention branch (``ops/swin_block.py``); its
-MLP half runs through the fused MLP branch where C <= 256 and otherwise as
-LayerNorm -> Linear -> tanh-GELU -> Linear, as in the JAX package. The
-port has no scan: every block is its own module ``stage{s}_block{b}``,
-which is also the JAX tree's name for an unrolled block
-(``utils/convert.py`` unstacks the scanned stages onto it).
+NHWC throughout, f32 params, compute in ``dtype``. A block's attention
+half runs through the fused attention branch (``ops/swin_block.py``) when
+``fused_block`` is on and its stage is in ``fused_stages`` (None: every
+stage); otherwise it is the JAX ``WindowAttention`` chain in PyTorch:
+LayerNorm (in ``ln_dtype``) -> pad -> roll -> window partition -> qkv ->
+scores + rel-pos bias + shift/pad mask -> softmax -> .v -> proj ->
+unpartition -> unroll -> crop -> ``x + drop_path(y)``, the scores, bias,
+mask and softmax in bf16 under ``softmax_bf16`` with a bf16 ``dtype``
+(else f32). The MLP half runs through the fused MLP branch where
+``fused_mlp`` is on and C <= the gate (256, or ``FMC_FUSED_MLP_MAX_C``
+below it) and otherwise as LayerNorm -> Linear -> tanh-GELU -> Linear, as
+in the JAX package. The port has no scan: every block is its own module
+``stage{s}_block{b}``, which is also the JAX tree's name for an unrolled
+block (``utils/convert.py`` unstacks the scanned stages onto it); both
+attention paths share one param tree.
 
 The roll, the padding and the rel-pos table expansion stay outside the
 kernel, as on the TPU; so the rel-pos table's gradient flows through the
 gather by autograd. In train mode each block applies stochastic depth at
 the rate ``linspace(0, drop_path_rate, blocks)[block]``: on the fused
-halves as the kernels' per-sample ``dp`` factor, on the unfused MLP half
+halves as the kernels' per-sample ``dp`` factor, on the unfused halves
 as a divide of the branch output, the two roundings of the JAX DropPath.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +37,7 @@ import torch.nn.functional as F
 from fmc_uia_tpu_torch.models.layers import (
     Conv,
     Dense,
+    _in_dtype,
     _param,
     apply_drop_path,
     drop_path_keep,
@@ -40,7 +49,7 @@ from fmc_uia_tpu_torch.models.layers import (
 from fmc_uia_tpu_torch.ops.swin_block import attention_branch, mlp_branch
 
 # the fused MLP branch serves the blocks with C <= 256 (stages 0 and 1 of
-# swin_b), the gate of the JAX package
+# swin_b), the gate of the JAX package; its kernels take no wider C
 FUSED_MLP_MAX_C = 256
 
 
@@ -113,6 +122,8 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift: int, mlp_ratio: float = 4.0, ln_bf16: bool = False,
                  fused_mlp: bool = True, drop_path: float = 0.0,
+                 fused_block: bool = True, softmax_bf16: bool = False,
+                 fused_mlp_max_c: int = FUSED_MLP_MAX_C,
                  dtype=torch.float32):
         super().__init__()
         self.dim, self.num_heads, self.ws = dim, num_heads, window_size
@@ -120,7 +131,12 @@ class SwinBlock(nn.Module):
         self.drop_path = float(drop_path)
         self.dtype = dtype
         self.ln_dtype = dtype if ln_bf16 else torch.float32
-        self.fused_mlp = fused_mlp and dim <= FUSED_MLP_MAX_C
+        self.fused_block = fused_block
+        # scores, bias, mask and softmax of the unfused attention
+        self.score_dtype = (torch.bfloat16 if softmax_bf16
+                            and dtype == torch.bfloat16 else torch.float32)
+        self.fused_mlp = fused_mlp and dim <= min(fused_mlp_max_c,
+                                                  FUSED_MLP_MAX_C)
         hidden = int(dim * mlp_ratio)
         self.norm1 = _LN(dim)
         self.attn = _Attn(dim, num_heads, window_size)
@@ -158,6 +174,58 @@ class SwinBlock(nn.Module):
         return None if m is None else drop_path_scale(m, self.drop_path,
                                                       x.dtype)
 
+    def _window_attention(self, y, bias, mask):
+        """The JAX ``WindowAttention`` on [B*nW, N, C] windows ``y``:
+        qkv and proj in ``dtype`` (each product rounded, then its bias
+        added), scores + bias + mask and the softmax in ``score_dtype``,
+        the .v product accumulated in f32 and rounded to ``dtype``."""
+        Bn, N, C = y.shape
+        H, dt, st = self.num_heads, self.dtype, self.score_dtype
+        dh = C // H
+        a = self.attn
+        qkv = F.linear(y.to(dt), a.qkv.kernel.to(dt)) + a.qkv.bias.to(dt)
+        q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(Bn, N, H, dh)
+                   .transpose(1, 2) for i in range(3))
+        q = q * _in_dtype(dh ** -0.5, dt)
+        # bf16 operands: each product exact in f32, summed in f32, rounded
+        # once to the score dtype
+        if st == dt:
+            attn = torch.matmul(q, k.transpose(-1, -2))
+        else:
+            attn = torch.matmul(q.to(st), k.to(st).transpose(-1, -2))
+        attn = attn + bias.to(st)
+        if mask is not None:
+            nW = mask.shape[0]
+            attn = (attn.reshape(Bn // nW, nW, H, N, N)
+                    + mask[None, :, None].to(st)).reshape(Bn, H, N, N)
+        attn = torch.softmax(attn, dim=-1).to(dt)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(Bn, N, C)
+        return F.linear(out, a.proj.kernel.to(dt)) + a.proj.bias.to(dt)
+
+    def _attention_unfused(self, x, bias, mask, shift, hp, wp, train,
+                           generator):
+        B, H, W, C = x.shape
+        ws = self.ws
+        y = layer_norm(x, self.norm1.scale, self.norm1.bias, 1e-6,
+                       self.ln_dtype)
+        if hp != H or wp != W:
+            y = F.pad(y, (0, 0, 0, wp - W, 0, hp - H))
+        if shift > 0:
+            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+        win = (y.reshape(B, hp // ws, ws, wp // ws, ws, C)
+               .permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, C))
+        win = self._window_attention(win, bias, mask)
+        y = (win.reshape(B, hp // ws, wp // ws, ws, ws, C)
+             .permute(0, 1, 3, 2, 4, 5).reshape(B, hp, wp, C))
+        if shift > 0:
+            y = torch.roll(y, (shift, shift), dims=(1, 2))
+        if hp != H or wp != W:
+            y = y[:, :H, :W, :]
+        keep = self._keep_mask(x, train, generator)
+        if keep is not None:
+            y = apply_drop_path(y, keep, self.drop_path)
+        return x + y
+
     def forward(self, x, train: bool = False, generator=None):
         B, H, W, C = x.shape
         ws, n = self.ws, self._n
@@ -166,25 +234,28 @@ class SwinBlock(nn.Module):
         hp = -(-H // ws) * ws
         wp = -(-W // ws) * ws
         mask = self._mask(H, W, shift, x.device)
-        dp1 = self._dp(x, train, generator)
-
-        y = x.to(self.dtype)
-        if hp != H or wp != W:
-            y = F.pad(y, (0, 0, 0, wp - W, 0, hp - H))
-        if shift > 0:
-            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
         a = self.attn
         bias = a.rel_pos_bias[self.rel_idx].reshape(n, n, self.num_heads)
         bias = bias.permute(2, 0, 1).contiguous()
-        y = attention_branch(y.contiguous(), self.norm1.scale,
-                             self.norm1.bias, a.qkv.kernel, a.qkv.bias,
-                             a.proj.kernel, a.proj.bias, bias, mask,
-                             self.num_heads, dp=dp1)
-        if shift > 0:
-            y = torch.roll(y, (shift, shift), dims=(1, 2))
-        if hp != H or wp != W:
-            y = y[:, :H, :W, :]
-        x = y.contiguous()  # residual is inside the branch
+        if not self.fused_block:
+            x = self._attention_unfused(x, bias, mask, shift, hp, wp, train,
+                                        generator)
+        else:
+            dp1 = self._dp(x, train, generator)
+            y = x.to(self.dtype)
+            if hp != H or wp != W:
+                y = F.pad(y, (0, 0, 0, wp - W, 0, hp - H))
+            if shift > 0:
+                y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+            y = attention_branch(y.contiguous(), self.norm1.scale,
+                                 self.norm1.bias, a.qkv.kernel, a.qkv.bias,
+                                 a.proj.kernel, a.proj.bias, bias, mask,
+                                 self.num_heads, dp=dp1)
+            if shift > 0:
+                y = torch.roll(y, (shift, shift), dims=(1, 2))
+            if hp != H or wp != W:
+                y = y[:, :H, :W, :]
+            x = y.contiguous()  # residual is inside the branch
 
         if self.fused_mlp:
             return mlp_branch(x.to(self.dtype), self.norm2.scale,
@@ -245,6 +316,10 @@ class SwinEncoder(nn.Module):
                  window_size: int = 7, mlp_ratio: float = 4.0,
                  patch_size: int = 4, ln_bf16: bool = False,
                  fused_mlp: bool = True, drop_path_rate: float = 0.1,
+                 fused_block: bool = True,
+                 fused_stages: Optional[Sequence[int]] = None,
+                 softmax_bf16: bool = False,
+                 fused_mlp_max_c: int = FUSED_MLP_MAX_C,
                  dtype=torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
@@ -262,13 +337,16 @@ class SwinEncoder(nn.Module):
             if s > 0:
                 self.add_module(f"merge{s}", PatchMerging(
                     dim // 2, ln_bf16=ln_bf16, dtype=dtype))
+            fused_this = fused_block and (fused_stages is None
+                                          or s in tuple(fused_stages))
             for b in range(depth):
                 self.add_module(f"stage{s}_block{b}", SwinBlock(
                     dim, num_heads[s], window_size,
                     shift=0 if b % 2 == 0 else window_size // 2,
                     mlp_ratio=mlp_ratio, ln_bf16=ln_bf16,
                     fused_mlp=fused_mlp, drop_path=float(dpr[block_id]),
-                    dtype=dtype))
+                    fused_block=fused_this, softmax_bf16=softmax_bf16,
+                    fused_mlp_max_c=fused_mlp_max_c, dtype=dtype))
                 block_id += 1
 
     @property
@@ -307,48 +385,41 @@ _SWIN_VARIANTS = {
 
 
 def build_swin(name: str, config=None, dtype=torch.float32) -> SwinEncoder:
-    """The port's Swin: the attention half always runs the fused branch;
-    ``model.encoder.fused_mlp`` (default on) routes the C <= 256 MLP halves
-    through the fused MLP branch; ``model.encoder.drop_path_rate`` (default
-    0.1) sets the stochastic depth of train mode.
-
-    Raises ``NotImplementedError`` where the JAX package would take a path
-    the port lacks: ``fused_block: false``, or a ``fused_stages`` list that
-    leaves out a stage (those stages would run the unfused XLA attention,
-    with bf16 scores under ``softmax_bf16``); and, with the fused MLP on,
-    ``FMC_FUSED_MLP_MAX_C`` set to other than 256 (the fused MLP kernels
-    take C <= 256)."""
+    """The port's Swin from ``model.encoder``: ``window_size`` (default
+    7), ``ln_bf16``, ``drop_path_rate`` (default 0.1, the stochastic depth
+    of train mode), ``fused_block`` (default on: the fused attention
+    branch, the port's counterpart of the JAX package's TPU default) with
+    ``fused_stages`` (None: every stage; the stages left out run the
+    unfused attention), ``softmax_bf16`` (bf16 scores in the unfused
+    attention) and ``fused_mlp`` (default on: the fused MLP branch at C <=
+    256). ``FMC_FUSED_MLP_MAX_C``, read here, narrows that gate as the
+    JAX package's does; a value above 256 raises
+    ``NotImplementedError`` while the fused MLP is on (the fused MLP
+    kernels take C <= 256)."""
     if name not in _SWIN_VARIANTS:
         raise ValueError(
             f"Unknown swin variant {name!r}; have {sorted(_SWIN_VARIANTS)}")
     kwargs = dict(_SWIN_VARIANTS[name])
     window, ln_bf16, fused_mlp, drop_path = 7, False, True, 0.1
+    fused_block, fused_stages, softmax_bf16 = True, None, False
     if config is not None:
         drop_path = float(config.get("model.encoder.drop_path_rate", 0.1))
         window = int(config.get("model.encoder.window_size", 7))
         ln_bf16 = bool(config.get("model.encoder.ln_bf16", False))
-        if config.get("model.encoder.fused_block", True) is False:
-            raise NotImplementedError(
-                "model.encoder.fused_block=false (the unfused XLA attention "
-                "path) is not ported; the port always runs the fused "
-                "attention branch (ROADMAP: port queue)")
+        fused_block = bool(config.get("model.encoder.fused_block", True))
         stages = config.get("model.encoder.fused_stages")
-        missing = (sorted(set(range(len(kwargs["depths"])))
-                          - {int(st) for st in stages})
-                   if stages is not None else [])
-        if missing:
-            raise NotImplementedError(
-                f"model.encoder.fused_stages={list(stages)} leaves stages "
-                f"{missing} to the unfused XLA attention path, which is not "
-                "ported; the port runs the fused attention branch on every "
-                "stage (ROADMAP queue 1 item 8)")
+        if stages is not None:
+            fused_stages = tuple(int(st) for st in stages)
+        softmax_bf16 = bool(config.get("model.encoder.softmax_bf16", False))
         fused_mlp = bool(config.get("model.encoder.fused_mlp", True))
-    max_c = os.environ.get("FMC_FUSED_MLP_MAX_C")
-    if fused_mlp and max_c is not None and int(max_c) != FUSED_MLP_MAX_C:
+    max_c = int(os.environ.get("FMC_FUSED_MLP_MAX_C", FUSED_MLP_MAX_C))
+    if fused_mlp and max_c > FUSED_MLP_MAX_C:
         raise NotImplementedError(
             f"FMC_FUSED_MLP_MAX_C={max_c}: the port's fused MLP kernels "
-            f"take C <= {FUSED_MLP_MAX_C} only, the JAX package's gate "
-            "(ROADMAP queue 2b item 3, K2f/K2b)")
+            f"take C <= {FUSED_MLP_MAX_C} only, the JAX package's default "
+            "gate (ROADMAP queue 2b item 3, K2f/K2b)")
     return SwinEncoder(window_size=window, ln_bf16=ln_bf16,
                        fused_mlp=fused_mlp, drop_path_rate=drop_path,
+                       fused_block=fused_block, fused_stages=fused_stages,
+                       softmax_bf16=softmax_bf16, fused_mlp_max_c=max_c,
                        dtype=dtype, **kwargs)

@@ -36,9 +36,10 @@ are unrolled, so the Swin blocks stay ``stage{s}_block{b}``; the
 window, grid and prefix tokens come from their shapes; entries the
 checkpoint lacks keep their values; a shape mismatch raises), and
 written back through the bridge. So the
-bridge is the one place that knows the two layouts. The ResNet-50
-converter waits for the port's ResNet encoder (ROADMAP.md, port queue
-item 'Other encoders').
+bridge is the one place that knows the two layouts. A torchvision
+ResNet-50 is a warm start: its BatchNorm affine params become the
+GroupNorms' scale and bias, its running statistics are dropped (with a
+``UserWarning``), as in the JAX package.
 
 ``python -m fmc_uia_tpu_torch.utils.convert --verify FILE [--device cpu]``
 checks a checkpoint file against the manifests of ``timm_manifests.py``,
@@ -447,6 +448,35 @@ def convert_dinov3(sd: Dict[str, np.ndarray], depth: Optional[int] = None
     return params
 
 
+def convert_resnet50(sd: Dict[str, np.ndarray],
+                     stage_sizes: Sequence[int] = (3, 4, 6, 3)) -> Dict:
+    """torchvision ResNet-50 -> the JAX ``ResNetEncoder`` tree.
+
+    BatchNorm affine params fold into GroupNorm scale/bias; BN running
+    statistics are dropped (GN normalizes per sample), so expect a brief
+    adaptation phase when fine-tuning — the conv weights carry the value.
+    """
+    params: Dict = {"stem_conv": _conv(sd, "conv1", bias=False),
+                    "GroupNorm_0": _norm(sd, "bn1")}
+
+    for stage, blocks in enumerate(stage_sizes):
+        for b in range(blocks):
+            base = f"layer{stage + 1}.{b}"
+            entry = {
+                "Conv_0": _conv(sd, f"{base}.conv1", bias=False),
+                "GroupNorm_0": _norm(sd, f"{base}.bn1"),
+                "Conv_1": _conv(sd, f"{base}.conv2", bias=False),
+                "GroupNorm_1": _norm(sd, f"{base}.bn2"),
+                "Conv_2": _conv(sd, f"{base}.conv3", bias=False),
+                "GroupNorm_2": _norm(sd, f"{base}.bn3"),
+            }
+            if f"{base}.downsample.0.weight" in sd:
+                entry["proj"] = _conv(sd, f"{base}.downsample.0", bias=False)
+                entry["GroupNorm_3"] = _norm(sd, f"{base}.downsample.1")
+            params[f"stage{stage}_block{b}"] = entry
+    return params
+
+
 def merge_params(current: Dict, incoming: Dict, path: str = "") -> Dict:
     """``incoming`` overlaid on ``current``, every leaf's shape checked;
     a key ``current`` lacks raises."""
@@ -539,10 +569,17 @@ def load_pretrained_encoder(encoder_name: str, checkpoint_path: str,
         return merge_params(current_params, converted)
 
     if encoder_name.startswith("resnet"):
-        raise NotImplementedError(
-            "loading a pretrained ResNet-50 is not ported to "
-            "fmc_uia_tpu_torch yet: the port has no ResNet encoder "
-            "(ROADMAP.md, port queue item 'Other encoders')")
+        import warnings
+
+        # BatchNorm in the checkpoint, GroupNorm here: the affine params
+        # carry over, the running statistics do not — a warm start, not a
+        # numerically faithful import
+        warnings.warn(
+            "resnet pretrained import: BatchNorm running statistics are "
+            "dropped (this encoder uses GroupNorm); expect an adaptation "
+            "phase when fine-tuning — outputs will NOT match the torch "
+            "model.", UserWarning, stacklevel=2)
+        return merge_params(current_params, convert_resnet50(sd))
     raise ValueError(f"No converter for encoder {encoder_name!r}")
 
 
@@ -677,6 +714,7 @@ def verify_checkpoint(path: str, encoder_name: Optional[str] = None,
     is installed, the forward against timm's. True when every step
     passes."""
     from fmc_uia_tpu_torch.device import resolve_device
+    from fmc_uia_tpu_torch.models.encoders.resnet import ResNetEncoder
     from fmc_uia_tpu_torch.models.encoders.swin import SwinEncoder
     from fmc_uia_tpu_torch.models.encoders.vit import ViTBackbone
     from fmc_uia_tpu_torch.models.layers import init_weights
@@ -687,14 +725,11 @@ def verify_checkpoint(path: str, encoder_name: Optional[str] = None,
     family = _detect_family(sd)
     geo = _infer_geometry(sd, family)
     print(f"[verify] {path}: family={family} geometry={geo}")
-    if family == "resnet50":
-        print("[verify] FAIL: the ResNet-50 converter is not ported "
-              "(ROADMAP.md, port queue item 'Other encoders')")
-        return False
     ok = _manifest_check(sd, family, geo)
 
     name = encoder_name or {"swin": "swin_custom", "vit": "vit_b",
-                            "dinov3": "dinov3"}[family]
+                            "dinov3": "dinov3",
+                            "resnet50": "resnet50"}[family]
     window = geo.get("window")
     if family == "swin":
         if dev.type == "cuda" and window > MAX_WINDOW:
@@ -706,6 +741,8 @@ def verify_checkpoint(path: str, encoder_name: Optional[str] = None,
         enc = SwinEncoder(embed_dim=geo["embed_dim"], depths=geo["depths"],
                           num_heads=geo["num_heads"], window_size=window,
                           drop_path_rate=0.0)
+    elif family == "resnet50":
+        enc = ResNetEncoder()
     else:
         rope = family == "dinov3"
         enc = ViTBackbone(

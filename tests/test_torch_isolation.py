@@ -2,9 +2,9 @@
 loads no jax, flax or fmc_uia_tpu module, nor pandas, cv2, PIL or yaml;
 chip_smoke.py imports none of them; its C++ sources include nothing of
 fmc_uia_tpu; entry points asked for CUDA on a host without a GPU raise
-(the HTTP front and the DINOv3 SPM preset's build too); the encoders not
-yet ported raise; the flagship config dict equals configs/config.yaml
-with the bench overrides.
+(the HTTP front and the DINOv3 SPM preset's build too); every encoder
+name builds the JAX package's family or raises its ValueError; the
+flagship config dict equals configs/config.yaml with the bench overrides.
 """
 
 import ast
@@ -115,15 +115,17 @@ def test_entry_points_refuse_missing_cuda():
 
 
 def test_unported_families_raise():
-    """resnet_tiny (queue 1 item 8) still raises; the task prompt and the
-    grid head (item 7) build and run a forward."""
+    """The families the port once refused build and run a forward: the
+    tiny config's own encoder, resnet_tiny (queue 1 item 8), the task
+    prompt and the grid head (item 7)."""
     from fmc_uia_tpu_torch.models import build_model
 
-    cfg = Config(config_dict=make_tiny_config(
-        model={"encoder": {"name": "resnet_tiny"}}).config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
+    cfg = Config(config_dict=make_tiny_config().config)
+    model = build_model(cfg, device="cpu")
+    assert type(model.encoder).__name__ == "ResNetEncoder"
     x = torch.zeros(1, 64, 64, 3)
+    with torch.no_grad():
+        assert tuple(model(x, "segmentation", 0).shape) == (1, 64, 64, 2)
     for over, ttype, shape in (
             ({"task_prompt": {"enabled": True}}, "segmentation",
              (1, 64, 64, 2)),
@@ -179,17 +181,64 @@ def test_dino_build_refuses_missing_cuda():
         build_model(Config(config_dict=dino_patch8_config_dict()))
 
 
-def test_unported_encoder_families_raise():
-    """The encoders still to port (ROADMAP queue 1 item 8): ResNet,
-    ConvNeXt, EfficientNet and the timm names that map to them."""
-    from fmc_uia_tpu_torch.models import build_model
+# name -> the JAX package's family (its encoder class), or ValueError
+DISPATCH = {
+    None: "ResNetEncoder",  # no name: the default, resnet50
+    "resnet50": "ResNetEncoder", "resnet-50": "ResNetEncoder",
+    "resnet101": "ResNetEncoder", "resnet_tiny": "ResNetEncoder",
+    "convnext_tiny": "ConvNeXtEncoder", "convnext_nano_test":
+    "ConvNeXtEncoder", "timm:convnext_base.fb_in22k": "ConvNeXtEncoder",
+    "efficientnet-b0": "EfficientNetEncoder",
+    "efficientnet_b4": "EfficientNetEncoder",
+    "timm:efficientnet_b3": "EfficientNetEncoder",
+    "swin_nano": "SwinEncoder",
+    "timm:swin_tiny_patch4_window7_224": "SwinEncoder",
+    "timm:resnet50": ValueError, "convnext_t": ValueError,
+    "efficientnet-b9": ValueError, "mobilenet_v3": ValueError,
+}
 
-    for name in ("resnet_tiny", "convnext_t", "efficientnet-b0",
-                 "timm:resnet50"):
-        cfg = Config(config_dict=make_tiny_config(
-            model={"encoder": {"name": name}}).config)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, device="cpu")
+
+@pytest.mark.parametrize("name", list(DISPATCH), ids=str)
+def test_unported_encoder_families_raise(name):
+    """The dispatch of the JAX package, name by name: the port builds the
+    same family with the same param tree (shapes, in the port's layout),
+    or raises the JAX package's ValueError where it does (no name: the
+    default, resnet50)."""
+    import jax
+    import jax.numpy as jnp
+
+    from fmc_uia_tpu.config import Config as JaxConfig
+    from fmc_uia_tpu.models.encoders import build_encoder as jax_build
+    from fmc_uia_tpu_torch.models.encoders import build_encoder
+    from torch_port_utils import port_shapes
+
+    class Unnamed:  # a config without model.encoder.name
+        def get(self, key, default=None):
+            return default
+
+    if name is None:
+        jcfg = pcfg = Unnamed()
+    else:
+        d = make_tiny_config(model={"encoder": {"name": name}}).config
+        jcfg, pcfg = JaxConfig(config_dict=d), Config(config_dict=d)
+    want = DISPATCH[name]
+    if want is ValueError:
+        with pytest.raises(ValueError) as jerr:
+            jax_build(jcfg)
+        with pytest.raises(ValueError) as perr:
+            build_encoder(pcfg)
+        assert str(perr.value).split(";")[0] == str(jerr.value).split(
+            ";")[0]
+        return
+    jenc = jax_build(jcfg)
+    with torch.device("meta"):  # shapes only, no memory
+        enc = build_encoder(pcfg)
+    assert type(jenc).__name__ == type(enc).__name__ == want
+    assert tuple(enc.out_channels) == tuple(jenc.out_channels)
+    shapes = jax.eval_shape(jenc.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 64, 64, 3)))["params"]
+    assert {n: tuple(p.shape) for n, p in enc.named_parameters()} == (
+        port_shapes(shapes))
 
 
 def _swin_cfg(**enc):
@@ -204,12 +253,20 @@ def _structure(enc):
 
 
 def test_fused_stages_leaving_out_a_stage_raises():
+    """A ``fused_stages`` list that leaves out a stage (once refused) runs
+    that stage's blocks on the unfused attention, with the same param
+    tree; ``fused_block: false`` leaves out every stage."""
     from fmc_uia_tpu_torch.models.encoders.swin import build_swin
 
-    for stages in ([0, 1], [1, 2, 3], []):
-        with pytest.raises(NotImplementedError,
-                           match="fused_stages.*ROADMAP queue 1 item 8"):
-            build_swin("swin_nano", _swin_cfg(fused_stages=stages))
+    base = build_swin("swin_nano", _swin_cfg())
+    for over, fused in (({"fused_stages": [0, 1]}, [1, 1, 0, 0]),
+                        ({"fused_stages": [1, 2, 3]}, [0, 1, 1, 1]),
+                        ({"fused_stages": []}, [0, 0, 0, 0]),
+                        ({"fused_block": False}, [0, 0, 0, 0])):
+        enc = build_swin("swin_nano", _swin_cfg(**over))
+        assert [int(getattr(enc, f"stage{s}_block0").fused_block)
+                for s in range(4)] == fused
+        assert _structure(enc) == _structure(base)
 
 
 def test_fused_stages_all_or_none_builds_the_same_encoder():
@@ -222,6 +279,8 @@ def test_fused_stages_all_or_none_builds_the_same_encoder():
 
 
 def test_fused_mlp_max_c_other_than_256_raises(monkeypatch):
+    """Above 256 (wider fused MLP kernels) still raises while the fused
+    MLP is on; below it the gate narrows, as the JAX package's does."""
     from fmc_uia_tpu_torch.models.encoders.swin import build_swin
 
     monkeypatch.setenv("FMC_FUSED_MLP_MAX_C", "512")
@@ -233,3 +292,10 @@ def test_fused_mlp_max_c_other_than_256_raises(monkeypatch):
     monkeypatch.setenv("FMC_FUSED_MLP_MAX_C", "256")
     assert _structure(build_swin("swin_nano", _swin_cfg())) == _structure(
         build_swin("swin_nano", _swin_cfg(fused_stages=[0, 1, 2, 3])))
+    # swin_nano is 32 / 64 / 128 / 256 wide
+    for max_c, fused in (("128", [1, 1, 1, 0]), ("64", [1, 1, 0, 0]),
+                         ("16", [0, 0, 0, 0])):
+        monkeypatch.setenv("FMC_FUSED_MLP_MAX_C", max_c)
+        enc = build_swin("swin_nano", _swin_cfg())
+        assert [int(getattr(enc, f"stage{s}_block0").fused_mlp)
+                for s in range(4)] == fused

@@ -360,3 +360,134 @@ def check_optimizer_update(r, lr=1e-3):
         if np.abs(r["jgrads"][name]).max() > 0:
             assert not np.array_equal(got, old[name]), name
     assert not bad, bad[:5]
+
+
+# ---------------------------------------------------------------------------
+# an encoder, JAX package vs port (tests/test_torch_{resnet,convnext,
+# efficientnet,swin_unfused}.py)
+# ---------------------------------------------------------------------------
+# the train step's overrides with another encoder: augmentation, dropout
+# and drop path off, so both sides are deterministic
+def encoder_overrides(**encoder):
+    return {"model": dict(TRAIN_OVERRIDES["model"],
+                          encoder=dict({"drop_path_rate": 0.0}, **encoder)),
+            "data": TRAIN_OVERRIDES["data"]}
+
+
+def close_rel(got, ref, rel, what=""):
+    """``got`` within ``rel`` of ``ref``'s largest magnitude; returns the
+    error over that magnitude."""
+    got = np.asarray(got.detach().float() if hasattr(got, "detach")
+                     else got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    err = float(np.abs(got - ref).max())
+    top = max(float(np.abs(ref).max()), 1e-30)
+    assert err <= rel * top, (what, err, top, err / top)
+    return err / top
+
+
+def port_shapes(shapes):
+    """A JAX params tree of shapes as {port parameter name: port-layout
+    shape} (scanned stages unstacked, kernels re-laid), without arrays."""
+    from fmc_uia_tpu_torch.utils.convert import _KERNEL_PERM, _SCAN
+
+    out = {}
+
+    def walk(node, path):
+        if hasattr(node, "items"):
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+            return
+        name, shape = "/".join(path), tuple(node.shape)
+        m = _SCAN.match(name)
+        names = ([f"{m[1]}stage{m[2]}_block{2 * p + int(m[3])}/{m[4]}"
+                  for p in range(shape[0])] if m else [name])
+        if m:
+            shape = shape[1:]
+        if path[-1] == "kernel":
+            shape = tuple(shape[i] for i in _KERNEL_PERM[len(shape)])
+        for n in names:
+            out[n.replace("/", ".")] = shape
+
+    walk(shapes, ())
+    return out
+
+
+def encoder_pair(jenc, port, x, seed):
+    """Seeded weights in the shape of ``jenc``'s tree, bridged into
+    ``port``; returns the numpy tree."""
+    import jax
+
+    from fmc_uia_tpu_torch.utils.convert import load_jax_params
+
+    shapes = jax.eval_shape(jenc.init, jax.random.PRNGKey(0), x)["params"]
+    params = random_like_tree(shapes, seed=seed)
+    load_jax_params(port, params)
+    return params
+
+
+def check_encoder_f32(jenc, port, x, seed, fwd_rel=2e-5, grad_rel=1e-4):
+    """The four features within ``fwd_rel`` of each one's largest
+    magnitude, then one seeded cotangent pulled back on both sides: the
+    grad of the input and of every parameter within ``grad_rel`` of its
+    largest magnitude (every leaf's grad nonzero)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from fmc_uia_tpu_torch.utils.convert import jax_leaves_to_port
+
+    params = encoder_pair(jenc, port, x, seed)
+
+    @jax.jit
+    def fwd_vjp(p, a, dys):
+        ref, vjp = jax.vjp(lambda p, a: jenc.apply({"params": p}, a), p, a)
+        return ref, vjp(dys)
+
+    shapes = jax.eval_shape(lambda p, a: jenc.apply({"params": p}, a),
+                            params, x)
+    rng = np.random.RandomState(seed + 7)
+    dys = [rng.standard_normal(r.shape).astype(np.float32) for r in shapes]
+    ref, (jp, jx) = fwd_vjp(params, jnp.asarray(x),
+                            [jnp.asarray(d) for d in dys])
+    tx = torch.from_numpy(x).requires_grad_()
+    outs = port(tx)
+    assert len(outs) == len(ref) == 4
+    for i, (o, r) in enumerate(zip(outs, ref)):
+        assert o.dtype == torch.float32 and r.dtype == jnp.float32
+        close_rel(o, r, fwd_rel, f"feature {i}")
+    names = [n for n, _ in port.named_parameters()]
+    got = torch.autograd.grad(outs, [tx] + list(port.parameters()),
+                              [torch.from_numpy(d) for d in dys])
+    close_rel(got[0], jx, grad_rel, "d input")
+    jp = jax_leaves_to_port(jax.tree_util.tree_map(np.asarray, jp))
+    assert set(jp) == set(names)
+    worst = 0.0
+    for name, g in zip(names, got[1:]):
+        assert float(np.abs(jp[name]).max()) > 0, name
+        worst = max(worst, close_rel(g, jp[name], grad_rel, f"d {name}"))
+    return worst
+
+
+def check_encoder_bf16(jenc16, port16, x, seed, rel):
+    """bf16 compute (f32 params): each feature within ``rel`` of the JAX
+    feature's largest magnitude, in the same dtype on both sides. Returns
+    the features' dtypes."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    params = encoder_pair(jenc16, port16, x, seed)
+    ref = jax.jit(lambda p, a: jenc16.apply({"params": p}, a))(
+        params, jnp.asarray(x))
+    with torch.no_grad():
+        outs = port16(torch.from_numpy(x))
+    dtypes = []
+    for i, (o, r) in enumerate(zip(outs, ref)):
+        assert str(o.dtype).split(".")[-1] == str(r.dtype), (i, o.dtype,
+                                                              r.dtype)
+        close_rel(o, np.asarray(r.astype(jnp.float32)), rel,
+                  f"bf16 feature {i}")
+        dtypes.append(o.dtype)
+    return dtypes
