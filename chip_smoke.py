@@ -156,8 +156,9 @@ pass):
    timed round-robin of >= 10 s (img/s, ms per step per type, peak
    memory; K4f and K4b 12 each a step), a profiled step per type
    (``chiprun_out/profile_dino_train_step.txt``), the fixed-batch falling
-   loss, and f32 grads card vs CPU at B=1 256² for every leaf, the
-   backbone and ``rope_periods`` included.
+   loss, and f32 grads card vs CPU at B=1 256² of the segmentation step
+   (its loss reads every block; the heads are phase 5's) for every leaf,
+   the backbone and ``rope_periods`` included.
 9. submit — the ``configs/submit.yaml`` preset (``submit_config_dict``:
    swin_b at 224², window 7 (N = 49 tokens a window), the dense MoE of 8
    conv experts, top-2, at encoder stages 2 and 3, adaptive loss weights,
@@ -184,13 +185,16 @@ pass):
    CPU at B=1, 224² (weights from seed 3), every leaf within 1e-3 of its
    largest magnitude, the ``moe_stage*`` leaves included, except the
    router of a block the head does not read, whose exact grad is 0 (held
-   within 1e-6 of the step's largest grad). (d) ``fit`` from 576x768 PNGs
-   (27 tasks x 80, one unreadable) for 2 epochs of 6 steps with K3 (K3
+   within 1e-6 of the step's largest grad). (d) ``fit`` from 288x384 PNGs
+   (27 tasks x 80, one unreadable; above 224 on both axes, so the host
+   resizes) for 2 epochs of 6 steps with K3 (K3
    once a train step on its chunk kernel; K1f/K2f per step and eval
    batch, K1b/K2b per step), ``moe_stats.csv`` with rows for both epochs;
    then ``python -m fmc_uia_tpu_torch.predict`` in a subprocess on the
-   experiment dir over the same root: 27 JSONs, one record per readable
-   frame, every mask PNG at 576x768 and equal bitwise to an in-process
+   experiment dir over the first PREDICT_PER_TASK (8) frames of each task
+   of the same root (the unreadable one among them): 27 JSONs, one
+   record per readable frame, every mask PNG at 288x384 and equal
+   bitwise to an in-process
    ``Predictor``'s on the loaded ``best_model.pt``, class ids equal,
    boxes and points within 1e-4 of the frame size. Prints img/s of the
    epoch loops and the seconds of ``predict``.
@@ -209,7 +213,8 @@ pass):
    the ``spm_adapter`` range's share of the device time (forward: the
    range; backward: the autograd nodes with its ops' sequence numbers;
    ``chiprun_out/profile_spm_train_step.txt``), the fixed-batch falling
-   loss, and f32 grads card vs CPU at B=1 224², every leaf within 1e-3 of
+   loss, and f32 grads card vs CPU at B=1 224² of the segmentation step
+   (its loss reads every interaction block), every leaf within 1e-3 of
    its largest magnitude (the frozen backbone, ``offset_proj`` and
    ``vit_proj*`` included; phase 5's kink rule; should ``offset_proj``
    fail, the count of sample coordinates within 1e-6 of an integer pixel
@@ -224,9 +229,10 @@ pass):
    ids equal, boxes and points within 1e-4 of the frame), 32 concurrent
    requests counted by ``/v1/stats``; the server is killed at the end.
 
-11. cache + pretrained — phase 6's data written again. (a) phase 6's
-   ``fit`` with ``data.device_cache``, 2 epochs of 80 steps (epoch 2, the
-   measured one, runs about 11 s), validation: the staged MB, img/s, the
+11. cache + pretrained — phase 6's data (the same files, written once
+   a run). (a) phase 6's ``fit`` with ``data.device_cache``, 2 epochs of
+   24 steps (epoch 2, the measured one, runs about 3 s: a smoke timing),
+   validation: the staged MB, img/s, the
    loop's seconds and queue wait per epoch against phase 5's staged and
    phase 6's streaming img/s (limit 0.9 of staged, printed, not failed),
    launches as phase 6, and the first eval batch of every task
@@ -242,7 +248,8 @@ pass):
    vs CPU (1e-3); K3 once a step, no other kernel. (e) the flagship's
    ``fit`` (3 steps) from a swin_b window-12 checkpoint, its tables
    resampled to window 8: K1/K2/K3 counted. (f) ``python -m
-   fmc_uia_tpu_torch.utils.convert --verify`` on both files. Each fit's
+   fmc_uia_tpu_torch.utils.convert --verify`` on both files, both at
+   once. Each fit's
    counts are zeroed just before it and read just after.
 12. ablations — ``ablation_a_config_dict`` and ``ablation_b_config_dict``
    (every option of ROADMAP queue 1 item 7 on the flagship, full width).
@@ -259,9 +266,10 @@ pass):
    A it raises, as in JAX; under B 4 steps against 4 ``train_batch``
    calls on a twin from the same state (the first loss bitwise, the
    others within 1e-3, the params within two Adam steps). (c) phase 5's
-   f32 grad check, card vs CPU. Then (e) B's ``fit`` (1 epoch of 6 steps,
-   validation, checkpoints, K3) on phase 6's data written again, and
-   ``python -m fmc_uia_tpu_torch.predict`` held against ``Predictor``
+   f32 grad check, card vs CPU. Then (e) B's ``fit`` (1 epoch of 2 steps,
+   validation, checkpoints, K3) on phase 6's data (the same files), and
+   ``python -m fmc_uia_tpu_torch.predict`` (8 frames a task, as phase 9)
+   held against ``Predictor``
    (grid boxes decoded). Counts are zeroed before each main-path run
    (a, b, d, e) and read after it.
 13. encoders — the flagship (512², 27 tasks, bf16, TaskFiLM) with each
@@ -279,15 +287,47 @@ pass):
    (each step synced): ms a step per type, img/s, peak memory, finite
    losses, launches exact (fused01 K1f/K1b/K2f/K2b 4 each a step;
    unfused K2f/K2b 4), then phase 5's f32 grad check, card vs CPU (B = 1,
-   256², ``KinkAlign``). The model is freed before the next. (c) a seeded
-   torchvision-layout ResNet-50 checkpoint (``resnet50_manifest``), ``python
-   -m fmc_uia_tpu_torch.utils.convert --verify`` on it in a subprocess on
-   the card, then the resnet50 preset's ``fit`` from it (1 epoch of 6
-   steps, ``fused_preprocess``, validation) on phase 6's data written
-   again: the BatchNorm warning raised once, K3 6 launches on its chunk
+   256², ``KinkAlign``), on the segmentation step alone (its loss reads
+   every encoder stage; the heads are phase 5's). The model is freed
+   before the next. (c) a seeded torchvision-layout ResNet-50 checkpoint
+   (``resnet50_manifest``), ``python -m fmc_uia_tpu_torch.utils.convert
+   --verify`` on it in a subprocess on the card beside the resnet50
+   preset's ``fit`` from it (1 epoch of 2
+   steps, ``fused_preprocess``, validation) on phase 6's data (the same
+   files): the BatchNorm warning raised once, K3 2 launches on its chunk
    kernel and no other kernel, the stem conv after the fit within 1e-3 of
    the file's. Counts are zeroed before each main-path run (a, b's timed
    rounds, c's fit) and read after it.
+14. parallel modes (``fmc_uia_tpu_torch/parallel``) on the one card. (a)
+   the flagship bf16, B = 24, K3 on, under ``parallel.mesh {data: -1}``
+   on an NCCL group of one rank in this process, against the plain
+   Trainer on the same batches and seed, both with deterministic
+   algorithms on (without them the card's bf16 backward is not bitwise
+   run to run): the first step's loss and grads, then 3 rounds of 4
+   types, every loss within 1e-5 of the plain one's, every leaf of the
+   first grads and of the params after the rounds within 1e-5 of its
+   max (bitwise expected); launches exact (24/24/4/4 and K3 1 a step),
+   img/s of both (smoke timings). Then one gloo group of 2 spawned ranks
+   sharing the card (NCCL refuses two ranks on one GPU): (b) DP, f32
+   (TF32 off) B = 4 at 512², one step a type, the summed grads against
+   one process's, each leaf within 1e-3 of its max or twice the move of
+   that leaf's grad in one process under a 1e-7 relative perturbation of
+   every weight; bf16 B = 24 (12 a rank), 2 steps a type, finite losses,
+   launches exact a rank. (c)
+   ZeRO-1 against DP, 2 f32 AdamW steps on the same grads: params within
+   1e-6 of each leaf's max (bitwise so far), ``zero_sharded_fraction``.
+   (d) TP ``{data: 1, model: 2}``, f32 as (b): grads against (b)'s one
+   process (the same rule), the sharded leaves and each rank's parameter
+   bytes against ``make_param_specs``. (e) EP: the submit preset with
+   ``model.moe.dispatch: ragged`` at zero-drop capacity on ``{model: 2}``,
+   B = 64 (32 a rank): the forward against the dense dispatch (phase 9's
+   0.1 rule), one step, its ``all_to_all`` count (2 a block forward, 2
+   backward). (f) 3 gloo ranks: swin_b 512²'s stage 2 (9 pairs, C = 512,
+   a 32² grid) split 3 pairs a rank, 8 microbatches of 3, f32: the
+   forward against the sequential stage within 1e-5 of its max, one
+   backward, K1f and K1b 48 a rank (6 blocks x 8 microbatches). Every
+   part runs; a failed one fails the phase at its end. The multi-rank
+   times share one card: smoke timings, not a parallel speed.
 
 The line before the card's name is ``{"kernels": [...]}`` (K1f/K2f
 launches from phase 4, K1b/K2b from phase 5, K3 from phase 6, K4f from
@@ -295,8 +335,9 @@ phase 7, K4b from phase 8; phase 9 checks its own counts and leaves the
 line as it was; ``launches_spm``: each kernel's launches over phase 10's
 serving run, timed training and fit; ``launches_phase11``: over phase
 11's fits; ``launches_phase12``: over phase 12's main-path runs;
-``launches_phase13``: over phase 13's); the last line is ``{"ok": true,
-"device": {...}}``.
+``launches_phase13``: over phase 13's; ``launches_phase14``: {"a": phase
+14a's mesh run, "b_rank": each rank's bf16 DP steps, "f_rank": each
+pipeline rank}); the last line is ``{"ok": true, "device": {...}}``.
 Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
 
     python3 chip_smoke.py --staged-train
@@ -330,10 +371,15 @@ builds the kernels and runs phase 12 alone, one JSON line.
     python3 chip_smoke.py --phase13
 
 builds the kernels and runs phase 13 alone, one JSON line.
+
+    python3 chip_smoke.py --phase14
+
+builds the kernels and runs phase 14 alone, one JSON line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -2012,7 +2058,8 @@ def dino_preset():
 
     per_step = ((va.global_attention, 12), (va.global_attention_backward, 12))
     return dict(key="dino_train", what="DINOv3 ViT-B/8",
-                config=dino_patch8_config_dict, per_step=per_step)
+                config=dino_patch8_config_dict, per_step=per_step,
+                grad_types=("segmentation",))
 
 
 def step_enqueue_ms(trainer, batches, reps=5):
@@ -2274,6 +2321,9 @@ def check_train_grads(report, preset):
     sum to 1), so both sides must be within 1e-6 of the step's largest
     grad magnitude of it."""
     card, cpu, tc, tp, batches = grad_pair(preset)
+    if "grad_types" in preset:
+        batches = {t: b for t, b in batches.items()
+                   if t in preset["grad_types"]}
     worst = {}
     last = len(card.encoder.out_channels) - 1
     for t, b in batches.items():
@@ -2395,15 +2445,30 @@ def host_frame_ms(path):
     return out
 
 
-def write_flagship_frames(tmp, tasks, tag):
-    """Phase 6's data under ``tmp``/data (phase 11 writes it again): the
-    flagship's tasks x FIT_PER_TASK 576x768 PNGs, one task per call
-    (seeded by its index) on 8 threads (zlib and numpy release the GIL).
-    Returns (root, seconds, MB)."""
+_FRAMES = {}  # the tasks (JSON) -> (root, MB): frames written this run
+
+
+def write_flagship_frames(tasks, tag):
+    """Phase 6's data: the flagship's tasks x FIT_PER_TASK 576x768 PNGs,
+    one task per call (seeded by its index) on 8 threads (zlib and numpy
+    release the GIL), written once a run into a directory of its own
+    (removed at exit): phases 11, 12e and 13c read the same files.
+    Returns (root, seconds spent writing here, MB)."""
+    import atexit
+    import shutil
+    import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     from fmc_uia_tpu_torch.data.synthetic import generate_synthetic_dataset
 
+    key = json.dumps(tasks, sort_keys=True)
+    if key in _FRAMES:
+        root, data_mb = _FRAMES[key]
+        log(f"{tag} reads the {len(tasks)} tasks x {FIT_PER_TASK} frames "
+            "written before")
+        return root, 0.0, data_mb
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_frames_")
+    atexit.register(shutil.rmtree, tmp, True)
     root = os.path.join(tmp, "data")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(8) as ex:
@@ -2416,6 +2481,7 @@ def write_flagship_frames(tmp, tasks, tag):
     log(f"{tag} wrote {len(tasks)} tasks x {FIT_PER_TASK} frames "
         f"{FIT_FRAME[0]}x{FIT_FRAME[1]} (PNG, {data_mb:.0f} MB) in "
         f"{gen_s:.1f} s")
+    _FRAMES[key] = (root, data_mb)
     return root, gen_s, data_mb
 
 
@@ -2440,13 +2506,12 @@ def fit_phase(name, smi, report, staged_img_s):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
     try:
         d = flagship_config_dict()
-        _, gen_s, data_mb = write_flagship_frames(tmp, d["tasks"], "[fit]")
+        root, gen_s, data_mb = write_flagship_frames(d["tasks"], "[fit]")
         frame_ms = host_frame_ms(os.path.join(
-            tmp, "data", "images", f"{d['tasks'][0]['task_id']}_0000.png"))
+            root, "images", f"{d['tasks'][0]['task_id']}_0000.png"))
         log(f"[fit] host ms per frame, one thread (median of 11): "
             + ", ".join(f"{k} {v:.2f}" for k, v in frame_ms.items()))
-        d["data"].update(root_path=os.path.join(tmp, "data"),
-                         fused_preprocess=True)
+        d["data"].update(root_path=root, fused_preprocess=True)
         d["experiment"].update(output_dir=os.path.join(tmp, "out"),
                                checkpoint_freq=1)
         d["training"].update(num_epochs=2, steps_per_epoch=FIT_STEPS)
@@ -2744,6 +2809,9 @@ BF16_FLIP_SHARE = 1 / 8
 # batch of 64 is whole (the sampler's wraparound shortens a batch when a
 # task has fewer train rows than a batch)
 SUBMIT_PER_TASK = 80
+# above 224 on both axes, so the host still resizes each frame for the
+# 224² presets; a quarter of FIT_FRAME's pixels to decode
+SUBMIT_FRAME = (288, 384)
 SUBMIT_STEPS = 6         # steps per epoch of the fit
 SUBMIT_BAD_FRAME = "T1_fetal_planes_0005.png"  # made unreadable
 
@@ -3039,7 +3107,7 @@ def submit_fit_preset():
 
 
 def write_fit_dataset(tmp, tasks):
-    """The from-disk data of phases 9d and 10d under ``tmp``/data: 576x768
+    """The from-disk data of phases 9d and 10d under ``tmp``/data: 288x384
     PNGs, 80 frames a task (the port's generator, 8 threads), one made
     unreadable. Returns (root, seconds)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3051,23 +3119,44 @@ def write_fit_dataset(tmp, tasks):
     with ThreadPoolExecutor(8) as ex:
         list(ex.map(lambda it: generate_synthetic_dataset(
             root, tasks=[it[1]], samples_per_task=SUBMIT_PER_TASK,
-            image_hw=FIT_FRAME, seed=100 + it[0]), enumerate(tasks)))
+            image_hw=SUBMIT_FRAME, seed=100 + it[0]), enumerate(tasks)))
     with open(os.path.join(root, "images", SUBMIT_BAD_FRAME), "wb") as f:
         f.write(b"not a png")
     gen_s = time.perf_counter() - t0
     log(f"[fit-data] wrote {len(tasks)} tasks x {SUBMIT_PER_TASK} frames "
-        f"{FIT_FRAME[0]}x{FIT_FRAME[1]} ({SUBMIT_BAD_FRAME} unreadable) in "
+        f"{SUBMIT_FRAME[0]}x{SUBMIT_FRAME[1]} ({SUBMIT_BAD_FRAME} unreadable) in "
         f"{gen_s:.1f} s")
     return root, gen_s
 
 
+PREDICT_PER_TASK = 8  # frames a task ``predict`` runs on (index 5 among them)
+
+
+def predict_root(root, dest):
+    """A data root under ``dest``: the first PREDICT_PER_TASK rows of each
+    task CSV of ``root``, its ``images`` a link to ``root``'s. ``predict``
+    and its check run on it (a cut of the frames, the unreadable one of
+    ``write_fit_dataset`` kept)."""
+    sub = os.path.join(dest, "predict_data")
+    os.makedirs(os.path.join(sub, "csv_files"))
+    os.symlink(os.path.abspath(os.path.join(root, "images")),
+               os.path.join(sub, "images"))
+    for name in sorted(os.listdir(os.path.join(root, "csv_files"))):
+        with open(os.path.join(root, "csv_files", name)) as f:
+            lines = f.read().splitlines()
+        with open(os.path.join(sub, "csv_files", name), "w") as f:
+            f.write("\n".join(lines[:1 + PREDICT_PER_TASK]) + "\n")
+    return sub
+
+
 def fit_predict_phase(name, smi, report, preset, root):
     """``fit`` of a 224² B=64 preset from ``root`` (``write_fit_dataset``:
-    576x768 PNGs, 27 tasks x 80, one unreadable) for ``preset['epochs']``
+    288x384 PNGs, 27 tasks x 80, one unreadable) for ``preset['epochs']``
     epochs of 6 steps with K3, the launch counts of
     ``preset['want'](steps, eval batches)``, then ``python -m
     fmc_uia_tpu_torch.predict`` in a subprocess on the experiment dir over
-    the same root, its files held against an in-process ``Predictor`` on
+    ``predict_root`` of the same root, its files held against an
+    in-process ``Predictor`` on
     the loaded ``best_model.pt``; ``preset['after']``, if any, runs on the
     experiment dir before the temp dir goes."""
     import copy
@@ -3136,11 +3225,12 @@ def fit_predict_phase(name, smi, report, preset, root):
                      f"{epochs}")
 
         out = os.path.join(tmp, "preds")
+        sub = predict_root(root, tmp)
         env = dict(os.environ, PYTHONPATH=HERE)
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "fmc_uia_tpu_torch.predict",
-             "--checkpoint", exp, "--data", root, "--out", out],
+             "--checkpoint", exp, "--data", sub, "--out", out],
             cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
         predict_s = time.perf_counter() - t0
         if proc.returncode != 0:
@@ -3154,7 +3244,7 @@ def fit_predict_phase(name, smi, report, preset, root):
         mean = cfg.get("data.augmentation.normalize.mean")
         std = cfg.get("data.augmentation.normalize.std")
         t0 = time.perf_counter()
-        chk = check_predictions(out, root, model, registry, mean, std,
+        chk = check_predictions(out, sub, model, registry, mean, std,
                                 SUBMIT_IMAGE)
         check_s = time.perf_counter() - t0
         after = (preset["after"](name, smi, report, exp, root, model,
@@ -3169,7 +3259,7 @@ def fit_predict_phase(name, smi, report, preset, root):
                   "loop_s": e["loop_s"], "img_s": e["images"] / e["loop_s"],
                   "queue_wait_share": e["queue_wait_s"] / e["loop_s"]}
                  for e in r["epoch_stats"]]
-    rep = dict(frames=FIT_FRAME, per_task=SUBMIT_PER_TASK, fit_s=fit_s, epochs=per_epoch, train_steps=steps,
+    rep = dict(frames=SUBMIT_FRAME, per_task=SUBMIT_PER_TASK, fit_s=fit_s, epochs=per_epoch, train_steps=steps,
                eval_batches=evals, launches=launches, k3_kernels=k3_kernels,
                predict_s=predict_s, check_s=check_s, predictions=chk,
                best_score=r["best_score"], best_epoch=r["best_epoch"])
@@ -3189,7 +3279,7 @@ def fit_predict_phase(name, smi, report, preset, root):
            if moe_rows is not None else ""))
     log(f"{tag} predict (subprocess, B=16): {predict_s:.1f} s for "
         f"{chk['records']} frames -> {chk['jsons']} JSONs, {chk['masks']} "
-        f"masks at {FIT_FRAME[0]}x{FIT_FRAME[1]}; every value equal to the "
+        f"masks at {SUBMIT_FRAME[0]}x{SUBMIT_FRAME[1]}; every value equal to the "
         f"in-process Predictor's (masks bitwise; boxes/points worst "
         f"{chk['worst_box_point_err_over_size']:.1e} of the frame size) "
         f"| {name} | {smi}")
@@ -3236,7 +3326,7 @@ def spm_preset():
                 config=dinov3_spm_config_dict,
                 per_step=tuple((c, 0) for c in all_kernels()),
                 batch=SUBMIT_BATCH, image=SUBMIT_IMAGE,
-                grad_image=SUBMIT_IMAGE)
+                grad_image=SUBMIT_IMAGE, grad_types=("segmentation",))
 
 
 def spm_fit_preset():
@@ -3430,7 +3520,7 @@ def http_front_check(name, smi, report, exp, root, model, registry, mean,
     """Phase 10e: ``python -m fmc_uia_tpu_torch.serve --checkpoint <exp>``
     in a subprocess on a free port (``--port 0``; it prints the address it
     bound). ``/healthz``, ``/v1/tasks`` and ``/v1/stats``; one PNG frame
-    of the dataset (576x768, as on disk) per task type, each answer equal
+    of the dataset (288x384, as on disk) per task type, each answer equal
     to the in-process ``Predictor``'s on the loaded model (the mask
     decoded and equal to its mask resized back, class ids equal, boxes
     and points within 1e-4 of the frame); then 32 concurrent requests,
@@ -3626,7 +3716,7 @@ def run_phases_9_10(name, smi, report, out_dir, fit_root):
 # pretrained encoders from a local checkpoint
 # ---------------------------------------------------------------------------
 CACHE_PARTIAL_MB = 400    # phase 11b's budget: about half the tasks stream
-CACHE_FIT_STEPS = 80      # steps per epoch of phase 11a (epoch 2 >= 10 s)
+CACHE_FIT_STEPS = 24      # steps per epoch of phase 11a (epoch 2 ~3 s)
 CACHE_SHORT_STEPS = 6     # steps of phases 11b and 11c
 PRETRAINED_STEPS = 3      # steps of phases 11d and 11e
 CACHE_BITWISE_TRAIN = 4   # train batches held bitwise in phase 11a
@@ -3845,22 +3935,38 @@ def spm_pretrained_check(tag, d, r, ckpt_path, smi):
     return {"backbone_leaves": len(want), "card_vs_cpu_err": err}
 
 
-def verify_cli(tag, path):
+def start_verify(path):
     """``python -m fmc_uia_tpu_torch.utils.convert --verify`` on the card,
-    in a subprocess: exit 0 and PASS."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    started in a subprocess; ``finish_verify`` waits for it."""
+    return path, time.perf_counter(), subprocess.Popen(
         [sys.executable, "-m", "fmc_uia_tpu_torch.utils.convert", "--verify",
          path], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
-        capture_output=True, text=True, timeout=600)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def stop_verify(started):
+    """Kill a ``start_verify`` still running (a phase that failed)."""
+    if started is not None and started[2].poll() is None:
+        started[2].kill()
+        started[2].communicate()
+
+
+def finish_verify(tag, started):
+    """Wait for a ``start_verify``: exit 0 and PASS. Returns its seconds."""
+    path, t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{tag} --verify {os.path.basename(path)}: no answer in 600 s")
     secs = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
+    for line in out.splitlines():
         if line.startswith("[verify]"):
             log(f"{tag}   {line}")
-    if proc.returncode != 0 or "RESULT: PASS" not in proc.stdout:
+    if proc.returncode != 0 or "RESULT: PASS" not in out:
         fail(f"{tag} --verify {os.path.basename(path)}: exit "
-             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
-             f"{proc.stderr[-2000:]}")
+             f"{proc.returncode}\n{out[-2000:]}\n{err[-2000:]}")
     log(f"{tag} --verify {os.path.basename(path)}: PASS in {secs:.1f} s")
     return secs
 
@@ -3891,7 +3997,7 @@ def phase11(name, smi, report):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_phase11_")
     try:
         base = flagship_config_dict()
-        root, gen_s, data_mb = write_flagship_frames(tmp, base["tasks"],
+        root, gen_s, data_mb = write_flagship_frames(base["tasks"],
                                                      "[cache]")
         base["data"].update(root_path=root, fused_preprocess=True,
                             device_cache=True)
@@ -4029,10 +4135,15 @@ def phase11(name, smi, report):
             f"tables resampled 23² -> 15² on load; {PRETRAINED_STEPS} steps")
         seconds["e"] = time.perf_counter() - t0
 
-        # (f) the --verify CLI on both files
+        # (f) the --verify CLI on both files, both at once
         t0 = time.perf_counter()
-        rep["f"] = {os.path.basename(p): verify_cli("[verify]", p)
-                    for p in (dino_path, swin_path)}
+        started = [start_verify(p) for p in (dino_path, swin_path)]
+        try:
+            rep["f"] = {os.path.basename(v[0]): finish_verify("[verify]", v)
+                        for v in started}
+        finally:
+            for v in started:
+                stop_verify(v)
         seconds["f"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4076,7 +4187,7 @@ def phase11_main() -> int:
 # ---------------------------------------------------------------------------
 ABLATION_MICRO = {"a": 4, "b": 2}  # staged micro-steps a type (phase 12b)
 ABLATION_BURST = 4                 # train_burst steps (phase 12d)
-ABLATION_FIT_STEPS = 6             # phase 12e: 1 epoch of this many steps
+ABLATION_FIT_STEPS = 2             # phase 12e: 1 epoch of this many steps
 
 
 def ablation_preset(which):
@@ -4366,7 +4477,7 @@ def ablation_burst(tag, which, cfg, registry, model, trainer, batches,
 
 def ablation_fit(tag, which, totals, smi):
     """Phase 12e: the preset's ``fit`` (K3, 1 epoch of ABLATION_FIT_STEPS
-    steps, validation, checkpoints) on phase 6's data written again, its
+    steps, validation, checkpoints) on phase 6's data (the same files), its
     launches as the flagship's formula, then ``python -m
     fmc_uia_tpu_torch.predict`` in a subprocess held against an in-process
     ``Predictor`` (``check_predictions``: the grid boxes decoded)."""
@@ -4383,7 +4494,7 @@ def ablation_fit(tag, which, totals, smi):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_phase12_")
     try:
         d = ablation_preset(which)["config"]()
-        root, gen_s, _ = write_flagship_frames(tmp, d["tasks"], tag)
+        root, gen_s, _ = write_flagship_frames(d["tasks"], tag)
         d["data"].update(root_path=root, fused_preprocess=True)
         d["experiment"]["output_dir"] = os.path.join(tmp, "out")
         d["validation"].update(enabled=True, freq=1)
@@ -4395,10 +4506,11 @@ def ablation_fit(tag, which, totals, smi):
         if not os.path.exists(os.path.join(exp, "best_model.pt")):
             fail(f"{tag} no best_model.pt")
         out = os.path.join(tmp, "preds")
+        sub = predict_root(root, tmp)
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "fmc_uia_tpu_torch.predict",
-             "--checkpoint", exp, "--data", root, "--out", out],
+             "--checkpoint", exp, "--data", sub, "--out", out],
             cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
             capture_output=True, text=True, timeout=600)
         predict_s = time.perf_counter() - t0
@@ -4411,7 +4523,7 @@ def ablation_fit(tag, which, totals, smi):
         model = build_model(cfg, registry, device="cuda", init=False)
         model.load_state_dict(ckpt_lib.load_best_params(exp, "cuda"))
         chk = check_predictions(
-            out, root, model, registry,
+            out, sub, model, registry,
             cfg.get("data.augmentation.normalize.mean"),
             cfg.get("data.augmentation.normalize.std"), IMAGE)
         del model
@@ -4522,7 +4634,7 @@ def phase12_main() -> int:
 # phase 13: the other encoders and the unfused Swin attention (queue 1 item 8)
 # ---------------------------------------------------------------------------
 PHASE13_ROUNDS = 3        # timed round-robin rounds of phase 13b
-PHASE13_FIT_STEPS = 6     # phase 13c: 1 epoch of this many steps
+PHASE13_FIT_STEPS = 2     # phase 13c: 1 epoch of this many steps
 # preset -> (launches a Predictor forward, launches a train step), by
 # kernel; every kernel not named launches 0 times
 PHASE13_LAUNCHES = {
@@ -4539,11 +4651,14 @@ PHASE13_LAUNCHES = {
 
 def encoder_preset(name):
     """Phase 13's preset ``name``: the flagship with
-    ``ENCODER_PRESETS[name]``."""
+    ``ENCODER_PRESETS[name]``; its grad check on the segmentation step
+    alone (the step whose loss reads every encoder stage through the FPN;
+    the heads are the flagship's, checked for every type in phase 5)."""
     from fmc_uia_tpu_torch import flagship
 
     return dict(key=f"enc_{name}", config=lambda: (
-        flagship.flagship_with_encoder(flagship.ENCODER_PRESETS[name])))
+        flagship.flagship_with_encoder(flagship.ENCODER_PRESETS[name])),
+        grad_types=("segmentation",))
 
 
 def phase13_staged(tag, cfg, registry, model, per_step, totals):
@@ -4611,13 +4726,14 @@ def phase13_pretrained_fit(tag, totals, smi):
     from fmc_uia_tpu_torch.utils import timm_manifests
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_phase13_")
+    verify = None
     try:
         ckpt = os.path.join(tmp, "resnet50_torchvision.pth")
         mb = synth_checkpoint(timm_manifests.resnet50_manifest(), 13, ckpt)
-        verify_s = verify_cli(tag, ckpt)
+        verify = start_verify(ckpt)  # runs beside the fit
         d = encoder_preset("resnet50")["config"]()
         d["model"]["encoder"]["pretrained"] = ckpt
-        root, gen_s, _ = write_flagship_frames(tmp, d["tasks"], tag)
+        root, gen_s, _ = write_flagship_frames(d["tasks"], tag)
         d["data"].update(root_path=root, fused_preprocess=True)
         d["experiment"]["output_dir"] = os.path.join(tmp, "out")
         d["validation"].update(enabled=True, freq=1)
@@ -4643,7 +4759,9 @@ def phase13_pretrained_fit(tag, totals, smi):
         if not moved <= 1e-3:
             fail(f"{tag}: the stem conv after the fit is {moved:.3e} from "
                  "the checkpoint's (> 1e-3): the file was not loaded")
+        verify_s = finish_verify(tag, verify)
     finally:
+        stop_verify(verify)
         shutil.rmtree(tmp, ignore_errors=True)
     e = epoch_rows(r)[0]
     log(f"{tag} checkpoint {mb:.1f} MB; --verify {verify_s:.1f} s; fit "
@@ -4739,6 +4857,636 @@ def phase13_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the parallel modes (queue 1 item 9) on the one card
+# ---------------------------------------------------------------------------
+P14_B32 = 4          # (b)-(d): the f32 global batch (2 a rank under DP)
+P14_PIPE_B = 24      # (f): the pipelined stage's batch, M microbatches
+P14_PIPE_M = 8
+P14_TIMEOUT_S = 600  # each spawned group's deadline
+
+
+def zero_launches():
+    for c in all_kernels():
+        c.launches = 0
+
+
+def read_launches():
+    return {c.__name__: c.launches for c in all_kernels()}
+
+
+def p14_model(dtype, preset="flagship", moe=None, seed=0, k3=False):
+    """(config, registry, model) of the flagship (or the submit preset),
+    weights from ``seed``, on the card; ``k3``: the train step's
+    augmentation through K3 (``data.fused_preprocess``, as ``fit``)."""
+    import torch
+
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.flagship import (
+        flagship_config_dict,
+        submit_config_dict,
+    )
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.tasks import TaskRegistry
+
+    d = (flagship_config_dict() if preset == "flagship"
+         else submit_config_dict())
+    if moe:
+        d["model"]["moe"].update(moe)
+    d["data"]["fused_preprocess"] = k3
+    cfg = Config(config_dict=d)
+    registry = TaskRegistry.from_config(cfg)
+    model = build_model(cfg, registry, dtype=dtype, device="cuda",
+                        generator=torch.Generator().manual_seed(seed))
+    return cfg, registry, model
+
+
+def leaf_gaps(got, ref):
+    """{leaf: max |got - ref| / max |ref|} over {name: tensor} pairs (a
+    leaf whose ``ref`` is all zero left out)."""
+    out = {}
+    for n, r in ref.items():
+        top = float(r.float().abs().max())
+        if top != 0.0:
+            out[n] = float((got[n].float() - r.float()).abs().max()) / top
+    return out
+
+
+def worst_gap(gaps):
+    """(the largest gap of a ``leaf_gaps`` map, its leaf)."""
+    return max(((g, n) for n, g in gaps.items()), default=(0.0, None))
+
+
+def over_own_noise(gaps, noise, floor):
+    """The leaves of ``gaps`` past max(``floor``, twice the same leaf's
+    gap in ``noise``): {leaf: (gap, bound)}."""
+    bad = {}
+    for n, g in gaps.items():
+        bound = max(floor, 2 * noise.get(n, 0.0))
+        if not g <= bound:
+            bad[n] = (g, bound)
+    return bad
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's and PyTorch's deterministic algorithms inside (warnings
+    only: an op without one would warn, not raise), the previous settings
+    restored on exit. The flagship's bf16 backward is then bitwise run to
+    run on the card; without them its segmentation and detection steps
+    are not (phase 14a before: first-step grads 1.57e-2 of a
+    relative-position table's max apart between two plain runs)."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            cudnn.deterministic, cudnn.benchmark)
+    fill = getattr(torch.utils, "deterministic", None)
+    prev_fill = fill.fill_uninitialized_memory if fill else None
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    if fill:
+        fill.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        cudnn.deterministic, cudnn.benchmark = prev[2], prev[3]
+        if fill:
+            fill.fill_uninitialized_memory = prev_fill
+
+
+def p14_nccl_one(report, smi):
+    """(a): the flagship under ``parallel.mesh {data: -1}`` on an NCCL
+    group of one rank, in this process, against the plain Trainer on the
+    same batches, draws and seed, both under ``deterministic_algorithms``:
+    the first step's loss and grads, then 3 rounds of 4 types through
+    ``train_batch`` (timed, launches counted): every loss within 1e-5 of
+    the plain one's and every leaf of the first grads and of the params
+    after the rounds within 1e-5 of its max (bitwise expected: at one
+    rank the mesh path runs the plain arithmetic; the log names the
+    leaf that differs most)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from fmc_uia_tpu_torch.parallel import make_mesh
+    from fmc_uia_tpu_torch.train import Trainer
+
+    store = tempfile.mktemp(prefix="chip_smoke_p14_store_")
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(axes=("data",), shape=(1,), device_type="cuda")
+        runs = {}
+        for kind in ("plain", "mesh"):
+            cfg, registry, model = p14_model(torch.bfloat16, k3=True)
+            batches = train_batches(registry, TRAIN_BATCH, IMAGE, seed=7)
+            with deterministic_algorithms():
+                t = Trainer(cfg, model, registry, device="cuda", seed=0,
+                            mesh=mesh if kind == "mesh" else None)
+                logs0 = t.compute_grads(next(iter(batches.values())), 0)
+                grads0 = {n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()}
+                losses = []
+                zero_launches()
+                torch.cuda.synchronize()
+                times = []
+                for rnd in range(3):
+                    t0 = time.perf_counter()
+                    for b in batches.values():
+                        losses.append(t.train_batch(b, 0)["total_loss"])
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                launches = read_launches()
+            runs[kind] = dict(
+                loss0=float(logs0["total_loss"]), grads0=grads0,
+                losses=[float(v) for v in losses],
+                img_s=2 * len(batches) * TRAIN_BATCH / sum(times[1:]),
+                launches=launches,
+                params={n: p.detach().clone() for n, p in
+                        t.model_state().items()})
+            del t, model
+            torch.cuda.empty_cache()
+        steps = 3 * 4
+        want = {"attention_branch": 24 * steps,
+                "attention_branch_backward": 24 * steps,
+                "mlp_branch": 4 * steps, "mlp_branch_backward": 4 * steps,
+                "augment_normalize": steps}
+        got = runs["mesh"]["launches"]
+        if any(got[k] != v for k, v in want.items()):
+            fail(f"[p14-a] launches {got} != {want}")
+        P, M = runs["plain"], runs["mesh"]
+        rel = [abs(x - y) / abs(y) for x, y in
+               zip([M["loss0"]] + M["losses"], [P["loss0"]] + P["losses"])]
+        g_gap = worst_gap(leaf_gaps(M["grads0"], P["grads0"]))
+        p_gap = worst_gap(leaf_gaps(M["params"], P["params"]))
+        out = dict(
+            losses_bitwise=rel == [0.0] * len(rel), loss_gap=max(rel),
+            grads0_bitwise=all(torch.equal(M["grads0"][n], v)
+                               for n, v in P["grads0"].items()),
+            grads0_gap=g_gap,
+            params_bitwise=all(torch.equal(M["params"][n], v)
+                               for n, v in P["params"].items()),
+            params_gap=p_gap, launches=got,
+            img_s={k: v["img_s"] for k, v in runs.items()})
+        log(f"[p14-a] NCCL, 1 rank, flagship bf16 B={TRAIN_BATCH}, "
+            f"deterministic algorithms, mesh vs plain: the first step and "
+            f"3 rounds of 4 types: losses bitwise {out['losses_bitwise']} "
+            f"(worst rel {out['loss_gap']:.2e}), first grads bitwise "
+            f"{out['grads0_bitwise']} (worst {g_gap[0]:.2e} of the leaf "
+            f"max, {g_gap[1]}), params after the rounds bitwise "
+            f"{out['params_bitwise']} (worst {p_gap[0]:.2e}, {p_gap[1]}); "
+            f"launches {got}; img/s (rounds 2-3, smoke timing) mesh "
+            f"{out['img_s']['mesh']:.2f}, plain {out['img_s']['plain']:.2f}"
+            f" (phase 5: {report.get('train', {}).get('img_s')}) | {smi}")
+        if not (out["loss_gap"] <= 1e-5 and g_gap[0] <= 1e-5
+                and p_gap[0] <= 1e-5):
+            fail(f"[p14-a] mesh vs plain past 1e-5: losses "
+                 f"{out['loss_gap']:.2e}, grads {g_gap}, params {p_gap}")
+        return out
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+
+
+def p14_group(rank, world):
+    """(b)-(e) on one gloo group of 2 ranks sharing the card (a spawned
+    process; the returned dict goes to the parent)."""
+    import torch
+    import torch.distributed as dist
+
+    from fmc_uia_tpu_torch.parallel import comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # a part that fails is recorded and the next one runs (every rank
+    # fails at the same point: the checks follow the part's collectives)
+    out, secs = {"errors": []}, {}
+    state = {}
+    for part, fn in (("b", p14_dp), ("c", p14_zero), ("d", p14_tp),
+                     ("e", p14_ep)):
+        t0 = time.perf_counter()
+        try:
+            fn(rank, out, state)
+        except (Exception, SystemExit) as e:
+            out["errors"].append(f"({part}) rank {rank}: {e}")
+            log(f"[p14-{part}] rank {rank} FAILED: {e}")
+        torch.cuda.empty_cache()
+        secs[part] = time.perf_counter() - t0
+        dist.barrier()
+    out["seconds"] = secs
+    out["gloo_host_ops"] = sorted(comm._NOTED)
+    return out
+
+
+def p14_dp(rank, out, state):
+    """(b) DP f32: one step a type at B=4, the summed grads against one
+    process's (kept in ``state`` for (d)); then bf16 at B=24 (12 a
+    rank), 2 steps a type, launches counted."""
+    import torch
+    import torch.distributed as dist
+
+    from fmc_uia_tpu_torch.parallel import make_mesh
+    from fmc_uia_tpu_torch.train import Trainer
+
+    dp = make_mesh(axes=("data",), shape=(2,))
+    cfg, registry, model = p14_model(torch.float32)
+    b4 = state["b4"] = train_batches(registry, P14_B32, IMAGE, seed=5)
+    t = Trainer(cfg, model, registry, device="cuda", seed=0, mesh=dp)
+    dp_grads = {}
+    for ty, b in b4.items():
+        t.compute_grads(b)
+        g = t.whole_grads()
+        if rank == 0:
+            dp_grads[ty] = {n: v.detach().clone() for n, v in g.items()}
+    if rank == 0:
+        # one process, twice: the reference, and again with every weight
+        # moved by 1e-7 of itself (seeded), which measures how far f32
+        # rounding moves each leaf's grad; each leaf's bound is 1e-3 of
+        # its max or twice its own move (a relative-position table's grad
+        # cancels over windows and moves most)
+        refs = []
+        for rep_ in range(2):
+            _, _, m1 = p14_model(torch.float32)
+            if rep_:
+                g = torch.Generator(device="cuda").manual_seed(11)
+                with torch.no_grad():
+                    for p in m1.parameters():
+                        p.mul_(1 + 1e-7 * torch.randn(
+                            p.shape, generator=g, device="cuda"))
+            t1 = Trainer(cfg, m1, registry, device="cuda", seed=0)
+            refs.append({})
+            for ty, b in b4.items():
+                t1.compute_grads(b)
+                refs[-1][ty] = {n: p.grad.detach().clone()
+                                for n, p in m1.named_parameters()}
+            del t1, m1
+        ref = state["ref"] = refs[0]
+        noise = state["noise"] = {ty: leaf_gaps(refs[1][ty], ref[ty])
+                                  for ty in ref}
+        out["single_vs_single"] = {ty: worst_gap(v)
+                                   for ty, v in noise.items()}
+        gaps = {ty: leaf_gaps(dp_grads[ty], ref[ty]) for ty in ref}
+        out["dp_f32_worst"] = {ty: worst_gap(v) for ty, v in gaps.items()}
+        out["dp_f32_over"] = {ty: over_own_noise(v, noise[ty], 1e-3)
+                              for ty, v in gaps.items()}
+        del refs, dp_grads
+    del t, model
+    torch.cuda.empty_cache()
+    dist.barrier()
+    # bf16 at B=24 (12 a rank), 2 steps a type: launches counted
+    cfg, registry, model = p14_model(torch.bfloat16, k3=True)
+    b24 = train_batches(registry, TRAIN_BATCH, IMAGE, seed=6)
+    t = Trainer(cfg, model, registry, device="cuda", seed=0, mesh=dp)
+    zero_launches()
+    torch.cuda.synchronize()
+    t1_ = time.perf_counter()
+    losses = []
+    for _ in range(2):
+        for b in b24.values():
+            losses.append(float(t.train_batch(b, 0)["total_loss"]))
+    torch.cuda.synchronize()
+    out["dp_bf16"] = dict(losses=losses, launches=read_launches(),
+                          s=time.perf_counter() - t1_)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"[p14-b] DP bf16 losses {losses}")
+    bad = {ty: v for ty, v in out.get("dp_f32_over", {}).items() if v}
+    if bad:
+        fail(f"[p14-b] DP f32 leaves past their bound (gap, bound): {bad}")
+
+
+def p14_zero(rank, out, state):
+    """(c) ZeRO-1 against DP, 2 f32 AdamW steps on the same grads: each
+    step's local grads come from the DP Trainer's backward and are copied
+    into the ZeRO Trainer's, then each reduces (all-reduce; reduce-scatter
+    of the sharded leaves), clips and updates (ZeRO: its slices, then an
+    all-gather). The same grads on both sides, since the card's backward
+    is not bitwise run to run (cuDNN, scatter-adds) and Adam turns a
+    near-zero grad's noise into an O(lr) move."""
+    import torch
+
+    from fmc_uia_tpu_torch.parallel import make_mesh, zero_sharded_fraction
+    from fmc_uia_tpu_torch.train import Trainer
+
+    dp = make_mesh(axes=("data",), shape=(2,))
+    tr = {}
+    for kind in ("dp", "zero"):
+        c, r_, m = p14_model(torch.float32)
+        c.config.setdefault("parallel", {})["zero_optimizer"] = (
+            kind == "zero")
+        tr[kind] = Trainer(c, m, r_, device="cuda", seed=0, mesh=dp)
+    b4 = state["b4"]
+    for ty in ("segmentation", "classification"):
+        tr["dp"]._backward(b4[ty])
+        with torch.no_grad():
+            for (_, pz), (_, pd) in zip(tr["zero"]._named, tr["dp"]._named):
+                pz.grad.copy_(pd.grad)
+        for t in tr.values():
+            t._reduce_and_clip()
+            t._optimizer_step()
+    states = {k: t.model_state() for k, t in tr.items()}
+    out["zero_sharded_fraction"] = zero_sharded_fraction(
+        tr["zero"].optimizer)
+    out["zero_leaves"] = len(tr["zero"].zero_dims)
+    gap, leaf = worst_gap(leaf_gaps(states["zero"], states["dp"]))
+    out["zero_bitwise"] = all(torch.equal(states["zero"][n], v)
+                              for n, v in states["dp"].items())
+    out["zero_vs_dp"] = (gap, leaf)
+    del tr, states
+    if not gap <= 1e-6:
+        fail(f"[p14-c] ZeRO vs DP params: {leaf} {gap:.2e} > 1e-6")
+
+
+def p14_tp(rank, out, state):
+    """(d) TP {data: 1, model: 2} f32: grads against (b)'s one process;
+    the sharded leaves and each rank's parameter bytes against
+    ``make_param_specs``."""
+    import torch
+
+    from fmc_uia_tpu_torch.parallel import make_mesh, make_param_specs
+    from fmc_uia_tpu_torch.train import Trainer
+
+    b4, ref = state["b4"], state.get("ref", {})
+    tp = make_mesh(axes=("data", "model"), shape=(1, 2))
+    cfg, registry, model = p14_model(torch.float32)
+    specs = make_param_specs(model, min_shard_dim=int(
+        cfg.get("parallel.tp_min_dim", 256)))
+    want_tp = {n: [d for d, a in enumerate(s) if a == "model"][0]
+               for n, s in specs.items() if s}
+    params = dict(model.named_parameters())
+    want_tp = {n: d for n, d in want_tp.items()
+               if params[n].shape[d] % 2 == 0}
+    whole = sum(p.numel() * p.element_size() for p in params.values())
+    held = whole - sum(params[n].numel() * params[n].element_size() // 2
+                       for n in want_tp)
+    t = Trainer(cfg, model, registry, device="cuda", seed=0, mesh=tp)
+    if t.tp_dims != want_tp:
+        fail(f"[p14-d] sharded leaves {len(t.tp_dims)} != make_param_specs'"
+             f" {len(want_tp)}")
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if nbytes != held:
+        fail(f"[p14-d] rank {rank} holds {nbytes} parameter bytes, "
+             f"{held} expected")
+    worst, bad = {}, {}
+    for ty, b in b4.items():
+        t.compute_grads(b)
+        g = t.whole_grads()
+        if rank == 0:
+            gaps = leaf_gaps(g, ref[ty])
+            worst[ty] = worst_gap(gaps)
+            bad[ty] = over_own_noise(gaps, state["noise"][ty], 1e-3)
+    out["tp"] = dict(sharded_leaves=len(t.tp_dims), param_bytes=nbytes,
+                     whole_bytes=whole, worst=worst)
+    bad = {ty: v for ty, v in bad.items() if v}
+    if bad:
+        fail(f"[p14-d] TP leaves past their bound (gap, bound): {bad}")
+
+
+def p14_ep(rank, out, state):
+    """(e) EP: the submit preset with the ragged dispatch over {model: 2}
+    at zero-drop capacity: the forward against the dense dispatch (phase
+    9's bf16 rule), then one step and its all_to_all count."""
+    import torch
+
+    from fmc_uia_tpu_torch.parallel import activation_mesh_scope, comm
+    from fmc_uia_tpu_torch.parallel import make_mesh
+    from fmc_uia_tpu_torch.train import Trainer
+
+    ep = make_mesh(axes=("model",), shape=(2,))
+    moe = {"dispatch": "ragged", "capacity_factor": 4.0}
+    cfg, registry, rag = p14_model(torch.bfloat16, "submit", moe)
+    cfg.config["parallel"] = {"tensor_parallel": False}
+    _, _, dense = p14_model(torch.bfloat16, "submit")
+    rng = __import__("numpy").random.RandomState(3)
+    from fmc_uia_tpu_torch.ops.image import normalize_images
+
+    x = normalize_images(torch.from_numpy(rng.randint(
+        0, 256, (SUBMIT_BATCH, SUBMIT_IMAGE, SUBMIT_IMAGE, 3)).astype(
+            "uint8")), cfg.get("data.augmentation.normalize.mean"),
+        cfg.get("data.augmentation.normalize.std"))
+    errs = {}
+    E = int(cfg.get("model.moe.num_experts"))
+    for tid in ("T2A_fetal_abdomen", "T3A_breast_tumor", "T4A_fetal_brain",
+                "T5_fetal_femur"):
+        spec = registry[tid]
+        with activation_mesh_scope(ep):
+            _, errs[tid] = compare_models(rag, dense, x, spec, 0.1,
+                                          f"[p14-e] ragged vs dense {tid}")
+    del dense
+    comm.all_to_all_dim0.calls = 0
+    be = train_batches(registry, SUBMIT_BATCH, SUBMIT_IMAGE, seed=8)
+    t = Trainer(cfg, rag, registry, device="cuda", seed=0, mesh=ep)
+    logs = t.train_batch(be["segmentation"], 0)
+    torch.cuda.synchronize()
+    calls = comm.all_to_all_dim0.calls
+    blocks = len(rag.moe_stages)
+    if calls != 4 * blocks or not math.isfinite(float(logs["total_loss"])):
+        fail(f"[p14-e] all_to_all calls {calls} != 4 x {blocks} blocks "
+             f"(2 forward, 2 backward), loss {float(logs['total_loss'])}")
+    out["ep"] = dict(experts=E, fwd_errs=errs, all_to_all_calls=calls,
+                     loss=float(logs["total_loss"]))
+
+
+def p14_pipe(rank, world):
+    """(f): swin_b 512² stage 2 (9 pairs, C = 512, 32² grid) split 3 pairs
+    a rank over 3 gloo ranks, M = 8 microbatches of 3, f32."""
+    import numpy as np
+    import torch
+
+    from fmc_uia_tpu_torch.parallel import make_mesh, pipeline_swin_stage
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = make_mesh(axes=("pipe",), shape=(world,))
+    _, _, model = p14_model(torch.float32)
+    enc = model.encoder
+    rng = np.random.RandomState(4)
+    C = enc.embed_dim * 4
+    G = IMAGE // 16
+    x = torch.from_numpy(rng.standard_normal(
+        (P14_PIPE_B, G, G, C)).astype(np.float32)).cuda().requires_grad_()
+    cot = torch.from_numpy(rng.standard_normal(
+        (P14_PIPE_B, G, G, C)).astype(np.float32)).cuda()
+    zero_launches()
+    y = pipeline_swin_stage(enc, 2, x, mesh, microbatches=P14_PIPE_M)
+    torch.cuda.synchronize()
+    fwd = read_launches()
+    (y * cot).sum().backward()
+    torch.cuda.synchronize()
+    both = read_launches()
+    out = {"launches_fwd": fwd, "launches": both,
+           "dx_finite": bool(torch.isfinite(x.grad).all())}
+    if rank == 0:
+        with torch.no_grad():
+            ref = x.detach()
+            for b in range(enc.depths[2]):
+                ref = getattr(enc, f"stage2_block{b}")(ref, False)
+        top = float(ref.abs().max())
+        err = float((y.detach() - ref).abs().max())
+        out["fwd_err"], out["fwd_max"] = err, top
+        if not err <= 1e-5 * top:
+            fail(f"[p14-f] pipelined stage vs sequential: {err:.2e} > 1e-5 "
+                 f"x {top:.2e}")
+    if not out["dx_finite"]:
+        fail("[p14-f] the pipeline's input grad is not finite")
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def phase14(name, smi, report):
+    """The parallel modes (module docstring, phase 14). Returns the
+    kernels' launches of its main-path runs: (a)'s mesh run, each rank's
+    bf16 DP steps of (b), and each rank's pipelined stage of (f)."""
+    import torch
+
+    from fmc_uia_tpu_torch.parallel import comm, run_local
+
+    t14 = time.perf_counter()
+    rep = report["phase14"] = {}
+    secs = {}
+    errors = []  # every part runs; any failure fails the phase at its end
+    t0 = time.perf_counter()
+    try:
+        rep["a"] = p14_nccl_one(report, smi)
+    except (Exception, SystemExit) as e:
+        errors.append(f"(a) {e}")
+        log(f"[p14-a] FAILED {e}")
+        rep["a"] = {"launches": read_launches()}
+    secs["a"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g = run_local(p14_group, 2, backend="gloo", device="cuda", threads=4,
+                  timeout_s=P14_TIMEOUT_S)
+    secs["b-e"] = time.perf_counter() - t0
+    r0 = g[0]
+    rep["group"] = {k: v for k, v in r0.items()}
+    rep["group"]["dp_bf16_rank1"] = g[1].get("dp_bf16")
+    for r in g:
+        for e in r["errors"]:
+            errors.append(e)
+            log(f"[p14] FAILED {e}")
+
+    def report_part(part, fn):
+        """Log a part's numbers; a part that failed has none to log (its
+        error is already in ``errors``)."""
+        try:
+            fn()
+        except (KeyError, TypeError) as e:
+            errors.append(f"({part}) no numbers to report: {e!r}")
+
+    steps = 2 * 4
+    per = {"attention_branch": 24 * steps,
+           "attention_branch_backward": 24 * steps, "mlp_branch": 4 * steps,
+           "mlp_branch_backward": 4 * steps, "augment_normalize": steps}
+
+    def log_b():
+        for rank, r in enumerate(g):
+            got = r["dp_bf16"]["launches"]
+            if any(got[k] != v for k, v in per.items()):
+                errors.append(f"(b) rank {rank} bf16 launches {got} != "
+                              f"{per}")
+        log(f"[p14-b] DP, 2 gloo ranks on the card: f32 B={P14_B32} (2 a "
+            f"rank) summed grads vs one process, worst leaf gap / max by "
+            f"type { {k: (round(v[0], 8), v[1]) for k, v in r0['dp_f32_worst'].items()} }"
+            f" (one process vs itself with its weights moved by 1e-7: "
+            f"{ {k: (round(v[0], 8), v[1]) for k, v in r0['single_vs_single'].items()} })"
+            f"; bf16 B={TRAIN_BATCH} (12 a rank) 2 steps a type: losses "
+            f"{[round(v, 4) for v in r0['dp_bf16']['losses']]}, launches "
+            f"per rank {[r['dp_bf16']['launches'] for r in g]} ({steps} "
+            f"steps; {r0['dp_bf16']['s']:.1f} s, smoke timing) | {smi}")
+
+    def log_c():
+        log(f"[p14-c] ZeRO-1: params after 2 f32 steps on the same grads vs"
+            f" DP: bitwise {r0['zero_bitwise']}, worst "
+            f"{r0['zero_vs_dp'][0]:.2e} of the leaf max "
+            f"({r0['zero_vs_dp'][1]}); {r0['zero_leaves']} leaves sharded, "
+            f"zero_sharded_fraction {r0['zero_sharded_fraction']:.4f}")
+
+    def log_d():
+        log(f"[p14-d] TP {{data: 1, model: 2}} f32: "
+            f"{r0['tp']['sharded_leaves']} sharded leaves "
+            f"(make_param_specs'), parameter bytes per rank "
+            f"{[r['tp']['param_bytes'] for r in g]} of "
+            f"{r0['tp']['whole_bytes']}; grads vs one process, worst by type"
+            f" { {k: (round(v[0], 8), v[1]) for k, v in r0['tp']['worst'].items()} }")
+
+    def log_e():
+        log(f"[p14-e] EP, submit preset (E = {r0['ep']['experts']}, top-2, "
+            f"ragged, zero-drop capacity) on {{model: 2}}, B={SUBMIT_BATCH} "
+            f"(32 a rank): forward vs dense, err by task "
+            f"{r0['ep']['fwd_errs']}; one step: loss {r0['ep']['loss']:.4f},"
+            f" all_to_all calls {r0['ep']['all_to_all_calls']} a rank; gloo"
+            f" host copies {r0['gloo_host_ops']}; seconds {r0['seconds']}")
+
+    for part, fn in (("b", log_b), ("c", log_c), ("d", log_d),
+                     ("e", log_e)):
+        report_part(part, fn)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p = run_local(p14_pipe, 3, backend="gloo", device="cuda", threads=2,
+                  timeout_s=P14_TIMEOUT_S)
+    secs["f"] = time.perf_counter() - t0
+    rep["pipe"] = p
+    log(f"[p14-f] pipeline, 3 gloo ranks: swin_b stage 2 (18 blocks, 6 a "
+        f"rank), B={P14_PIPE_B} as {P14_PIPE_M} microbatches: forward vs "
+        f"sequential {p[0]['fwd_err']:.2e} of {p[0]['fwd_max']:.2e}; "
+        f"launches per rank (forward; forward + backward) "
+        f"{[(r['launches_fwd']['attention_branch'], r['launches']['attention_branch_backward']) for r in p]}"
+        f"; {p[0]['s']:.1f} s | {smi}")
+    for rank, r in enumerate(p):
+        want = 6 * P14_PIPE_M
+        if (r["launches"]["attention_branch"] != want
+                or r["launches"]["attention_branch_backward"] != want):
+            errors.append(f"(f) rank {rank} launches {r['launches']} != "
+                          f"{want} K1f and K1b")
+    rep["seconds"] = secs
+    rep["total_s"] = time.perf_counter() - t14
+    if errors:
+        fail("; ".join(errors))
+    launches = {c.__name__: {"a": rep["a"]["launches"][c.__name__],
+                             "b_rank": [r["dp_bf16"]["launches"][
+                                 c.__name__] for r in g],
+                             "f_rank": [r["launches"][c.__name__]
+                                        for r in p]}
+                for c in all_kernels()}
+    log(f"[phase14] {rep['total_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"); the multi-rank times share one card: smoke timings, not a "
+          f"parallel speed")
+    del comm
+    return launches
+
+
+def phase14_main() -> int:
+    """``--phase14``: the kernels' build and phase 14 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from fmc_uia_tpu_torch.ops import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    report = {}
+    smi = nvidia_smi_line()
+    launches = phase14(torch.cuda.get_device_name(0), smi, report)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_phase14.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(json.dumps({"phase14_s": report["phase14"]["total_s"],
+                      "launches": launches, "card": smi}))
+    return 0
+
+
 def kinks_main() -> int:
     """``--kinks``: what each kind of kink explains in the SPM preset's
     grad check (phase 10c): the check's pair and batches, the card's step
@@ -4825,6 +5573,8 @@ def main() -> int:
         return phase12_main()
     if sys.argv[1:] == ["--phase13"]:
         return phase13_main()
+    if sys.argv[1:] == ["--phase14"]:
+        return phase14_main()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; nothing to drive",
               file=sys.stderr)
@@ -5064,6 +5814,9 @@ def main() -> int:
     # -- 13. the other encoders and the unfused Swin attention ---------------
     torch.cuda.empty_cache()
     phase13_launches = phase13(name, smi, report)
+    # -- 14. the parallel modes ---------------------------------------------
+    torch.cuda.empty_cache()
+    phase14_launches = phase14(name, smi, report)
 
     # -- kernels line ----------------------------------------------------------
     def entry(kname, source, replaces, count):
@@ -5156,10 +5909,11 @@ def main() -> int:
         e["launches_phase11"] = phase11_launches[e["name"]]
         e["launches_phase12"] = phase12_launches[e["name"]]
         e["launches_phase13"] = phase13_launches[e["name"]]
+        e["launches_phase14"] = phase14_launches[e["name"]]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump(report, f, indent=1)
+        json.dump(report, f, indent=1, default=str)
     log(f"[done] {report['total_s']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,6 +1,11 @@
 """CLI: ``python -m fmc_uia_tpu_torch --config <yaml> [--resume]
 [--device cuda|cpu]`` (the port of ``python -m fmc_uia_tpu``). Reading a
-YAML file needs PyYAML; nothing else of the training path does."""
+YAML file needs PyYAML; nothing else of the training path does.
+
+Several ranks: ``torchrun --nproc_per_node N -m fmc_uia_tpu_torch --config
+<yaml> [--device cpu]``, with ``parallel.mesh`` in the config (data
+parallel over every rank without it); ``fit`` reads torchrun's
+environment."""
 
 import argparse
 

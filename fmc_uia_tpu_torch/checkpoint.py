@@ -16,6 +16,11 @@ checkpoints:
 
 Loading uses ``torch.load(weights_only=True)``: tensors, numbers, strings
 and containers only.
+
+Under a mesh the files hold the single process's format: the Trainer
+gathers its tensor-parallel shards and ZeRO slices (every rank takes part),
+rank 0 writes, and every rank reads and keeps its own part; so a
+checkpoint written by W ranks resumes on 1 and the other way round.
 """
 
 from __future__ import annotations
@@ -26,13 +31,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from fmc_uia_tpu_torch.parallel.distributed import is_main_process
+
 
 def train_state(trainer) -> Dict:
     """Everything a resumed run needs to continue exactly."""
     return {
-        "model": trainer.model.state_dict(),
-        "optimizer": trainer.optimizer.state_dict(),
-        "grad_accum": trainer.grad_accum,
+        "model": trainer.model_state(),
+        "optimizer": trainer.optimizer_state(),
+        "grad_accum": trainer.accum_state(),
         "adaptive": (None if trainer.adaptive is None
                      else {k: v.detach() for k, v in
                            trainer.adaptive.items()}),
@@ -45,14 +52,14 @@ def train_state(trainer) -> Dict:
 @torch.no_grad()
 def load_train_state(trainer, state: Dict) -> None:
     """Restore ``train_state`` into a Trainer built like the saved one."""
-    trainer.model.load_state_dict(state["model"])
-    trainer.optimizer.load_state_dict(state["optimizer"])
+    trainer.load_model_state(state["model"])
+    trainer.load_optimizer_state(state["optimizer"])
     acc = state.get("grad_accum")
     if (trainer.grad_accum is None) != (acc is None):
         raise ValueError("gradient accumulation on/off differs from the "
                          "checkpoint")
     if acc is not None:
-        torch._foreach_copy_(trainer.grad_accum, acc)
+        trainer.load_accum_state(acc)
     if (trainer.adaptive is None) != (state["adaptive"] is None):
         raise ValueError("adaptive loss on/off differs from the checkpoint")
     if trainer.adaptive is not None:
@@ -65,10 +72,14 @@ def load_train_state(trainer, state: Dict) -> None:
 
 def save_checkpoint(ckpt_dir, trainer, epoch: int, best_score: float,
                     config_dict: Dict) -> Path:
-    """Full-train-state checkpoint after ``epoch`` completed epochs."""
+    """Full-train-state checkpoint after ``epoch`` completed epochs
+    (every rank calls it; rank 0 writes)."""
     ckpt_dir = Path(ckpt_dir).resolve()
     path = ckpt_dir / f"checkpoint_epoch_{epoch}.pt"
-    torch.save(train_state(trainer), path)
+    state = train_state(trainer)
+    if not is_main_process():
+        return path
+    torch.save(state, path)
     with open(ckpt_dir / f"checkpoint_epoch_{epoch}.meta.json", "w") as f:
         json.dump({"epoch": int(epoch), "best_score": float(best_score)}, f)
     with open(ckpt_dir / f"checkpoint_epoch_{epoch}.config.yaml", "w") as f:
@@ -104,9 +115,13 @@ def restore_checkpoint(path, trainer) -> None:
 
 
 def save_best_params(ckpt_dir, model) -> Path:
-    """The model's state dict (the reference's best_model.pth)."""
+    """The model's state dict (the reference's best_model.pth); ``model``
+    is a module or a state dict (``Trainer.model_state()`` under a mesh).
+    Only rank 0 writes."""
     path = Path(ckpt_dir).resolve() / "best_model.pt"
-    torch.save(model.state_dict(), path)
+    if is_main_process():
+        torch.save(model.state_dict() if hasattr(model, "state_dict")
+                   else model, path)
     return path
 
 

@@ -8,6 +8,11 @@ the batch size with a ``valid`` mask. The decode, inflate and resize calls
 release the GIL (``image_io``), so the pool's threads run in parallel.
 With ``data.device_cache`` the rows a device cache covers are gathered on
 the card instead (``data/device_cache.py``).
+
+Under a mesh every rank builds the same sampler from the same seed and
+decodes only its own rows of each global batch (``mesh.batch_rows``; a
+padded final eval chunk is split after padding); the batch carries
+``rows`` = (start, stop, global rows).
 """
 
 from __future__ import annotations
@@ -26,10 +31,8 @@ from fmc_uia_tpu_torch.data.device_cache import (
     build_device_cache,
 )
 from fmc_uia_tpu_torch.data.sampler import MultiTaskUniformSampler
+from fmc_uia_tpu_torch.parallel.mesh import batch_rows, check_mesh
 from fmc_uia_tpu_torch.tasks import TaskRegistry
-
-_ITEM = ("{what} is not ported to fmc_uia_tpu_torch yet (ROADMAP.md, port "
-         "queue item '{item}')")
 
 
 def split_train_val(task_ids: Sequence[str], val_split: float, seed: int
@@ -116,6 +119,7 @@ class DataEngine:
         self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
         self.put_fn = None
         self.device_cache = None
+        self.mesh = None  # set: this rank's rows of each batch only
         self.stats: Dict[str, float] = {}
 
     def __len__(self) -> int:
@@ -159,10 +163,26 @@ class DataEngine:
             # pad the final chunk to the fixed batch size (repeat the last
             # row): every batch has one shape
             rows = rows + [rows[-1]] * (self.batch_size - n_valid)
+        if self.mesh is not None:
+            return self._load_rows(rows, n_valid)
         if self.device_cache is not None and self.device_cache.covers(rows):
             return self.device_cache.get_batch(rows, n_valid=n_valid)
         samples = list(self._pool.map(self.dataset.__getitem__, rows))
         return _collate(samples, self.registry, n_valid=n_valid)
+
+    def _load_rows(self, rows: List[int], n_valid: int) -> Dict:
+        """This rank's rows of the global batch ``rows``."""
+        span = batch_rows(len(rows), self.mesh)
+        start, stop, total = span
+        if self.device_cache is not None and self.device_cache.covers(rows):
+            return self.device_cache.get_batch(rows, n_valid=n_valid,
+                                               span=span)
+        samples = list(self._pool.map(self.dataset.__getitem__,
+                                      rows[start:stop]))
+        batch = _collate(samples, self.registry)
+        batch["valid"] = (np.arange(total) < n_valid)[start:stop]
+        batch["rows"] = span
+        return batch
 
     def _produce(self, rows: List[int]) -> Dict:
         t0 = time.perf_counter()
@@ -235,10 +255,12 @@ def build_data_engines(config, registry: Optional[TaskRegistry] = None,
     """Train/val engines from the config, with the single-task filter and
     the dataset-derived task list written into the config. With
     ``data.device_cache`` both engines share one ``DeviceDatasetCache`` on
-    ``device`` (budget ``data.device_cache_budget_mb``, default 4096)."""
+    ``device`` (budget ``data.device_cache_budget_mb``, default 4096).
+    Under ``mesh`` (a DeviceMesh) each engine yields this rank's rows of
+    every global batch, and the cache's banks are sharded over the batch
+    axes."""
     if mesh is not None:
-        raise NotImplementedError(_ITEM.format(
-            what="data-parallel meshes", item="Parallel modes"))
+        check_mesh(mesh)
     dataset = MultiTaskDataset(
         config.data_root, image_size=config.image_size,
         force_grayscale=bool(config.get("data.force_grayscale", False)),
@@ -311,12 +333,13 @@ def build_data_engines(config, registry: Optional[TaskRegistry] = None,
         shuffle_sampler=None, num_workers=config.num_workers,
         drop_last=False,
     )
+    train_engine.mesh = val_engine.mesh = mesh
     if bool(config.get("data.device_cache", False)):
         budget = int(config.get("data.device_cache_budget_mb", 4096))
         cache = build_device_cache(dataset, list(train_idx) + list(val_idx),
                                    registry, budget * (1 << 20),
                                    device=device,
-                                   workers=config.num_workers)
+                                   workers=config.num_workers, mesh=mesh)
         if cache is not None:
             train_engine.device_cache = cache
             val_engine.device_cache = cache

@@ -28,16 +28,30 @@ Differences from the JAX package:
 - With ``data.device_cache`` the data engines gather the batches on the
   card from banks staged once (``data/device_cache.py``); the best-model
   evaluation on the train split reads the same banks.
-- Not ported, raising (ROADMAP.md): device meshes.
+- Meshes (``parallel.mesh``, or ``mesh=``): ``fit`` joins the process
+  group (``init_distributed``: torchrun's environment or
+  ``parallel.distributed``) and builds the mesh (``mesh_from_config``),
+  as the JAX fit does; several processes without ``parallel.mesh`` train
+  data parallel over all of them. Every rank decodes its rows of each
+  batch, trains and evaluates on them (the tables equal the single
+  process's); logging, plots, history and checkpoint files are rank 0's
+  (checkpoints in the single-process format), every rank reads them, and
+  a SIGTERM on any rank stops every rank at the same batch boundary (one
+  batch later: the ranks' vote is read a batch after it starts).
+  Ranks other than 0 print nothing.
 
-CLI: ``python -m fmc_uia_tpu_torch --config <yaml> [--resume] [--device]``.
+CLI: ``python -m fmc_uia_tpu_torch --config <yaml> [--resume] [--device]``
+(``torchrun --nproc_per_node N -m fmc_uia_tpu_torch ...`` for N ranks).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import signal
 import time
 from collections import defaultdict
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -54,7 +68,14 @@ from fmc_uia_tpu_torch.metrics import (
 )
 from fmc_uia_tpu_torch.models import build_model
 from fmc_uia_tpu_torch.ops.image import input_prep_fns
-from fmc_uia_tpu_torch.train import _NOT_PORTED, Trainer
+from fmc_uia_tpu_torch.parallel import comm
+from fmc_uia_tpu_torch.parallel.distributed import (
+    init_distributed,
+    is_main_process,
+    mesh_from_config,
+)
+from fmc_uia_tpu_torch.parallel.mesh import check_mesh
+from fmc_uia_tpu_torch.train import Trainer
 from fmc_uia_tpu_torch.utils.common import count_parameters, set_seed
 from fmc_uia_tpu_torch.utils.convert import load_pretrained_into
 from fmc_uia_tpu_torch.utils.logger import (
@@ -63,6 +84,30 @@ from fmc_uia_tpu_torch.utils.logger import (
     plot_training_curves,
 )
 from fmc_uia_tpu_torch.utils.profiling import ProfileTrace, StepTimer
+
+class _RankLogger:
+    """The logger of a rank other than 0: the experiment dir, no files."""
+
+    def __init__(self, experiment_dir):
+        self.experiment_dir = Path(experiment_dir)
+
+    def get_experiment_dir(self) -> Path:
+        return self.experiment_dir
+
+    def save_config(self, *args, **kwargs) -> None:
+        pass
+
+    truncate_history = log_epoch = save_final_summary = save_config
+    save_best_model_summary = save_config
+
+
+def _world():
+    """The default process group when several ranks run, else None."""
+    if not torch.distributed.is_initialized() or \
+            torch.distributed.get_world_size() == 1:
+        return None
+    return torch.distributed.group.WORLD
+
 
 class _PreemptionGuard:
     """Preemption-safe training: set a flag on SIGTERM, act at a safe point.
@@ -221,20 +266,40 @@ def fit(config_path: Optional[str] = None, config=None,
     dev = resolve_device(device)
     if config is None:
         config = Config(config_path)
-    if mesh is not None or config.get("parallel.mesh"):
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="device meshes (parallel.mesh)", item="Parallel modes"))
+    if mesh is not None:
+        check_mesh(mesh)
+    else:
+        init_distributed(config, dev)
+        if _world() is not None and not config.get("parallel.mesh"):
+            print("[parallel] several processes and no parallel.mesh: data "
+                  "parallel over all of them ({data: -1})")
+            config.config.setdefault("parallel", {})["mesh"] = {"data": -1}
+        mesh = mesh_from_config(config, dev)
+    if is_main_process():
+        return _fit(config, resume, dev, mesh)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return _fit(config, resume, dev, mesh)
+
+
+def _fit(config, resume: bool, dev, mesh) -> Dict:
+    main, world = is_main_process(), _world()
     set_seed(config.seed)
 
-    # --resume continues the checkpoint's own experiment dir
-    resume_found = (ckpt_lib.latest_checkpoint(config.output_dir)
-                    if resume else None)
-    logger = TrainingLogger(
-        config.output_dir, config.exp_name,
-        existing_dir=resume_found[0].parent if resume_found else None)
+    # --resume continues the checkpoint's own experiment dir (rank 0's
+    # view of the disk, shared with every rank)
+    resume_found = comm.broadcast_object(
+        ckpt_lib.latest_checkpoint(config.output_dir)
+        if resume and main else None, world)
+    existing = resume_found[0].parent if resume_found else None
+    logger = (TrainingLogger(config.output_dir, config.exp_name,
+                             existing_dir=existing) if main else None)
+    exp_dir = comm.broadcast_object(
+        str(logger.get_experiment_dir()) if main else None, world)
+    if not main:
+        logger = _RankLogger(exp_dir)
 
-    train_engine, val_engine, registry = build_data_engines(config,
-                                                            device=dev)
+    train_engine, val_engine, registry = build_data_engines(
+        config, device=dev, mesh=mesh)
     # the snapshot holds the dataset-derived task list
     logger.save_config(config.config)
     model = build_model(config, registry, device=dev)
@@ -251,7 +316,7 @@ def fit(config_path: Optional[str] = None, config=None,
               "egress — set it to a local checkpoint path instead. "
               "Training from scratch.")
 
-    trainer = Trainer(config, model, registry, device=dev)
+    trainer = Trainer(config, model, registry, device=dev, mesh=mesh)
     train_engine.put_fn = trainer.put_batch
 
     mean = config.get("data.augmentation.normalize.mean")
@@ -282,6 +347,12 @@ def fit(config_path: Optional[str] = None, config=None,
     timer = StepTimer()
     guard = _PreemptionGuard(bool(config.get(
         "experiment.preemption_checkpoint", True)))
+
+    vote = comm.StopVote(world)
+
+    def stopping() -> bool:  # the same answer on every rank
+        return vote(guard.requested)
+
     epoch_stats, eval_batches = [], 0
 
     print(f"\n{'=' * 80}")
@@ -299,9 +370,9 @@ def fit(config_path: Optional[str] = None, config=None,
             print("-" * 80)
             epoch_losses, moe_stats, loop = _train_epoch(
                 trainer, train_engine, epoch, print_freq, profiler=profiler,
-                timer=timer, stop=lambda: guard.requested)
+                timer=timer, stop=stopping)
             epoch_stats.append({"epoch": epoch + 1, **loop})
-            if guard.requested:
+            if stopping():
                 # the completed-epoch count: --resume redoes this epoch
                 ckpt_lib.save_checkpoint(ckpt_dir, trainer, epoch,
                                          best_val_score, config.config)
@@ -338,7 +409,7 @@ def fit(config_path: Optional[str] = None, config=None,
             if run_val:
                 print("\nRunning validation...")
                 val_rows = evaluate(model, val_engine, registry, mean, std,
-                                    prep=eval_prep, device=dev)
+                                    prep=eval_prep, device=dev, mesh=mesh)
                 eval_batches += val_engine.stats["batches"]
                 avg_val_score = average_validation_score(val_rows)
                 print(f"\n--- Epoch {epoch + 1} Validation Report ---")
@@ -358,7 +429,7 @@ def fit(config_path: Optional[str] = None, config=None,
             if avg_val_score > best_val_score:
                 best_val_score = avg_val_score
                 best_epoch = epoch + 1
-                ckpt_lib.save_best_params(ckpt_dir, model)
+                ckpt_lib.save_best_params(ckpt_dir, trainer.model_state())
             # skip epochs carry no validation signal for plateau mode
             trainer.scheduler.step(avg_val_score if run_val else None)
             if save_ckpts and (epoch + 1) % ckpt_freq == 0:
@@ -370,16 +441,20 @@ def fit(config_path: Optional[str] = None, config=None,
 
         # best-model evaluation on the TRAIN split
         best_eval = None
+        if world is not None:
+            torch.distributed.barrier()  # rank 0's files are complete
         if (ckpt_dir / "best_model.pt").exists():
-            model.load_state_dict(ckpt_lib.load_best_params(ckpt_dir, dev))
+            trainer.load_model_state(ckpt_lib.load_best_params(ckpt_dir,
+                                                               dev))
             train_eval_engine = DataEngine(
                 train_engine.dataset, train_engine.indices, registry,
                 config.batch_size, shuffle_sampler=None,
                 num_workers=config.num_workers, drop_last=False)
             train_eval_engine.device_cache = train_engine.device_cache
+            train_eval_engine.mesh = mesh
             try:
                 rows = evaluate(model, train_eval_engine, registry, mean,
-                                std, prep=eval_prep, device=dev)
+                                std, prep=eval_prep, device=dev, mesh=mesh)
             finally:
                 train_eval_engine.close()
             eval_batches += train_eval_engine.stats["batches"]
@@ -395,10 +470,13 @@ def fit(config_path: Optional[str] = None, config=None,
         val_engine.close()
 
     try:
-        plot_training_curves(ckpt_dir)
-        plot_comprehensive_training_curves(ckpt_dir)
+        if main:
+            plot_training_curves(ckpt_dir)
+            plot_comprehensive_training_curves(ckpt_dir)
     except Exception as e:  # matplotlib absent, say: the fit has finished
         print(f"Could not generate training curves plot: {e}")
+    if world is not None:
+        torch.distributed.barrier()
     print(f"\nTraining complete. Best score {best_val_score:.4f} "
           f"(epoch {best_epoch}). Logs: {ckpt_dir}")
     return {

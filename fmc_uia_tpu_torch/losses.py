@@ -6,7 +6,11 @@ boxes), MSE / L1 / SmoothL1 with masked columns, binary focal and GIoU
 Kendall-style adaptive weighting.
 
 Pure functions of (predictions, targets[, class/column counts]) returning
-f32 scalars. Banked heads pad logits to the type's largest class count;
+f32 scalars. Under a mesh (``parallel/comm.py`` ``batch_scope``) every
+reduction that spans the batch is global: each numerator and denominator
+is summed over the data ranks before the division (the backward passing
+the gradient through), so every rank holds the single process's loss;
+outside a scope the sums are the identity. Banked heads pad logits to the type's largest class count;
 classes past a task's count are set to -1e30 before the softmax, and
 regression columns past ``2 * points`` are left out of the mean.
 """
@@ -17,6 +21,8 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+from fmc_uia_tpu_torch.parallel.comm import global_count, global_mean, global_sum
 
 _NEG = -1e30
 
@@ -40,11 +46,12 @@ def dice_loss_multiclass(logits: torch.Tensor, targets: torch.Tensor,
     probs = torch.softmax(x, dim=-1)
     onehot = F.one_hot(targets.long(), C).float()
     dims = (0, 1, 2)
-    inter = (probs * onehot).sum(dims)
-    card = (probs + onehot).sum(dims)
+    inter, card, count = global_sum(torch.stack([
+        (probs * onehot).sum(dims), (probs + onehot).sum(dims),
+        onehot.sum(dims)]))
     dice = (2.0 * inter + smooth) / torch.clamp(card + smooth, min=eps)
     loss = 1.0 - dice
-    keep = (onehot.sum(dims) > 0) & valid
+    keep = (count > 0) & valid
     loss = torch.where(keep, loss, torch.zeros_like(loss))
     return loss.sum() / torch.clamp(valid.float().sum(), min=1.0)
 
@@ -57,7 +64,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     valid = _valid_classes(C, num_valid_classes, logits.device)
     logp = torch.log_softmax(torch.where(valid, logits.float(), _NEG), -1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    return nll.mean()
+    return global_mean(nll)
 
 
 def centernet_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -72,10 +79,11 @@ def centernet_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     pos_loss = -torch.log(pred) * torch.pow(1.0 - pred, alpha) * pos
     neg_loss = (-torch.log(1.0 - pred) * torch.pow(pred, alpha)
                 * torch.pow(1.0 - t, beta) * neg)
-    num_pos = pos.sum()
-    total = pos_loss.sum() + neg_loss.sum()
+    num_pos, pos_sum, neg_sum = global_sum(torch.stack([
+        pos.sum(), pos_loss.sum(), neg_loss.sum()]))
+    total = pos_sum + neg_sum
     return torch.where(num_pos > 0, total / torch.clamp(num_pos, min=1.0),
-                       neg_loss.sum())
+                       neg_sum)
 
 
 def centernet_loss(predictions: Dict[str, torch.Tensor],
@@ -87,17 +95,21 @@ def centernet_loss(predictions: Dict[str, torch.Tensor],
     hm = centernet_focal_loss(predictions["heatmap"], targets["heatmap"],
                               alpha=heatmap_alpha, beta=heatmap_gamma)
     mask = targets["mask"].float()
-    msum = mask.sum()
-    denom = msum + 1e-6
     zero = torch.zeros((), device=mask.device)
 
-    def masked_l1(key):
+    def l1_sum(key):
         p, t = predictions[key].float(), targets[key].float()
-        l1 = (p * mask - t * mask).abs().sum() / denom
-        return torch.where(msum > 0, l1, zero)
+        return (p * mask - t * mask).abs().sum()
 
-    return (hm + size_weight * masked_l1("size")
-            + offset_weight * masked_l1("offset"))
+    msum, size_sum, offset_sum = global_sum(torch.stack([
+        mask.sum(), l1_sum("size"), l1_sum("offset")]))
+    denom = msum + 1e-6
+
+    def masked_l1(total):
+        return torch.where(msum > 0, total / denom, zero)
+
+    return (hm + size_weight * masked_l1(size_sum)
+            + offset_weight * masked_l1(offset_sum))
 
 
 def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -155,13 +167,14 @@ def detection_grid_loss(predictions: torch.Tensor, targets: torch.Tensor,
     none."""
     pb, po = predictions[:, :4].float(), predictions[:, 4].float()
     tb, to = targets[:, :4].float(), targets[:, 4].float()
-    cls = (torch.clamp_min(po, 0.0) - po * to
-           + torch.log1p(torch.exp(-po.abs()))).mean()
+    bce = (torch.clamp_min(po, 0.0) - po * to
+           + torch.log1p(torch.exp(-po.abs())))
     pos = (to > 0.5).float()[:, None]
-    n_pos = pos.sum() * 4.0
-    box = torch.where(n_pos > 0,
-                      (smooth_l1(pb - tb) * pos).sum()
-                      / torch.clamp_min(n_pos, 1.0),
+    cls = global_mean(bce)
+    n_pos, box_sum = global_sum(torch.stack([
+        pos.sum(), (smooth_l1(pb - tb) * pos).sum()]))
+    n_pos = n_pos * 4.0
+    box = torch.where(n_pos > 0, box_sum / torch.clamp_min(n_pos, 1.0),
                       torch.zeros((), device=pos.device))
     return classification_weight * cls + box_regression_weight * box
 
@@ -170,12 +183,13 @@ def _masked_col_mean(per: torch.Tensor, num_valid_cols) -> torch.Tensor:
     """Mean over the first ``num_valid_cols`` columns (all when None):
     sum over those / (rows * max(num_valid_cols, 1))."""
     if num_valid_cols is None:
-        return per.mean()
+        return global_mean(per)
     D = per.shape[-1]
     n = torch.as_tensor(num_valid_cols, device=per.device)
     mask = (torch.arange(D, device=per.device) < n).float()
-    return (per * mask).sum() / (per.shape[0]
-                                 * torch.clamp(n.float(), min=1.0))
+    rows = global_count(per.shape[0], per.shape[0])
+    return global_sum((per * mask).sum()) / (
+        rows * torch.clamp(n.float(), min=1.0))
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor,

@@ -12,17 +12,27 @@ Name"``, metric columns) where the JAX package returns a DataFrame.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from collections import defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.nn.utils import parametrize
 
 from fmc_uia_tpu_torch.device import resolve_device
 from fmc_uia_tpu_torch.models.layers import take
 from fmc_uia_tpu_torch.ops.centernet import decode_detection
 from fmc_uia_tpu_torch.ops.image import normalize_images
+from fmc_uia_tpu_torch.parallel import comm
+from fmc_uia_tpu_torch.parallel.activation import activation_mesh_scope
+from fmc_uia_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    axis_group,
+    check_mesh,
+    shard_batch,
+)
 from fmc_uia_tpu_torch.tasks import (
     CLASSIFICATION,
     DETECTION,
@@ -129,9 +139,21 @@ def macro_f1_host(y_true: np.ndarray, y_pred: np.ndarray) -> float:
 # ---------------------------------------------------------------------------
 # evaluation loop
 # ---------------------------------------------------------------------------
-def make_eval_steps(model, registry: TaskRegistry, mean, std, prep=None):
+def _gather_rows(out, group):
+    """Every rank's rows of a model output (a tensor, tuple or dict)."""
+    if isinstance(out, dict):
+        return {k: _gather_rows(v, group) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(_gather_rows(v, group) for v in out)
+    return comm.all_gather_dim(out, 0, group)
+
+
+def make_eval_steps(model, registry: TaskRegistry, mean, std, prep=None,
+                    group=None):
     """One eval function per task type: prep (default: normalize to f32)
-    -> forward in eval mode -> per-batch statistics on the device."""
+    -> forward in eval mode -> per-batch statistics on the device. With
+    ``group`` each rank forwards its rows and the outputs are gathered
+    over it, so the statistics are the whole batch's."""
     dev = next(model.parameters()).device
     nc_table = torch.as_tensor(registry.num_classes_table, dtype=torch.long,
                                device=dev)
@@ -143,7 +165,8 @@ def make_eval_steps(model, registry: TaskRegistry, mean, std, prep=None):
             return normalize_images(images, *stats, dtype=torch.float32)
 
     def forward(images, task_type, task_index):
-        return model(prep(images), task_type, task_index, train=False)
+        out = model(prep(images), task_type, task_index, train=False)
+        return out if group is None else _gather_rows(out, group)
 
     def seg_step(images, labels, task_index, valid):
         out = forward(images, SEGMENTATION, task_index)
@@ -189,32 +212,58 @@ def _to_device(v, dev: torch.device) -> torch.Tensor:
 
 @torch.no_grad()
 def evaluate(model, val_engine, registry: TaskRegistry, mean, std,
-             prep=None, device="cuda") -> List[Dict]:
+             prep=None, device="cuda", mesh=None) -> List[Dict]:
     """Validation loop -> one row per task: ``{"Task ID", "Task Name",
     metric: mean over the task's batches}``, tasks in sorted order.
     ``model`` must be on ``device``; it runs in eval mode (``train=False``:
     no drop path or dropout). Batches are
     dispatched first and their statistics read back in bulk at the end
-    (with a wait every 32 batches, bounding the inputs in flight)."""
+    (with a wait every 32 batches, bounding the inputs in flight).
+
+    Under ``mesh`` each rank forwards its rows of every batch (the
+    engine's, or its slice of a whole batch) inside the mesh's scope; the
+    outputs, labels and masks are gathered over the batch axes, so every
+    rank's table is the single process's."""
+    group = None
+    if mesh is not None:
+        check_mesh(mesh)
+        group = axis_group(mesh, BATCH_AXES)
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            stack.enter_context(activation_mesh_scope(mesh))
+            stack.enter_context(parametrize.cached())
+        return _evaluate(model, val_engine, registry, mean, std, prep,
+                         device, mesh, group)
+
+
+def _evaluate(model, val_engine, registry, mean, std, prep, device, mesh,
+              group) -> List[Dict]:
     dev = resolve_device(device)
     p0 = next(model.parameters())
     if p0.device.type != dev.type:
         raise ValueError(f"model is on {p0.device}, evaluate on {dev}")
     dev = p0.device
-    steps = make_eval_steps(model, registry, mean, std, prep=prep)
+    steps = make_eval_steps(model, registry, mean, std, prep=prep,
+                            group=group)
     task_index = {}
     pending = []  # (tid, ttype, valid_np, device stats)
     for batch in val_engine:
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
         images = _to_device(batch["image"], dev)
         labels = _to_device(batch["label"], dev)
         if labels.dtype == torch.uint8:  # wire-narrowed seg masks
             labels = labels.long()
+        if group is not None:
+            labels = comm.all_gather_dim(labels, 0, group)
         tid = batch["task_id"]
         if tid not in task_index:
             task_index[tid] = torch.tensor(int(batch["task_index"]),
                                            dtype=torch.long, device=dev)
         valid_np = np.asarray(batch.get(
             "valid", np.ones((images.shape[0],), bool)))
+        if group is not None:
+            valid_np = np.concatenate(comm.gather_objects(valid_np, group))
         stats = steps[batch["task_type"]](images, labels, task_index[tid],
                                           _to_device(valid_np, dev))
         pending.append((tid, batch["task_type"], valid_np, stats))

@@ -8,9 +8,13 @@
     class-count tag, task-id tokens; sorted vocabularies) -> linear ->
     a low-res prompt -> tanh -> bilinear resize to the input -> times
     ``prompt_scale`` -> added to or multiplied into the input.
-  * ``MoEConvBlock``, dense dispatch (per-sample routing over conv
-    experts). The ragged expert-parallel dispatch raises and names its
-    ROADMAP item.
+  * ``MoEConvBlock``: per-sample routing over conv experts, dense (every
+    expert on every sample) or ragged (``parallel/expert.py``: the
+    experts split over the mesh's expert axis, tokens dispatched with
+    ``all_to_all``); ``auto`` picks as ``pick_dispatch_mode`` does. The
+    mesh is the one a Trainer or an evaluation installs around its steps
+    (``parallel/activation.py``), so the dispatch is a pure execution
+    choice: the parameters are the same grouped layouts either way.
 """
 
 from __future__ import annotations
@@ -29,15 +33,20 @@ from fmc_uia_tpu_torch.models.encoders.adapters import (
 from fmc_uia_tpu_torch.models.layers import (
     Conv,
     Dense,
+    apply_dropout,
+    conv_nhwc,
     dropout,
+    keep_mask,
     resize_to,
     take,
 )
+from fmc_uia_tpu_torch.parallel import comm
+from fmc_uia_tpu_torch.parallel.activation import activation_mesh
+from fmc_uia_tpu_torch.parallel.expert import ragged_moe_apply
+from fmc_uia_tpu_torch.parallel.mesh import axis_size
+from fmc_uia_tpu_torch.parallel.sharding import tp_shard
 
-_RAGGED = ("model.moe.dispatch 'ragged' (expert-parallel all_to_all "
-           "dispatch) needs an expert-parallel device mesh: not ported to "
-           "fmc_uia_tpu_torch yet (ROADMAP.md, port queue 1 item 9, "
-           "'Parallel modes')")
+_DISPATCH_MODES = ("dense", "ragged", "auto")
 # the profiler range of an MoE block's forward (chip_smoke.py reads it)
 MOE_RANGE = "moe_block"
 
@@ -243,6 +252,23 @@ def build_task_prompt(config, task_configs) -> Optional[TaskPrompt2D]:
 # --------------------------------------------------------------------------
 # MoE
 # --------------------------------------------------------------------------
+def pick_dispatch_mode(num_experts: int, top_k: int, ep_mesh,
+                       ep_axis: str) -> str:
+    """``model.moe.dispatch: auto`` resolved, as the JAX rule: ragged only
+    when the experts are really distributed (an EP mesh with more than
+    one rank on ``ep_axis``, E dividing it) and E is large (>= max(32,
+    8 top_k)); dense otherwise (the E-fold dense compute is cheaper than
+    the dispatch at a few conv experts)."""
+    if ep_mesh is None or ep_axis not in (ep_mesh.mesh_dim_names or ()):
+        return "dense"
+    size = axis_size(ep_mesh, ep_axis)
+    if size <= 1 or num_experts % size:
+        return "dense"
+    if num_experts >= max(32, 8 * max(1, top_k)):
+        return "ragged"
+    return "dense"
+
+
 def top_k_dispatch(probs: torch.Tensor, k: int) -> torch.Tensor:
     """The 0/1 mask [B, E] of each row's ``k`` largest probabilities, a
     tie going to the lower expert index as ``jax.lax.top_k`` breaks it
@@ -268,8 +294,14 @@ class MoEConvBlock(nn.Module):
 
     ``forward`` returns ``(out, aux, {"importance", "load"})``: the
     balance loss ``E · Σ importance · load`` and the per-expert mean
-    renormalised gate and mean 0/1 dispatch over the batch, as device
-    tensors.
+    renormalised gate and mean 0/1 dispatch over the (global, under a
+    mesh) batch, as device tensors.
+
+    ``dispatch``: ``dense``, ``ragged`` (the experts over ``ep_axis`` of
+    the installed mesh, ``capacity_factor`` slots; dropout on the
+    combined output, as in JAX) or ``auto``. Under tensor parallelism
+    with ``expert_in`` sharded by experts, the dense path runs each
+    rank's experts only and sums the ranks' outputs with one all-reduce.
     """
 
     def __init__(self, channels: int, num_experts: int = 4,
@@ -278,10 +310,16 @@ class MoEConvBlock(nn.Module):
                  use_task_embedding: bool = False,
                  task_embedding_dim: int = 32, num_tasks: int = 0,
                  use_residual: bool = True, dropout: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dispatch: str = "dense",
+                 ep_axis: str = "model", capacity_factor: float = 2.0):
         super().__init__()
+        if dispatch not in _DISPATCH_MODES:
+            raise ValueError(f"unknown model.moe.dispatch {dispatch!r}")
         C, E = channels, num_experts
         h = expert_hidden or max(8, C // 2)
+        self.hidden = h
+        self.dispatch, self.ep_axis = dispatch, ep_axis
+        self.capacity_factor = float(capacity_factor)
         self.num_experts, self.top_k = E, int(top_k)
         self.use_residual = use_residual
         self.dropout = float(dropout)
@@ -319,9 +357,10 @@ class MoEConvBlock(nn.Module):
         logits = self.router_fc2(F.relu(self.router_fc1(router_in)))
         return torch.softmax(logits, dim=1)
 
-    def route(self, x: torch.Tensor, task_index=None):
+    def route(self, x: torch.Tensor, task_index=None, probs=None):
         """Renormalised gates and the 0/1 dispatch, both [B, E] f32."""
-        probs = self.gate_probs(x, task_index)
+        if probs is None:
+            probs = self.gate_probs(x, task_index)
         if self.top_k < self.num_experts:
             dispatch = top_k_dispatch(probs, self.top_k)
             masked = probs * dispatch
@@ -330,24 +369,95 @@ class MoEConvBlock(nn.Module):
             dispatch = torch.ones_like(probs)
         return probs, dispatch
 
+    def _mode(self) -> str:
+        if self.dispatch == "auto":
+            return pick_dispatch_mode(self.num_experts, self.top_k,
+                                      activation_mesh(), self.ep_axis)
+        return self.dispatch
+
+    def _expert_weights(self):
+        """The grouped kernels as per-expert stacks [E, ...] (OIHW), in the
+        compute dtype: expert e owns output channels e*g:(e+1)*g."""
+        E, h, C = self.num_experts, self.hidden, self.expert_out.kernel.shape[
+            0] // self.num_experts
+        dt = self.dtype
+        return {
+            "w_in": self.expert_in.kernel.to(dt).reshape(E, h, C, 1, 1),
+            "w_mid": self.expert_mid.kernel.to(dt).reshape(E, h, h, 3, 3),
+            "w_out": self.expert_out.kernel.to(dt).reshape(E, C, h, 1, 1)}
+
+    def _ragged(self, x, raw_probs, train, generator):
+        mesh = activation_mesh()
+        if mesh is None or self.ep_axis not in (mesh.mesh_dim_names or ()):
+            raise ValueError(
+                "MoEConvBlock(dispatch_mode='ragged') needs ep_mesh with "
+                f"axis {self.ep_axis!r} (got mesh={mesh})")
+
+        def expert_fn(p, tokens):
+            y = F.relu(conv_nhwc(tokens, p["w_in"]))
+            y = F.relu(conv_nhwc(y, p["w_mid"]))
+            return conv_nhwc(y, p["w_out"])
+
+        out = ragged_moe_apply(
+            expert_fn, self._expert_weights(), x.to(self.dtype),
+            raw_probs.float(), mesh, axis=self.ep_axis, top_k=self.top_k,
+            capacity_factor=self.capacity_factor)
+        return dropout(out, self.dropout, train, generator,
+                       broadcast_dims=(1, 2))
+
+    def _dense_split(self, x, probs, train, generator):
+        """The dense path on this rank's experts (``expert_in`` sharded by
+        experts over the model axis), the ranks' sums all-reduced."""
+        shard = tp_shard(self.expert_in)
+        if shard is None or shard[1] != 0:
+            return None
+        group = shard[2]
+        M = comm.group_size(group)
+        E, h = self.num_experts, self.hidden
+        if E % M:
+            return None
+        B, H, W, C = x.shape
+        El, dt = E // M, self.dtype
+        xs = comm.copy_sum_grad(x.to(dt), group)
+        y = F.relu(conv_nhwc(xs, shard[0].to(dt)))
+        w_mid = comm.slice_dim(self.expert_mid.kernel, 0, group)
+        y = F.relu(conv_nhwc(y, w_mid.to(dt), groups=El))
+        if train and self.dropout > 0.0:
+            full = keep_mask((B, 1, 1, E * h), 1.0 - self.dropout,
+                             generator, x.device)
+            m = full.narrow(3, comm.group_rank(group) * El * h, El * h)
+            y = apply_dropout(y, m, self.dropout)
+        w_out = comm.slice_dim(self.expert_out.kernel, 0, group)
+        y = conv_nhwc(y, w_out.to(dt), groups=El).reshape(B, H, W, El, C)
+        gates = comm.slice_dim(probs, 1, group).to(y.dtype).float()
+        part = torch.einsum("bhwec,be->bhwc", y.float(), gates)
+        return comm.sum_pass(part, group).to(y.dtype)
+
     def forward(self, x: torch.Tensor, task_index=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         with torch.profiler.record_function(MOE_RANGE):
             B, H, W, C = x.shape
             E = self.num_experts
-            probs, dispatch = self.route(x, task_index)
-            importance = probs.mean(dim=0)
-            load = dispatch.mean(dim=0)
+            raw = self.gate_probs(x, task_index)
+            probs, dispatch = self.route(x, probs=raw)
+            importance = comm.global_mean0(probs)
+            load = comm.global_mean0(dispatch)
             aux = E * (importance * load).sum()
 
-            h = F.relu(self.expert_in(x))
-            h = F.relu(self.expert_mid(h))
-            h = dropout(h, self.dropout, train, generator,
-                        broadcast_dims=(1, 2))
-            h = self.expert_out(h).reshape(B, H, W, E, C)
-            # gates rounded to h's dtype; the E products summed in f32
-            gates = probs.to(h.dtype).float()
-            out = torch.einsum("bhwec,be->bhwc", h.float(), gates).to(h.dtype)
+            if self._mode() == "ragged":
+                out = self._ragged(x, raw, train, generator)
+            else:
+                out = self._dense_split(x, probs, train, generator)
+            if out is None:
+                h = F.relu(self.expert_in(x))
+                h = F.relu(self.expert_mid(h))
+                h = dropout(h, self.dropout, train, generator,
+                            broadcast_dims=(1, 2))
+                h = self.expert_out(h).reshape(B, H, W, E, C)
+                # gates rounded to h's dtype; the E products summed in f32
+                gates = probs.to(h.dtype).float()
+                out = torch.einsum("bhwec,be->bhwc", h.float(),
+                                   gates).to(h.dtype)
             if self.use_residual:
                 out = out + x
         return out, aux, {"importance": importance, "load": load}
@@ -356,21 +466,15 @@ class MoEConvBlock(nn.Module):
 def build_moe_blocks(config, num_tasks: int, channels: Sequence[int],
                      dtype=torch.float32) -> Dict[int, MoEConvBlock]:
     """``model.moe``: one block per stage index within the encoder's stage
-    count (``stage_indices``, default every stage), {} when off. Dispatch
-    ``dense`` and ``auto`` (dense: the port has no expert-parallel
-    mesh) build; ``ragged`` raises."""
+    count (``stage_indices``, default every stage), {} when off; dispatch
+    ``dense``, ``ragged`` or ``auto`` (``ep_axis``, default ``model``;
+    ``capacity_factor``, default 2)."""
     moe_cfg = config.get("model.moe", {}) or {}
     if not moe_cfg.get("enabled", False):
         return {}
     E = int(moe_cfg.get("num_experts", 4))
     top_k = int(moe_cfg.get("top_k", 1))
     mode = str(moe_cfg.get("dispatch", "dense"))
-    if mode == "auto":  # the JAX rule picks ragged only on an EP mesh
-        mode = "dense"
-    if mode == "ragged":
-        raise NotImplementedError(_RAGGED)
-    if mode != "dense":
-        raise ValueError(f"unknown model.moe.dispatch {mode!r}")
     expert_hidden = moe_cfg.get("expert_hidden")
     router_hidden = moe_cfg.get("router_hidden")
     stages = moe_cfg.get("stage_indices") or range(4)
@@ -383,5 +487,7 @@ def build_moe_blocks(config, num_tasks: int, channels: Sequence[int],
         task_embedding_dim=int(moe_cfg.get("task_embedding_dim", 32)),
         num_tasks=num_tasks,
         use_residual=bool(moe_cfg.get("use_residual", True)),
-        dropout=float(moe_cfg.get("dropout", 0.0)), dtype=dtype)
+        dropout=float(moe_cfg.get("dropout", 0.0)), dtype=dtype,
+        dispatch=mode, ep_axis=str(moe_cfg.get("ep_axis", "model")),
+        capacity_factor=float(moe_cfg.get("capacity_factor", 2.0)))
         for i in stages if 0 <= i < len(channels)}

@@ -30,6 +30,7 @@ from fmc_uia_tpu_torch.models.layers import (
     keep_mask,
     layer_norm,
 )
+from fmc_uia_tpu_torch.parallel.sharding import tp_mlp
 
 
 class _LN(nn.Module):
@@ -57,11 +58,15 @@ class ConvNeXtBlock(nn.Module):
     def forward(self, x, train: bool = False, generator=None):
         dt = self.dtype
         y = self.norm(self.dwconv(x))
-        # flax Dense: the product rounded to dtype, then the bias added
-        y = F.linear(y.to(dt), self.pwconv1.kernel.to(dt))
-        y = F.gelu(y + self.pwconv1.bias.to(dt), approximate="tanh")
-        y = F.linear(y, self.pwconv2.kernel.to(dt))
-        y = (y + self.pwconv2.bias.to(dt)) * self.gamma.to(dt)
+        # flax Dense: the product rounded to dtype, then the bias added;
+        # Megatron column -> row when tensor parallel shards the pair
+        tp = tp_mlp(y, self.pwconv1, self.pwconv2, dt)
+        if tp is None:
+            y = F.linear(y.to(dt), self.pwconv1.kernel.to(dt))
+            y = F.gelu(y + self.pwconv1.bias.to(dt), approximate="tanh")
+            y = F.linear(y, self.pwconv2.kernel.to(dt))
+            tp = y + self.pwconv2.bias.to(dt)
+        y = tp * self.gamma.to(dt)
         if train and self.drop_path > 0.0:
             keep = keep_mask((x.shape[0],),
                              float(drop_path_keep(self.drop_path)),

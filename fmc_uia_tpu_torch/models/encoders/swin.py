@@ -47,6 +47,7 @@ from fmc_uia_tpu_torch.models.layers import (
     trunc_normal_,
 )
 from fmc_uia_tpu_torch.ops.swin_block import attention_branch, mlp_branch
+from fmc_uia_tpu_torch.parallel.sharding import tp_mlp
 
 # the fused MLP branch serves the blocks with C <= 256 (stages 0 and 1 of
 # swin_b), the gate of the JAX package; its kernels take no wider C
@@ -266,10 +267,14 @@ class SwinBlock(nn.Module):
         dt = self.dtype
         y = layer_norm(x, self.norm2.scale, self.norm2.bias, 1e-6,
                        self.ln_dtype)
-        y = F.linear(y.to(dt), self.mlp_fc1.kernel.to(dt))
-        y = F.gelu(y + self.mlp_fc1.bias.to(dt), approximate="tanh")
-        y = F.linear(y, self.mlp_fc2.kernel.to(dt))
-        y = y + self.mlp_fc2.bias.to(dt)
+        tp = tp_mlp(y, self.mlp_fc1, self.mlp_fc2, dt)
+        if tp is not None:  # Megatron column -> row over the model axis
+            y = tp
+        else:
+            y = F.linear(y.to(dt), self.mlp_fc1.kernel.to(dt))
+            y = F.gelu(y + self.mlp_fc1.bias.to(dt), approximate="tanh")
+            y = F.linear(y, self.mlp_fc2.kernel.to(dt))
+            y = y + self.mlp_fc2.bias.to(dt)
         keep = self._keep_mask(x, train, generator)
         if keep is not None:
             y = apply_drop_path(y, keep, self.drop_path)

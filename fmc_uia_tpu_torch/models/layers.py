@@ -29,6 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fmc_uia_tpu_torch.parallel import comm
+
 # flax truncated-normal variance scaling divides by the stddev of a unit
 # normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -76,8 +78,9 @@ def take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def keep_mask(shape, keep: float, generator: Optional[torch.Generator],
               device) -> torch.Tensor:
-    """Bernoulli(keep) mask, as ``jax.random.bernoulli``: uniform < keep."""
-    return torch.rand(shape, generator=generator, device=device) < keep
+    """Bernoulli(keep) mask, as ``jax.random.bernoulli``: uniform < keep
+    (under a mesh, the global batch's rows drawn, this rank's kept)."""
+    return comm.rand(shape, generator, device) < keep
 
 
 def _in_dtype(v: float, dtype) -> float:

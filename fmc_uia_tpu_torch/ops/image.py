@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from fmc_uia_tpu_torch.ops.preprocess import fused_augment_normalize
+from fmc_uia_tpu_torch.parallel import comm
 
 
 def normalize_images(images: torch.Tensor, mean: Sequence[float],
@@ -38,7 +39,7 @@ def normalize_images(images: torch.Tensor, mean: Sequence[float],
 
 def _uniform(shape, lo: float, hi: float, generator, device):
     """U[lo, hi) as jax.random.uniform(minval, maxval): lo + u (hi - lo)."""
-    u = torch.rand(shape, generator=generator, device=device)
+    u = comm.rand(shape, generator, device)
     return lo + u * (hi - lo)
 
 
@@ -58,7 +59,7 @@ def random_brightness_contrast(images: torch.Tensor, p: float = 0.2,
     """Per-image random brightness/contrast on the 0..255 scale, applied
     with probability p: alpha = 1 + U(-c, c), beta = 255 U(-b, b)."""
     B, dev = images.shape[0], images.device
-    apply = torch.rand(B, generator=generator, device=dev) < p
+    apply = comm.rand(B, generator, dev) < p
     alpha = 1.0 + _uniform(B, -contrast_limit, contrast_limit, generator,
                            dev)
     beta = _uniform(B, -brightness_limit, brightness_limit, generator,
@@ -82,10 +83,10 @@ def random_gauss_noise(images: torch.Tensor, p: float = 0.1,
     """Per-image additive gaussian noise on the 0..255 scale, applied with
     probability p, sigma = sqrt(U(var_limit))."""
     B, dev = images.shape[0], images.device
-    apply = torch.rand(B, generator=generator, device=dev) < p
+    apply = comm.rand(B, generator, dev) < p
     sigma = torch.sqrt(_uniform(B, var_limit[0], var_limit[1], generator,
                                 dev))
-    noise = torch.randn(images.shape, generator=generator, device=dev)
+    noise = comm.randn(images.shape, generator, dev)
     scale = torch.where(apply, sigma, torch.zeros_like(sigma))
     return gauss_noise(images, scale, noise)
 
@@ -100,9 +101,9 @@ def random_flips(images: torch.Tensor, labels: torch.Tensor, task_type: str,
     labels unchanged."""
     B, dev = images.shape[0], images.device
     none = torch.zeros(B, dtype=torch.bool, device=dev)
-    do_h = (torch.rand(B, generator=generator, device=dev) < horizontal_p
+    do_h = (comm.rand(B, generator, dev) < horizontal_p
             if horizontal_p > 0 else none)
-    do_v = (torch.rand(B, generator=generator, device=dev) < vertical_p
+    do_v = (comm.rand(B, generator, dev) < vertical_p
             if vertical_p > 0 else none)
 
     def sel(flag, a, b):

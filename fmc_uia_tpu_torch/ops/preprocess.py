@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from fmc_uia_tpu_torch.ops import build
+from fmc_uia_tpu_torch.parallel import comm
 
 _M = (0xD2511F53, 0xCD9E8D57)          # Philox4x32 multipliers
 _W = (0x9E3779B9, 0xBB67AE85)          # Philox4x32 key increments
@@ -184,22 +185,20 @@ def draw_params(B: int, device, generator: Optional[torch.Generator],
     in the order of ``preprocess_pallas.py:107-127``: apply_bc, alpha,
     beta, apply_noise, var, seeds in [0, 2^31 - 1)."""
     def uniform(lo, hi):
-        return lo + torch.rand(B, generator=generator, device=device) * (
+        return lo + comm.rand(B, generator, device) * (
             hi - lo)
 
-    apply_bc = torch.rand(B, generator=generator,
-                          device=device) < brightness_contrast_p
+    apply_bc = comm.rand(B, generator, device) < brightness_contrast_p
     one, zero = (torch.ones(B, device=device), torch.zeros(B, device=device))
     alpha = torch.where(apply_bc, 1.0 + uniform(-contrast_limit,
                                                 contrast_limit), one)
     beta = torch.where(apply_bc, uniform(-brightness_limit,
                                          brightness_limit) * 255.0, zero)
-    apply_noise = torch.rand(B, generator=generator,
-                             device=device) < gauss_noise_p
+    apply_noise = comm.rand(B, generator, device) < gauss_noise_p
     var = uniform(var_limit[0], var_limit[1])
     sigma = torch.where(apply_noise, torch.sqrt(var), zero)
-    seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=generator,
-                          device=device, dtype=torch.int32)
+    seeds = comm.randint(0, 2 ** 31 - 1, (B,), generator, device,
+                         dtype=torch.int32)
     return torch.stack([alpha, beta, sigma], 1), seeds
 
 

@@ -35,23 +35,55 @@ model grads, updates and zeroes the accumulator. The generator advances on
 every micro-step, the optimizer's count on updates only.
 ``train_burst(batch, n)`` runs n steps on one batch with no host sync.
 
-AOT warm-compile has no counterpart and raises; device meshes raise and
-name their ROADMAP item.
+``Trainer(mesh=DeviceMesh)`` (``parallel/``): parameters are broadcast
+from rank 0 and each rank takes its rows of the global batch, drawing the
+global batch's per-row randomness from the shared generator and keeping
+its rows; the losses' batch reductions are global (``parallel/comm.py``),
+so every rank holds the single process's loss, and the grads are summed
+over the batch axes (one flat buffer per dtype; the adaptive log-vars'
+grads, already whole on every rank, are not). The clip uses the global
+norm. With a ``model`` axis and ``parallel.tensor_parallel`` (default
+on) the large kernels are sharded (``parallel/sharding.py``,
+``parallel.tp_min_dim``, default 256); with ``parallel.zero_optimizer``
+and a data axis above 1 each rank keeps the optimizer state of its slice
+of the large leaves (ZeRO-1: reduce-scatter, update, all-gather). The
+mesh is installed around the Trainer's own steps only.
+
+AOT warm-compile has no counterpart and raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+from torch.nn.utils import parametrize
 
 from fmc_uia_tpu_torch import losses as losses_lib
 from fmc_uia_tpu_torch.device import resolve_device
 from fmc_uia_tpu_torch.ops.centernet import make_centernet_targets
 from fmc_uia_tpu_torch.models.layers import resize_to
 from fmc_uia_tpu_torch.ops.image import input_prep_fns, random_flips
+from fmc_uia_tpu_torch.parallel import comm
+from fmc_uia_tpu_torch.parallel.activation import activation_mesh_scope
+from fmc_uia_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    axis_group,
+    axis_size,
+    check_mesh,
+    replicate,
+    shard_batch,
+)
+from fmc_uia_tpu_torch.parallel.sharding import (
+    apply_param_sharding,
+    make_param_specs,
+    plain_name,
+)
+from fmc_uia_tpu_torch.parallel.zero import zero_dims
 from fmc_uia_tpu_torch.tasks import (
     CLASSIFICATION,
     DETECTION,
@@ -59,10 +91,6 @@ from fmc_uia_tpu_torch.tasks import (
     SEGMENTATION,
     TaskRegistry,
 )
-
-_NOT_PORTED = ("{what} is not ported to fmc_uia_tpu_torch yet (ROADMAP.md, "
-               "port queue item '{item}')")
-_ITEM_PARALLEL = "Parallel modes"
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +115,8 @@ def label_params(model: nn.Module, freeze_encoder: bool = False,
             return "frozen"
         return "encoder"
 
-    return {name: label(name) for name, _ in model.named_parameters()}
+    return {plain_name(name): label(plain_name(name))
+            for name, _ in model.named_parameters()}
 
 
 class GroupedOptimizer:
@@ -114,6 +143,26 @@ class GroupedOptimizer:
 
         self.buffers = ({"trace": zeros()} if kind == "SGD"
                         else {"mu": zeros(), "nu": zeros()})
+        # per group, per leaf: None, or the ZeRO slice (dim, start, length,
+        # whole length) this optimizer holds of the leaf (``shard``)
+        self.slices = [[None] * len(ps) for _, ps in self.groups]
+
+    def shard(self, slice_of) -> None:
+        """Hold only a slice of some leaves: ``slice_of(param)`` gives
+        (dim, start, length) or None. The group entries become views of
+        those slices (an update writes into the parameter), the state
+        buffers slice-shaped; ``step`` then needs the slices' grads."""
+        for gi, (mult, ps) in enumerate(self.groups):
+            for li, p in enumerate(ps):
+                s = slice_of(p)
+                if s is None:
+                    continue
+                d, start, n = s
+                self.slices[gi][li] = (d, start, n, p.shape[d])
+                ps[li] = p.detach().narrow(d, start, n)
+                for bufs in self.buffers.values():
+                    bufs[gi][li] = bufs[gi][li].narrow(d, start,
+                                                       n).clone()
 
     def state_dict(self) -> Dict:
         return {"kind": self.kind, "count": int(self.count),
@@ -153,10 +202,12 @@ class GroupedOptimizer:
         return [t.clone() for t in trace]
 
     @torch.no_grad()
-    def step(self, lr: float) -> None:
+    def step(self, lr: float, grads=None) -> None:
+        """One update; ``grads`` (per group, per leaf) defaults to the
+        leaves' ``.grad``."""
         self.count += 1
         for i, (mult, ps) in enumerate(self.groups):
-            g = [p.grad for p in ps]
+            g = [p.grad for p in ps] if grads is None else grads[i]
             upd = self._sgd(i, g) if self.kind == "SGD" else self._adam(i, g)
             if self.wd:
                 torch._foreach_add_(upd, ps, alpha=self.wd)
@@ -166,10 +217,11 @@ class GroupedOptimizer:
 
 
 def build_optimizer(config, model: nn.Module,
-                    adaptive: Optional[nn.ParameterDict] = None
-                    ) -> GroupedOptimizer:
+                    adaptive: Optional[nn.ParameterDict] = None,
+                    named=None) -> GroupedOptimizer:
     """The grouped optimizer of ``training.optimizer`` (``type`` AdamW,
-    Adam or SGD with ``momentum``)."""
+    Adam or SGD with ``momentum``); ``named`` ((name, param) pairs,
+    default the model's) fixes the leaves' order."""
     opt_cfg = config.get("training.optimizer", {}) or {}
     opt_type = str(opt_cfg.get("type", "AdamW"))
     base_lr = float(config.learning_rate)
@@ -182,9 +234,10 @@ def build_optimizer(config, model: nn.Module,
         model, bool(config.get("model.encoder.freeze_encoder", False)),
         bool(config.get("model.encoder.freeze_dino", False)))
     by_label = {"encoder": [], "head": []}
-    for name, p in model.named_parameters():
-        if labels[name] != "frozen":
-            by_label[labels[name]].append(p)
+    for name, p in (named or model.named_parameters()):
+        label = labels[plain_name(name)]
+        if label != "frozen":
+            by_label[label].append(p)
     groups = [(enc_mult, by_label["encoder"]), (head_mult, by_label["head"])]
     if adaptive is not None:
         adaptive_lr = float(config.get("training.adaptive_loss.learning_rate",
@@ -282,14 +335,15 @@ class Trainer:
     (the blocks' balance losses summed, added to the total times that
     weight), as the JAX step logs them. Under gradient accumulation it
     returns ``total_loss``, ``raw_loss`` and ``task_weight`` only, as the
-    JAX accumulation step does."""
+    JAX accumulation step does. ``mesh``: a DeviceMesh (the module
+    docstring), each rank's steps given its rows of the global batch or
+    the whole batch to slice; ``model_state`` / ``optimizer_state`` give
+    the single process's format."""
 
     def __init__(self, config, model: nn.Module,
                  registry: Optional[TaskRegistry] = None, device="cuda",
                  seed: Optional[int] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="data/tensor-parallel meshes", item=_ITEM_PARALLEL))
+        self.mesh = None if mesh is None else check_mesh(mesh)
         dev = resolve_device(device)
         p0 = next(model.parameters())
         if p0.device.type != dev.type:
@@ -322,7 +376,31 @@ class Trainer:
         self.grad_clip = float(config.get("training.gradient_clip", 0) or 0)
         self.moe_balance_w = float(config.get(
             "model.moe.balance_loss_weight", 0.0) or 0.0)
-        self.optimizer = build_optimizer(config, model, self.adaptive)
+        # (single-process name, parameter) in the single process's order:
+        # the optimizer's, the accumulator's and the checkpoints' order
+        self._named = list(model.named_parameters())
+        self._setup_mesh(config)
+        self.optimizer = build_optimizer(config, model, self.adaptive,
+                                         named=self._named)
+        # the optimizer's leaves by name, per group (the checkpoints' and
+        # ZeRO's key)
+        index = {id(p): n for n, p in self._named}
+        if self.adaptive is not None:
+            index.update({id(p): f"adaptive.{t}"
+                          for t, p in self.adaptive.items()})
+        self._opt_names = [[index[id(p)] for p in ps]
+                           for _, ps in self.optimizer.groups]
+        if self.zero_dims:
+            r, k = comm.group_rank(self.zero_group), axis_size(
+                self.mesh, "data")
+
+            def slice_of(p):
+                d = self.zero_dims.get(index[id(p)])
+                if d is None:
+                    return None
+                n = p.shape[d] // k
+                return d, r * n, n
+            self.optimizer.shard(slice_of)
         self.scheduler = LRScheduler(config)
         self.generator = torch.Generator(device=p0.device)
         self.generator.manual_seed(int(config.seed if seed is None
@@ -338,7 +416,7 @@ class Trainer:
         # every parameter carries a grad buffer, zeroed each step: a
         # parameter the step's type does not reach gets zero, as jax.grad
         # gives it
-        self._params = list(model.parameters())
+        self._params = [p for _, p in self._named]
         self._adaptive_params = ([] if self.adaptive is None
                                  else list(self.adaptive.values()))
         for p in self._params + self._adaptive_params:
@@ -354,7 +432,10 @@ class Trainer:
     def put_batch(self, batch: Dict) -> Dict:
         """Start the host->device copies of a batch (pinned host memory,
         non-blocking); integer labels (uint8 seg masks on the wire) are
-        widened to int64 on the device."""
+        widened to int64 on the device. Under a mesh only this rank's rows
+        are copied (``shard_batch``)."""
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
         out = dict(batch)
         for key in ("image", "label"):
             v = batch[key]
@@ -420,11 +501,27 @@ class Trainer:
         """Augment, forward in train mode, loss and backward: the step's
         grads in ``.grad`` (zeroed first), unclipped; returns the logs."""
         b = self.put_batch(batch)
+        torch._foreach_zero_([p.grad for p in self._params
+                              + self._adaptive_params])
+        with self._scope(b):
+            return self._forward_backward(b)
+
+    def _scope(self, b: Dict):
+        """Under a mesh: the batch scope (global loss sums, per-row
+        draws), the mesh installed, the sharded kernels gathered once."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(comm.batch_scope(self.dp_group, b["rows"]))
+        stack.enter_context(activation_mesh_scope(self.mesh))
+        if self.tp_dims:
+            stack.enter_context(parametrize.cached())
+        return stack
+
+    def _forward_backward(self, b: Dict) -> Dict:
         task_type = b["task_type"]
         task_index = self._index(b)
         images, labels = b["image"], b["label"]
-        torch._foreach_zero_([p.grad for p in self._params
-                              + self._adaptive_params])
         if self.flip_h > 0 or self.flip_v > 0:
             images, labels = random_flips(images, labels, task_type,
                                           self.flip_h, self.flip_v,
@@ -460,17 +557,21 @@ class Trainer:
             torch._foreach_zero_([p.grad for p in self._adaptive_params])
 
     def compute_grads(self, batch: Dict, epoch: int = 0) -> Dict:
-        """Augment, forward in train mode, loss, backward and clip: leaves
-        the step's grads in ``.grad`` and returns the logs."""
+        """Augment, forward in train mode, loss, backward, the grads'
+        reduction over the mesh and the clip: leaves the step's grads in
+        ``.grad`` (under ZeRO, the sharded leaves' reduced slices in
+        ``zero_grads``) and returns the logs."""
         logs = self._backward(batch)
-        if self.grad_clip > 0:
-            logs["grad_norm"] = torch.nn.utils.clip_grad_norm_(
-                self._params, self.grad_clip)
+        norm = self._reduce_and_clip()
+        if norm is not None:
+            logs["grad_norm"] = norm
         self._gate_adaptive(epoch)
         return logs
 
     def _accumulate(self, batch: Dict, epoch: int) -> Dict:
-        """One micro-step of gradient accumulation (module docstring)."""
+        """One micro-step of gradient accumulation (module docstring);
+        under a mesh the summed micro-grads are reduced once, at the
+        update."""
         logs = self._backward(batch)
         self._gate_adaptive(epoch)
         grads = [p.grad for p in self._params + self._adaptive_params]
@@ -479,9 +580,8 @@ class Trainer:
         self._micro_step += 1
         if self._micro_step % self.accum_steps == 0:
             torch._foreach_copy_(grads, self.grad_accum)
-            if self.grad_clip > 0:
-                torch.nn.utils.clip_grad_norm_(self._params, self.grad_clip)
-            self.optimizer.step(self.scheduler.current_lr())
+            self._reduce_and_clip()
+            self._optimizer_step()
             torch._foreach_zero_(self.grad_accum)
         return {k: logs[k] for k in ("total_loss", "raw_loss",
                                      "task_weight")}
@@ -491,9 +591,110 @@ class Trainer:
             logs = self._accumulate(batch, epoch)
         else:
             logs = self.compute_grads(batch, epoch)
-            self.optimizer.step(self.scheduler.current_lr())
+            self._optimizer_step()
         self.host_step += 1
         return logs
+
+    # -- the mesh ------------------------------------------------------------
+    def _setup_mesh(self, config) -> None:
+        """Broadcast the parameters from rank 0, shard the tensor-parallel
+        kernels and plan ZeRO (module docstring)."""
+        self.dp_group = self.tp_group = self.zero_group = None
+        self.dcn_group = None
+        self.tp_dims: Dict[str, int] = {}
+        self.zero_dims: Dict[str, int] = {}
+        self.zero_grads = None
+        self._world_group = None
+        if self.mesh is None:
+            return
+        mesh = self.mesh
+        replicate(self.model)
+        if self.adaptive is not None:
+            replicate(list(self.adaptive.values()))
+        self._world_group = dist.group.WORLD
+        self.dp_group = axis_group(mesh, BATCH_AXES)
+        whole = {n: tuple(p.shape) for n, p in self._named}
+        if (axis_size(mesh, "model") > 1
+                and bool(config.get("parallel.tensor_parallel", True))):
+            specs = make_param_specs(self.model, min_shard_dim=int(
+                config.get("parallel.tp_min_dim", 256)))
+            self.tp_dims = apply_param_sharding(self.model, mesh, specs)
+            self.tp_group = axis_group(mesh, "model")
+            params = {plain_name(n): p for n, p in
+                      self.model.named_parameters()}
+            self._named = [(n, params[n]) for n, _ in self._named]
+        if (bool(config.get("parallel.zero_optimizer", False))
+                and axis_size(mesh, "data") > 1):
+            self.zero_dims = zero_dims(whole, mesh)
+            self.zero_group = axis_group(mesh, "data")
+            if axis_size(mesh, "dcn_data") > 1:
+                self.dcn_group = axis_group(mesh, "dcn_data")
+
+    def _reduce_and_clip(self) -> Optional[torch.Tensor]:
+        """Sum the model grads over the batch axes (ZeRO leaves:
+        reduce-scattered into ``zero_grads``), then clip by the global
+        norm; returns the norm (None without a clip)."""
+        if self.mesh is None:
+            if self.grad_clip > 0:
+                return torch.nn.utils.clip_grad_norm_(self._params,
+                                                      self.grad_clip)
+            return None
+        zero = [(n, p) for n, p in self._named if n in self.zero_dims]
+        comm.all_reduce_flat([p.grad for n, p in self._named
+                              if n not in self.zero_dims], self.dp_group)
+        self.zero_grads = {}
+        for n, p in zero:
+            g = comm.reduce_scatter_dim(p.grad, self.zero_dims[n],
+                                        self.zero_group)
+            if self.dcn_group is not None:
+                comm.all_reduce_(g, self.dcn_group)
+            self.zero_grads[n] = g
+        if self.grad_clip <= 0:
+            return None
+        W = comm.group_size(self._world_group)
+        if W == 1:  # one rank holds every piece: the plain clip
+            return torch.nn.utils.clip_grad_norm_(self._params,
+                                                  self.grad_clip)
+        # norm^2: each piece counted once over the mesh (a leaf whole on
+        # every rank divided by the world size, a shard by the ranks that
+        # hold it)
+        tp = comm.group_size(self.tp_group)
+        dz = axis_size(self.mesh, "data")
+        grads, reps = [], []
+        for n, p in self._named:
+            g = self.zero_grads.get(n, p.grad)
+            grads.append(g)
+            reps.append(W // (tp if n in self.tp_dims else 1)
+                        // (dz if n in self.zero_dims else 1))
+        sq = torch.stack([(g.float() * g.float()).sum() / r
+                          for g, r in zip(grads, reps)]).sum()
+        norm = comm.all_reduce_(sq, self._world_group).sqrt()
+        coef = torch.clamp(self.grad_clip / (norm + 1e-6), max=1.0)
+        torch._foreach_mul_(grads, coef)
+        return norm
+
+    @torch.no_grad()
+    def _optimizer_step(self) -> None:
+        """The update; under ZeRO on the slices, then the sharded leaves
+        all-gathered over the data axis."""
+        lr = self.scheduler.current_lr()
+        if not self.zero_dims:
+            self.optimizer.step(lr)
+            return
+        grads = [[p.grad if s is None else self.zero_grads[n]
+                  for p, s, n in zip(ps, sl, names)]
+                 for (_, ps), sl, names in zip(self.optimizer.groups,
+                                               self.optimizer.slices,
+                                               self._opt_names)]
+        self.optimizer.step(lr, grads=grads)
+        for n, p in self._named:
+            d = self.zero_dims.get(n)
+            if d is not None:
+                k = p.shape[d] // axis_size(self.mesh, "data")
+                r = comm.group_rank(self.zero_group)
+                p.data.copy_(comm.all_gather_dim(
+                    p.data.narrow(d, r * k, k), d, self.zero_group))
+
 
     def adaptive_snapshot(self) -> Optional[Dict[str, Dict[str, float]]]:
         """The adaptive loss weights 0.5 e^{-lv} and sigmas e^{lv/2} (lv
@@ -522,9 +723,90 @@ class Trainer:
         losses = []
         for _ in range(int(n_steps)):
             losses.append(self.compute_grads(b, epoch)["total_loss"])
-            self.optimizer.step(self.scheduler.current_lr())
+            self._optimizer_step()
         losses = torch.stack(losses)
         return {"total_loss": losses[-1], "losses": losses}
+
+    # -- state in the single process's format (checkpoints) ------------------
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        d = self.tp_dims.get(name)
+        return t if d is None else comm.all_gather_dim(t, d, self.tp_group)
+
+    def _local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        d = self.tp_dims.get(name)
+        if d is None:
+            return t
+        k = t.shape[d] // comm.group_size(self.tp_group)
+        return t.narrow(d, comm.group_rank(self.tp_group) * k, k)
+
+    def whole_grads(self) -> Dict[str, torch.Tensor]:
+        """The model's step grads by single-process name, whole (after
+        ``compute_grads``: reduced and clipped; every rank calls it)."""
+        out = {}
+        for n, p in self._named:
+            g = p.grad
+            if n in self.zero_dims:
+                g = comm.all_gather_dim(self.zero_grads[n],
+                                        self.zero_dims[n], self.zero_group)
+            out[n] = self._whole(n, g)
+        return out
+
+    def model_state(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict as one process holds it (tensor
+        parallel shards gathered; a collective under a mesh: every rank
+        calls it)."""
+        return {plain_name(k): self._whole(plain_name(k), v)
+                for k, v in self.model.state_dict().items()}
+
+    @torch.no_grad()
+    def load_model_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Load a single-process state dict (this rank's shards cut)."""
+        if not self.tp_dims:
+            self.model.load_state_dict(state)
+            return
+        self.model.load_state_dict({
+            k: self._local(plain_name(k), state[plain_name(k)])
+            for k in self.model.state_dict()})
+
+    def optimizer_state(self) -> Dict:
+        """The optimizer's state as one process holds it (ZeRO slices and
+        tensor-parallel shards gathered; every rank calls it)."""
+        state = self.optimizer.state_dict()
+        for key in self.optimizer.buffers:
+            state[key] = [[self._whole(n, t if s is None else
+                                       comm.all_gather_dim(t, s[0],
+                                                           self.zero_group))
+                           for t, s, n in zip(ts, sl, names)]
+                          for ts, sl, names in zip(state[key],
+                                                   self.optimizer.slices,
+                                                   self._opt_names)]
+        return state
+
+    @torch.no_grad()
+    def load_optimizer_state(self, state: Dict) -> None:
+        state = dict(state)
+        for key in self.optimizer.buffers:
+            if key not in state:
+                continue
+            state[key] = [[(lambda t: t if s is None else t.narrow(*s[:3]))(
+                self._local(n, t)) for t, s, n in zip(ts, sl, names)]
+                for ts, sl, names in zip(state[key], self.optimizer.slices,
+                                         self._opt_names)]
+        self.optimizer.load_state_dict(state)
+
+    def accum_state(self) -> Optional[List[torch.Tensor]]:
+        if self.grad_accum is None:
+            return None
+        names = [n for n, _ in self._named] + [
+            f"adaptive.{t}" for t in (self.adaptive or {})]
+        return [self._whole(n, t) for n, t in zip(names, self.grad_accum)]
+
+    @torch.no_grad()
+    def load_accum_state(self, acc: List[torch.Tensor]) -> None:
+        names = [n for n, _ in self._named] + [
+            f"adaptive.{t}" for t in (self.adaptive or {})]
+        torch._foreach_copy_(self.grad_accum, [
+            self._local(n, t) for n, t in zip(names, acc)])
 
     def warm_compile(self, example_batches, parallel: bool = True,
                      aot_dir=None):

@@ -359,7 +359,8 @@ def test_single_task_filter_matches_jax(roots, over, match):
 
 def test_device_cache_and_mesh_raise(roots):
     """data.device_cache builds one cache that both engines share (here on
-    the CPU); a mesh still raises."""
+    the CPU); a mesh that is not a DeviceMesh raises a TypeError (the
+    mesh engines: tests/test_torch_parallel_data.py)."""
     _, pcfg = _configs(roots["port"])
     pcfg.config["data"]["device_cache"] = True
     train, val, _ = build_data_engines(pcfg, device="cpu")
@@ -367,5 +368,5 @@ def test_device_cache_and_mesh_raise(roots):
     assert val.device_cache is train.device_cache
     assert train.device_cache.covers(train.indices + val.indices)
     _, pcfg = _configs(roots["port"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_data_engines(pcfg, mesh=object())

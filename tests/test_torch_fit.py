@@ -229,7 +229,7 @@ def test_resume_is_bitwise_the_unbroken_run(data_root, tmp_path, adaptive):
 
 def test_fit_refusals(data_root, tmp_path):
     d = _tiny_dict(data_root, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fit(config=Config(config_dict=d), device="cpu", mesh=object())
     # a missing pretrained checkpoint raises FileNotFoundError, as in the
     # JAX package (the loading itself: tests/test_torch_pretrained.py)

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of fmc_uia_tpu_torch
-loads no jax, flax or fmc_uia_tpu module, nor pandas, cv2, PIL or yaml;
+loads no jax, flax or fmc_uia_tpu module, nor pandas, cv2, PIL or yaml
+(nor does a rank the parallel launcher spawns);
 chip_smoke.py imports none of them; its C++ sources include nothing of
 fmc_uia_tpu; entry points asked for CUDA on a host without a GPU raise
 (the HTTP front and the DINOv3 SPM preset's build too); every encoder
@@ -48,6 +49,20 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert int(out.stdout.split()[-1]) >= 37
+
+
+def test_parallel_children_import_no_jax():
+    """The parallel package's modules, imported in children that
+    ``run_local`` spawns from this (jax-laden) test process, load no jax,
+    flax or fmc_uia_tpu module."""
+    from fmc_uia_tpu_torch.parallel import run_local
+    from test_torch_parallel_workers import run_jobs
+
+    out = run_local(run_jobs, 2, args=([("isolation", {})],),
+                    timeout_s=120)
+    for rank in out:
+        assert rank[0]["forbidden"] == []
+        assert "fmc_uia_tpu_torch.parallel.launch" in rank[0]["modules"]
 
 
 def _imports(path):

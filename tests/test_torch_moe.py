@@ -167,9 +167,11 @@ def test_top_k_dispatch_breaks_ties_as_jax():
 
 def test_moe_dispatch_modes():
     """'auto' resolves as the JAX rule does without an expert-parallel
-    mesh (dense) and builds the dense blocks; 'ragged' raises naming its
-    ROADMAP item."""
-    from fmc_uia_tpu.models.conditioning import pick_dispatch_mode
+    mesh (dense); every mode builds the same blocks; 'ragged' without an
+    expert-parallel mesh raises JAX's ValueError at the forward, and
+    'auto' then runs dense (equal to 'dense')."""
+    from fmc_uia_tpu.models.conditioning import pick_dispatch_mode as jpick
+    from fmc_uia_tpu_torch.models.conditioning import pick_dispatch_mode
 
     def cfg(mode):
         d = make_tiny_config(**MOE_OVERRIDES).config
@@ -177,12 +179,22 @@ def test_moe_dispatch_modes():
         return Config(config_dict=d)
 
     moe = MOE_OVERRIDES["model"]["moe"]
-    assert pick_dispatch_mode(moe["num_experts"], moe["top_k"], None,
-                              "model") == "dense"
-    for mode in ("dense", "auto"):
-        assert build_model(cfg(mode), device="cpu").moe_stages == [2, 3]
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        build_model(cfg("ragged"), device="cpu")
+    for E, k in ((moe["num_experts"], moe["top_k"]), (32, 2), (64, 8)):
+        assert pick_dispatch_mode(E, k, None, "model") == jpick(
+            E, k, None, "model") == "dense"
+    models = {m: build_model(cfg(m), device="cpu")
+              for m in ("dense", "auto", "ragged")}
+    for m in models.values():
+        assert m.moe_stages == [2, 3]
+        m.load_state_dict(models["dense"].state_dict())
+    x = torch.from_numpy(np.random.RandomState(0).standard_normal(
+        (2, 64, 64, 3)).astype(np.float32))
+    tidx = torch.tensor(0)
+    with pytest.raises(ValueError, match="needs ep_mesh"):
+        models["ragged"](x, "segmentation", tidx)
+    torch.testing.assert_close(models["auto"](x, "segmentation", tidx),
+                               models["dense"](x, "segmentation", tidx),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("name", ["submit", "baseline"])

@@ -436,7 +436,8 @@ def test_lr_scheduler_matches_jax(sched):
 
 
 def test_trainer_unported_options_raise():
-    """Meshes and the MoE's ragged dispatch name their ROADMAP item, and
+    """A mesh that is not a DeviceMesh raises a TypeError, the MoE's
+    ragged dispatch without an expert-parallel mesh JAX's ValueError, and
     warm-compile raises; accumulation and burst mode (queue 1 item 7)
     run; every parameter carries a zeroed grad from the start."""
     from fmc_uia_tpu_torch.models import build_model
@@ -457,9 +458,10 @@ def test_trainer_unported_options_raise():
     assert t_acc.optimizer.count == 1
     ragged = Config(config_dict=make_tiny_config(model=dict(
         enc, moe={"enabled": True, "dispatch": "ragged"})).config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(ragged, build_model(ragged, device="cpu"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    t_rag = Trainer(ragged, build_model(ragged, device="cpu"), device="cpu")
+    with pytest.raises(ValueError, match="needs ep_mesh"):
+        t_rag.train_batch(batch, 0)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(cfg, model, device="cpu", mesh=object())
     trainer = Trainer(cfg, model, device="cpu")
     assert all(torch.equal(p.grad, torch.zeros_like(p))
