@@ -102,7 +102,7 @@ pass):
    (``chiprun_out/profile_forward.txt``).
 4. serving — ``StreamingPredictor(max_batch=8)`` after ``warmup()``
    serves a closed loop of 64 outstanding requests, round-robin over the
-   4 task types, for at least 10 s, three times; every result is held
+   4 task types, for at least 8 s, three times; every result is held
    against ``Predictor`` (at B=8, or where it differs there, at a padded
    size the run dispatched); per run img/s, p50/p99 and the dispatch stats,
    and their median and spread over the runs. The launch counters are
@@ -110,7 +110,7 @@ pass):
    this is the main path's count.
 5. train — the flagship ``Trainer`` (bf16, B=24, random weights from a
    seed) on one batch per task type made as bench.py makes them: a warm-up
-   step per type; a timed round-robin of at least 10 s (img/s, ms per step
+   step per type; a timed round-robin of at least 6 s (img/s, ms per step
    per type from CUDA events, peak memory), the launch counters zeroed just
    before it and required to rise by 24/24/4/4 (K1f/K1b/K2f/K2b) per step,
    every loss finite; the host ms of enqueueing one step per type with
@@ -149,11 +149,11 @@ pass):
    a forward; held against f32 on the card at B=8 (10 %, decoded ids
    equal except at near ties) and f32 on the CPU for one 256² image (N =
    1029, 1e-3); then one closed loop of 64 outstanding requests through
-   ``StreamingPredictor`` for >= 10 s, results held against
+   ``StreamingPredictor`` for >= 8 s, results held against
    ``Predictor``: img/s, p50/p99, K4f launches = 12 x dispatches.
 8. DINOv3 training — phase 5 on the DINOv3 preset (``freeze_dino``: the
    backbone's grads are computed and clipped, not applied): warm-up, a
-   timed round-robin of >= 10 s (img/s, ms per step per type, peak
+   timed round-robin of >= 6 s (img/s, ms per step per type, peak
    memory; K4f and K4b 12 each a step), a profiled step per type
    (``chiprun_out/profile_dino_train_step.txt``), the fixed-batch falling
    loss, and f32 grads card vs CPU at B=1 256² of the segmentation step
@@ -172,7 +172,7 @@ pass):
    blocks' top-2 choices on all 8 images f32 card vs CPU (equal except
    within 1e-4 of a tie); K1f 24 and K2f 4 launches a forward. (b) one
    closed loop of 64 outstanding requests through
-   ``StreamingPredictor(max_batch=8)`` for >= 10 s, every result held
+   ``StreamingPredictor(max_batch=8)`` for >= 8 s, every result held
    against ``Predictor``, K1f/K2f 24/4 x dispatches: img/s, p50/p99.
    (c) phase 5 at B=64, 224²: warm-up, the timed round-robin (img/s, ms
    a step per type, peak memory, launches 24/24/4/4 a step, every loss
@@ -207,7 +207,7 @@ pass):
    B=8 against f32 on the card (phase 3's rules) and one 224² image f32
    card vs CPU (1e-3); no kernel launches (K4f and K4b 0). (b) one closed
    loop of 64 outstanding requests through ``StreamingPredictor(
-   max_batch=8)`` for >= 10 s, held against ``Predictor``: img/s,
+   max_batch=8)`` for >= 8 s, held against ``Predictor``: img/s,
    p50/p99. (c) phase 5 at B=64, 224²: img/s, ms a step per type, peak
    memory, enqueue ms, no kernel launches, one profiled step per type with
    the ``spm_adapter`` range's share of the device time (forward: the
@@ -328,6 +328,35 @@ pass):
    backward, K1f and K1b 48 a rank (6 blocks x 8 microbatches). Every
    part runs; a failed one fails the phase at its end. The multi-rank
    times share one card: smoke timings, not a parallel speed.
+15. the fused Swin MLP above C = 256 (``FMC_FUSED_MLP_MAX_C``, set before
+   each model is built). (a) K2f and K2b at C = 384, 512 and 768 (Ch =
+   4C, the wide instances) against their plain versions, f32 and bf16,
+   dp on, phases 2 and 2b's rules: C = 512 at the flagship's stage 2
+   (32² x 512; K2f at B = 8, K2b at B = 24), 384 and 768 at swin_t
+   512²'s stages 2 and 3 (32² x 384, 16² x 768), and untimed 147 tokens
+   at 384 and 768 (the last 64-token block holds 19, dp changes inside
+   the first block); K2b's workspace against
+   ``mlp_bwd_plan``'s; per case one call's ms, the plain version's, the
+   library chain's (``k2_chain``; its autograd backward alone for K2b;
+   information only) and the bound (16 T C² operations forward, 40 T C²
+   backward, or the bytes). (b) the flagship under the knob at 512, K3
+   on: phase 13a's ``Predictor`` checks (B = 8, one task of each type,
+   launches exact: K1f 24, K2f 22 a forward; bf16 against f32 on the
+   card within 0.1 of the largest, decoded ids equal but at near ties;
+   f32 card against CPU at B = 1, 256², within 1e-3); the same weights
+   under 256 and 1024: each stage's flags (the kernel on stages 0-2 at
+   512; on 0-1 at 256; at 1024 stage 3 on the JAX XLA branch's math),
+   the raw outputs against 512's within 0.1; staged training at B = 24,
+   a warm-up round then P15_ROUNDS timed round-robin rounds (synced),
+   under 512 and then under 256 from the same seed: finite losses,
+   launches exact (K1f/K1b 24, K2f/K2b 22 and 4, K3 1 a step), img/s and
+   peak GiB (smoke timings). (c) under 1024: one counted ``Predictor``
+   forward and a warm-up and a timed round of steps, launches as 512's.
+   (d) phase 5's f32 grad check of the segmentation
+   step, card vs CPU at B = 1, 256², under 512 (the f32 wide kernels on
+   the card), ``KinkAlign``; the card's launches those of one step.
+   Launches over (b)'s forwards and rounds and (c)'s forward and round
+   are the phase's main-path count.
 
 The line before the card's name is ``{"kernels": [...]}`` (K1f/K2f
 launches from phase 4, K1b/K2b from phase 5, K3 from phase 6, K4f from
@@ -337,8 +366,9 @@ serving run, timed training and fit; ``launches_phase11``: over phase
 11's fits; ``launches_phase12``: over phase 12's main-path runs;
 ``launches_phase13``: over phase 13's; ``launches_phase14``: {"a": phase
 14a's mesh run, "b_rank": each rank's bf16 DP steps, "f_rank": each
-pipeline rank}); the last line is ``{"ok": true, "device": {...}}``.
-Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
+pipeline rank}; ``launches_phase15``: over phase 15's main-path runs);
+the last line is ``{"ok": true, "device": {...}}``. Per-case numbers
+(phase 15a's per width) also go to ``chiprun_out/chip_smoke.json``.
 
     python3 chip_smoke.py --staged-train
 
@@ -375,6 +405,11 @@ builds the kernels and runs phase 13 alone, one JSON line.
     python3 chip_smoke.py --phase14
 
 builds the kernels and runs phase 14 alone, one JSON line.
+
+    python3 chip_smoke.py --phase15
+
+builds the kernels (printing the K2 libraries' ptxas lines and checking
+the SASS as phase 1 does) and runs phase 15 alone, one JSON line.
 """
 
 from __future__ import annotations
@@ -395,7 +430,7 @@ HBM_BPS = 3.35e12    # H100 SXM HBM3 bytes/s
 BATCH = 8            # the serving path's largest micro-batch
 IMAGE = 512
 SERVE_RUNS = 3       # serving runs, each of at least SERVE_S seconds
-SERVE_S = 10.0
+SERVE_S = 8.0
 OUTSTANDING = 64     # requests kept in flight by the closed loop
 
 
@@ -493,8 +528,9 @@ def check_branch(out, ref, x, dtype, what):
 # TMA, and their libraries hold no WMMA / mma.sync product
 K1_PRODUCTS = {"swin_attn_fwd": ("qkv_window_attn", "gemm_sm90"),
                "swin_attn_bwd": ("attn_core_bwd_sm90", "gemm_sm90")}
-K2_PRODUCTS = {"swin_mlp_fwd": ("mlp_fwd_sm90",),
-               "swin_mlp_bwd": ("mlp_dual_sm90", "gemm_sm90")}
+K2_PRODUCTS = {"swin_mlp_fwd": ("mlp_fwd_sm90", "mlp_fwd_wide_sm90"),
+               "swin_mlp_bwd": ("mlp_dual_sm90", "mlp_dual_stream_sm90",
+                                "gemm_sm90")}
 PRODUCTS = {**K1_PRODUCTS, **K2_PRODUCTS}
 
 
@@ -1858,7 +1894,7 @@ def profile_forward(pred, imgs, tid, out_dir, report, key="profile") -> None:
 # ---------------------------------------------------------------------------
 # phase 5: training
 # ---------------------------------------------------------------------------
-TRAIN_S = 10.0       # the timed round-robin, at least this long
+TRAIN_S = 6.0        # the timed round-robin, at least this long
 FIXED_STEPS = 10     # steps on one fixed batch per type (the loss falls)
 GRAD_IMAGE = 256     # the card-vs-CPU gradient check: B=1 at this size
 # the grad check's kinks: the largest gap between the card's and the CPU's
@@ -2698,7 +2734,7 @@ def vit_serving_phase(name, smi, report, preset, out_dir):
     launches a forward), ...) must launch that many times a forward; held
     against f32 on the card at B=8 and f32 on the CPU for one image
     cropped to ``cpu_image``; then one closed loop of 64 outstanding
-    requests through ``StreamingPredictor`` for >= 10 s, every result held
+    requests through ``StreamingPredictor`` for >= 8 s, every result held
     against ``Predictor``, the same launches a dispatch. Returns the
     serving run's launches by kernel."""
     import numpy as np
@@ -2877,7 +2913,7 @@ def submit_model_phase(name, smi, report):
     ``Predictor`` at B=8 in bf16 against f32 on the card, one image in f32
     on the CPU, the MoE blocks' top-2 choices card vs CPU, K1f/K2f 24/4
     launches a forward; then one closed loop of 64 outstanding requests
-    through ``StreamingPredictor(max_batch=8)`` for >= 10 s."""
+    through ``StreamingPredictor(max_batch=8)`` for >= 8 s."""
     import numpy as np
     import torch
 
@@ -4633,7 +4669,7 @@ def phase12_main() -> int:
 # ---------------------------------------------------------------------------
 # phase 13: the other encoders and the unfused Swin attention (queue 1 item 8)
 # ---------------------------------------------------------------------------
-PHASE13_ROUNDS = 3        # timed round-robin rounds of phase 13b
+PHASE13_ROUNDS = 2        # timed round-robin rounds of phase 13b
 PHASE13_FIT_STEPS = 2     # phase 13c: 1 epoch of this many steps
 # preset -> (launches a Predictor forward, launches a train step), by
 # kernel; every kernel not named launches 0 times
@@ -4661,12 +4697,13 @@ def encoder_preset(name):
         grad_types=("segmentation",))
 
 
-def phase13_staged(tag, cfg, registry, model, per_step, totals):
-    """Phase 13b: the Trainer at B = TRAIN_BATCH on staged batches
-    (``train_batches``): a warm-up round (one step a type: allocator,
-    cuDNN heuristics), then PHASE13_ROUNDS timed round-robin rounds, each
-    step synced; finite losses; every kernel's launches exactly
-    ``per_step`` a step over the timed rounds."""
+def staged_rounds(tag, cfg, registry, model, per_step, totals,
+                  rounds=PHASE13_ROUNDS):
+    """Phases 13b and 15b: the Trainer at B = TRAIN_BATCH on staged
+    batches (``train_batches``): a warm-up round (one step a type:
+    allocator, cuDNN heuristics), then ``rounds`` timed round-robin
+    rounds, each step synced; finite losses; every kernel's launches
+    exactly ``per_step`` a step over the timed rounds."""
     import numpy as np
     import torch
 
@@ -4684,14 +4721,14 @@ def phase13_staged(tag, cfg, registry, model, per_step, totals):
     for c in all_kernels():
         c.launches = 0
     ms, losses = {}, {}
-    for _ in range(PHASE13_ROUNDS):
+    for _ in range(rounds):
         for t, b in batches.items():
             t0 = time.perf_counter()
             logs = trainer.train_batch(b, 0)
             torch.cuda.synchronize()
             ms.setdefault(t, []).append(1e3 * (time.perf_counter() - t0))
             losses.setdefault(t, []).append(float(logs["total_loss"]))
-    steps = PHASE13_ROUNDS * len(batches)
+    steps = rounds * len(batches)
     launches = {c.__name__: c.launches for c in all_kernels()}
     want = {k: steps * per_step.get(k, 0) for k in launches}
     if launches != want:
@@ -4701,7 +4738,7 @@ def phase13_staged(tag, cfg, registry, model, per_step, totals):
     if not all(math.isfinite(v) for vs in losses.values() for v in vs):
         fail(f"{tag} non-finite losses {losses}")
     total_ms = sum(sum(v) for v in ms.values())
-    rep = {"batch": TRAIN_BATCH, "rounds": PHASE13_ROUNDS, "steps": steps,
+    rep = {"batch": TRAIN_BATCH, "rounds": rounds, "steps": steps,
            "warmup_round_s": warm_s,
            "ms_by_type": {t: float(np.median(v)) for t, v in ms.items()},
            "ms_all": ms, "img_s": steps * TRAIN_BATCH / (total_ms / 1e3),
@@ -4807,8 +4844,8 @@ def phase13(name, smi, report):
             f"launches {r['serving']['launches']}")
         seconds[f"{pname} a"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        r["staged"] = st = phase13_staged(f"{tag} (b)", cfg, registry, model,
-                                          per_step, totals)
+        r["staged"] = st = staged_rounds(f"{tag} (b)", cfg, registry, model,
+                                         per_step, totals)
         del model
         torch.cuda.empty_cache()
         log(f"{tag} (b) staged B={TRAIN_BATCH}: {st['steps']} steps after a "
@@ -5487,6 +5524,329 @@ def phase14_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the fused Swin MLP above C = 256 (FMC_FUSED_MLP_MAX_C)
+# ---------------------------------------------------------------------------
+P15_KNOB = "FMC_FUSED_MLP_MAX_C"
+# (label, C, grid, K2f's B, K2b's B) of 15a: at 512², swin_b's stage 2
+# (the flagship's) and swin_t's stages 2 and 3, timed; then untimed,
+# 147 tokens (the last 64-token block holds 19; dp changes inside the
+# first block) at both other widths
+P15_CASES = (("c512_swin_b_s2", 512, 32, BATCH, TRAIN_BATCH),
+             ("c384_swin_t_s2", 384, 32, BATCH, TRAIN_BATCH),
+             ("c768_swin_t_s3", 768, 16, BATCH, TRAIN_BATCH),
+             ("c384_ragged", 384, 7, 3, 3), ("c768_ragged", 768, 7, 3, 3))
+P15_ROUNDS = 2       # timed round-robin rounds of 15b, each knob
+
+
+@contextlib.contextmanager
+def fused_mlp_knob(value):
+    """``FMC_FUSED_MLP_MAX_C`` = ``value`` inside (``build_swin`` reads it
+    when a model is built), the previous value restored on exit."""
+    old = os.environ.get(P15_KNOB)
+    os.environ[P15_KNOB] = str(value)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(P15_KNOB, None)
+        else:
+            os.environ[P15_KNOB] = old
+
+
+def p15_per_step(knob, train=True):
+    """Every kernel's launches a flagship forward (``train`` False) or a
+    train step with K3 on under the knob: K1f 24 (K1b 24), K2f (K2b) 4
+    at 256, 22 at 512 and above (stages 0-2; stage 3, C = 1024, runs the
+    JAX XLA branch's math under 1024)."""
+    from fmc_uia_tpu_torch.ops import preprocess as pp
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+
+    k2 = 4 if knob < 512 else 22
+    out = {sb.attention_branch.__name__: 24, sb.mlp_branch.__name__: k2}
+    if train:
+        out.update({sb.attention_branch_backward.__name__: 24,
+                    sb.mlp_branch_backward.__name__: k2,
+                    pp.augment_normalize.__name__: 1})
+    return out
+
+
+def p15_kernels(smi):
+    """15a: K2f and K2b at the wide widths against their plain versions,
+    f32 and bf16, dp on (phases 2 and 2b's rules), and their times."""
+    import torch
+
+    from fmc_uia_tpu_torch.ops import build
+    from fmc_uia_tpu_torch.ops import swin_block as sb
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(15)
+    recs = []
+
+    def timed(rec, fn, ref_fn, chain, flops, nbytes, dtype, reps):
+        if "ragged" in rec["case"]:  # checked only
+            return ""
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        rec["ms"] = cuda_ms(fn, reps=reps, warmup=2)
+        rec["plain_ms"] = cuda_ms(ref_fn, reps=3, warmup=1)
+        rec["chain_ms"] = chain()
+        rec["bound_ms"] = 1e3 * max(flops / peak, nbytes / HBM_BPS)
+        rec["bound_by"] = ("operations" if flops / peak >= nbytes / HBM_BPS
+                           else "bytes")
+        return (f"  {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f}, chain "
+                f"{rec['chain_ms']:.3f}, bound {rec['bound_ms']:.4f} "
+                f"{rec['bound_by']})")
+
+    for label, C, grid, bf, bb in P15_CASES:
+        Ch = 4 * C
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).split(".")[-1]
+            x, w, dp = mlp_inputs(bf, grid, C, dtype, gen, dev)
+            args = tuple(w[k] for k in ("ln_scale", "ln_bias", "w1", "b1",
+                                        "w2", "b2"))
+            chk = check_branch(sb.mlp_branch(x, *args, dp=dp),
+                               sb.mlp_branch_reference(x, *args, dp=dp), x,
+                               dtype, f"[p15-a] K2f {label}")
+            T, esz = x.numel() // C, x.element_size()
+            rec = dict(kernel="mlp_branch", case=label, dtype=dt,
+                       shape=[bf, grid, grid, C], **chk)
+            fn, params = k2_chain(x, w, dp)
+            times = timed(rec, lambda: sb.mlp_branch(x, *args, dp=dp),
+                          lambda: sb.mlp_branch_reference(x, *args, dp=dp),
+                          lambda: cuda_ms(lambda: fn(x, *params)),
+                          16 * T * C * C,
+                          2 * T * C * esz + 4 * (8 * C * C + 7 * C), dtype,
+                          20)
+            recs.append(rec)
+            log(f"[p15-a] K2f {label:15s} {dt:8s} {rec['shape']} "
+                + err_text(chk) + times)
+            del x, w, dp, args, fn, params
+            x, w, dp = mlp_inputs(bb, grid, C, dtype, gen, dev)
+            dy = torch.randn(x.shape, generator=gen).to(dev, dtype)
+            args = tuple(w[k] for k in ("ln_scale", "ln_bias", "w1", "b1",
+                                        "w2", "b2"))
+            T = x.numel() // C
+            got = sb.mlp_branch_backward(x, *args, dy, dp=dp)
+            ref = sb.mlp_branch_backward_reference(x, *args, dy, dp=dp)
+            chk = check_branch(got[0], ref[0], dy, dtype,
+                               f"[p15-a] K2b {label} dx")
+            grads = check_grads(MLP_GRADS, got[1:], ref[1:], dtype,
+                                f"[p15-a] K2b {label}")
+            del got, ref
+            rec = dict(kernel="mlp_branch_backward", case=label, dtype=dt,
+                       shape=[bb, grid, grid, C], grads=grads,
+                       **chk)
+            if dtype == torch.bfloat16:
+                plan = sb.mlp_bwd_plan(T, C, Ch)
+                got_ws = build.load("swin_mlp_bwd", "swin_mlp_bwd_workspace")(
+                    T, C, Ch, 1, plan["kchunk_w1"], plan["kchunk_w2"])
+                if got_ws != plan["workspace"]:
+                    fail(f"[p15-a] K2b {label}: workspace {got_ws} bytes != "
+                         f"the plan's {plan['workspace']}")
+                rec["workspace"] = got_ws
+                rec["floor_ms"] = 1e3 * k2b_pass_bytes(T, C, Ch,
+                                                       plan) / HBM_BPS
+            times = timed(
+                rec, lambda: sb.mlp_branch_backward(x, *args, dy, dp=dp),
+                lambda: sb.mlp_branch_backward_reference(x, *args, dy,
+                                                         dp=dp),
+                lambda: chain_bwd_ms(*k2_chain(x, w, dp), x, dy)[0],
+                40 * T * C * C,
+                3 * T * C * esz + 2 * 4 * (8 * C * C + 7 * C), dtype, 10)
+            worst = max(v[0] / max(v[1], 1e-30) for v in grads.values())
+            recs.append(rec)
+            log(f"[p15-a] K2b {label:15s} {dt:8s} {rec['shape']} dx "
+                + err_text(chk) + f"; grads worst err/tol {worst:.3f}"
+                + times)
+            del x, w, dp, dy, args
+            torch.cuda.empty_cache()
+    log(f"[p15-a] {len(recs)} cases | {smi}")
+    return recs
+
+
+def p15_knobs(tag, cfg, registry, totals):
+    """15b's serving and 15c's forward: the flagship under the knob at
+    512 through ``preset_serving`` (phase 13a's checks), then the same
+    weights under 256 and 1024: each stage's (kernel, XLA-branch math)
+    flags, the raw outputs against 512's within 0.1 of the largest, and
+    one counted ``Predictor`` forward under 1024. Returns (the model
+    under 1024, report)."""
+    import numpy as np
+    import torch
+
+    from fmc_uia_tpu_torch.export import Predictor
+    from fmc_uia_tpu_torch.flagship import SERVING_TASKS
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.ops.image import normalize_images
+
+    per = p15_per_step(512, train=False)
+    with fused_mlp_knob(512):
+        model, rep = preset_serving(f"{tag} (b)", cfg, registry, totals,
+                                    per_fwd=per, cpu_image=GRAD_IMAGE)
+    models = {512: model}
+    for knob in (256, 1024):
+        with fused_mlp_knob(knob):
+            models[knob] = build_model(cfg, registry, dtype=torch.bfloat16,
+                                       device="cuda", init=False)
+        models[knob].load_state_dict(model.state_dict())
+    flags = {k: [(b.fused_mlp, b.mlp_math) for b in (
+        getattr(m.encoder, f"stage{s}_block0") for s in range(4))]
+             for k, m in models.items()}
+    want = {512: [(True, False)] * 3 + [(False, False)],
+            256: [(True, False)] * 2 + [(False, False)] * 2,
+            1024: [(True, False)] * 3 + [(False, True)]}
+    if flags != want:
+        fail(f"{tag} stage flags (kernel, XLA-branch math) {flags} != "
+             f"{want}")
+    mean = cfg.get("data.augmentation.normalize.mean")
+    std = cfg.get("data.augmentation.normalize.std")
+    imgs = np.random.RandomState(15).randint(
+        0, 256, (BATCH, IMAGE, IMAGE, 3)).astype(np.uint8)
+    x_pre = normalize_images(torch.from_numpy(imgs), mean, std)
+    for tid in SERVING_TASKS:
+        spec = registry[tid]
+        e = rep["compare"][tid]
+        _, e["knob256_err"] = compare_models(model, models[256], x_pre, spec,
+                                             0.1, f"{tag} knob 512 vs 256")
+        _, e["knob1024_err"] = compare_models(
+            models[1024], model, x_pre, spec, 0.1, f"{tag} knob 1024 vs 512")
+        log(f"{tag} (b)   {tid:20s} knob 512 vs 256 {e['knob256_err']}, "
+            f"1024 vs 512 {e['knob1024_err']}")
+    pred = Predictor(models[1024], registry, mean, std, IMAGE,
+                     device="cuda")
+    tid = SERVING_TASKS[0]
+    pred.predict_images(imgs, tid)  # first use
+    torch.cuda.synchronize()
+    zero_launches()
+    pred.predict_images(imgs, tid)
+    launches = read_launches()
+    if launches != {k: per.get(k, 0) for k in launches}:
+        fail(f"{tag} (c) Predictor launches {launches} != {per}")
+    for k, v in launches.items():
+        totals[k] += v
+    rep["flags"] = {str(k): v for k, v in flags.items()}
+    rep["knob1024_launches"] = launches
+    model1024 = models.pop(1024)
+    del pred, model, models
+    torch.cuda.empty_cache()
+    return model1024, rep
+
+
+def p15_staged_log(tag, knob, st, smi):
+    log(f"{tag} knob {knob} staged B={TRAIN_BATCH}: {st['steps']} steps "
+        f"after a warm-up round ({st['warmup_round_s']:.1f} s); ms a step "
+        f"by type (median, synced) "
+        f"{ {k: round(v, 1) for k, v in st['ms_by_type'].items()} } = "
+        f"{st['img_s']:.2f} img/s; peak {st['peak_gib']:.2f} GiB; launches "
+        f"{st['launches']} | {smi}")
+
+
+def phase15(name, smi, report):
+    """The fused MLP above C = 256 (module docstring, phase 15). Returns
+    each kernel's launches over the phase's main-path runs: 15b's
+    Predictor forwards and timed rounds (both knobs) and 15c's forward
+    and round (not 15a's kernel checks, 15b's warm-up rounds and
+    comparisons, or 15d's grad check)."""
+    import torch
+
+    from fmc_uia_tpu_torch.config import Config
+    from fmc_uia_tpu_torch.flagship import flagship_config_dict
+    from fmc_uia_tpu_torch.models import build_model
+    from fmc_uia_tpu_torch.tasks import TaskRegistry
+
+    t15 = time.perf_counter()
+    totals = {c.__name__: 0 for c in all_kernels()}
+    seconds, r = {}, {}
+    t0 = time.perf_counter()
+    r["kernels"] = p15_kernels(smi)
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = flagship_config_dict()
+    d["data"]["fused_preprocess"] = True  # K3 in the train step
+    cfg = Config(config_dict=d)
+    registry = TaskRegistry.from_config(cfg)
+    model, r["serving"] = p15_knobs("[p15-b]", cfg, registry, totals)
+    r["knob1024_round"] = st = staged_rounds(
+        "[p15-c]", cfg, registry, model, p15_per_step(1024), totals,
+        rounds=1)
+    p15_staged_log("[p15-c]", 1024, st, smi)
+    del model
+    torch.cuda.empty_cache()
+    r["staged"] = {}
+    for knob in (512, 256):
+        with fused_mlp_knob(knob):
+            model = build_model(cfg, registry, dtype=torch.bfloat16,
+                                device="cuda",
+                                generator=torch.Generator().manual_seed(15))
+        r["staged"][knob] = st = staged_rounds(
+            "[p15-b]", cfg, registry, model, p15_per_step(knob), totals,
+            rounds=P15_ROUNDS)
+        p15_staged_log("[p15-b]", knob, st, smi)
+        del model
+        torch.cuda.empty_cache()
+    seconds["b_c"] = time.perf_counter() - t0
+    # 15d: the f32 grad check of the seg step, card vs CPU, under 512
+    t0 = time.perf_counter()
+    preset = dict(key="p15_grads", config=flagship_config_dict,
+                  grad_types=("segmentation",))
+    report["p15_grads"] = {}
+    zero_launches()
+    with fused_mlp_knob(512):
+        check_train_grads(report, preset)
+    got = read_launches()
+    per = {k: v for k, v in p15_per_step(512).items()
+           if "augment" not in k}
+    if got != {k: per.get(k, 0) for k in got}:
+        fail(f"[p15-d] card launches {got} != one step's {per}")
+    r["grads"] = report.pop("p15_grads")["grads_card_vs_cpu"]
+    seconds["d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    st = r["staged"]
+    r.update(seconds=seconds, launches=totals,
+             total_s=time.perf_counter() - t15)
+    report["phase15"] = r
+    log(f"[phase15] {r['total_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"); staged img/s knob 512 {st[512]['img_s']:.2f} (peak "
+        f"{st[512]['peak_gib']:.2f} GiB), knob 256 {st[256]['img_s']:.2f} "
+        f"(peak {st[256]['peak_gib']:.2f} GiB), smoke timings; launches over"
+        f" its main-path runs: {totals} | {name} | {smi}")
+    return totals
+
+
+def phase15_main() -> int:
+    """``--phase15``: the kernels' build and phase 15 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from fmc_uia_tpu_torch.ops import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    spent = build.build()
+    log(f"[build] {time.perf_counter() - t0:.1f} s wall; per library "
+        f"{ {k: round(v, 1) for k, v in spent.items()} }")
+    for k in ("swin_mlp_fwd", "swin_mlp_bwd"):
+        for line in build.ptxas_report(k).splitlines():
+            if any(w in line for w in ("registers", "spill", "C7512",
+                                       "C7515", "Compiling entry")):
+                log(f"  ptxas {k}: {line.strip()}")
+    report = {"sass": check_sass(build)}
+    smi = nvidia_smi_line()
+    launches = phase15(torch.cuda.get_device_name(0), smi, report)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_phase15.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(json.dumps({"phase15_s": report["phase15"]["total_s"],
+                      "launches": launches, "card": smi}))
+    return 0
+
+
 def kinks_main() -> int:
     """``--kinks``: what each kind of kink explains in the SPM preset's
     grad check (phase 10c): the check's pair and batches, the card's step
@@ -5575,6 +5935,8 @@ def main() -> int:
         return phase13_main()
     if sys.argv[1:] == ["--phase14"]:
         return phase14_main()
+    if sys.argv[1:] == ["--phase15"]:
+        return phase15_main()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; nothing to drive",
               file=sys.stderr)
@@ -5817,6 +6179,9 @@ def main() -> int:
     # -- 14. the parallel modes ---------------------------------------------
     torch.cuda.empty_cache()
     phase14_launches = phase14(name, smi, report)
+    # -- 15. the fused MLP above C = 256 -------------------------------------
+    torch.cuda.empty_cache()
+    phase15_launches = phase15(name, smi, report)
 
     # -- kernels line ----------------------------------------------------------
     def entry(kname, source, replaces, count):
@@ -5910,6 +6275,7 @@ def main() -> int:
         e["launches_phase12"] = phase12_launches[e["name"]]
         e["launches_phase13"] = phase13_launches[e["name"]]
         e["launches_phase14"] = phase14_launches[e["name"]]
+        e["launches_phase15"] = phase15_launches[e["name"]]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

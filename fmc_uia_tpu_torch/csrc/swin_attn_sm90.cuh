@@ -32,6 +32,10 @@ struct K1b {};
 struct K2f {};
 struct K2b {};
 
+// The MLP widths above 256 that K2 takes (K2f mlp_fwd_wide_sm90, K2b
+// mlp_dual_stream_sm90; ops/swin_block.py MLP_WIDE_C).
+inline bool mlp_wide_c(int C) { return C == 384 || C == 512 || C == 768; }
+
 #define SWIN_TRY(expr)          \
   do {                          \
     const int err_ = (expr);    \

@@ -9,7 +9,8 @@
 // Design (bf16). The TPU kernel recomputes the forward of a token tile in
 // VMEM, pulls it back, and carries the weight-gradient sums across its
 // sequential grid. Hopper blocks run in parallel, so the pullback runs as
-// passes over all tokens (Ch = 4C hidden units, Ch % 64 == 0, C <= 256):
+// passes over all tokens (Ch = 4C hidden units, Ch % 64 == 0; C % 32 == 0
+// up to 256, or C = 384, 512, 768):
 //
 //   1. cast_weights: W1 and W2 rounded to bf16 once a call (TMA reads
 //      bf16; the port's params are f32).
@@ -26,6 +27,13 @@
 //      and dh1c = round(dh1), stores gc and dh1c, and writes db1's column
 //      partial of the f32 dh1 over the tile's 128 rows: one slot a tile.
 //      No T x 4C f32 buffer exists.
+//      Above C = 256 a tile's xn and dyc no longer fit beside the ring
+//      (2 x 128 KB at C = 512), so mlp_dual_stream_sm90 brings them through
+//      the ring too, a 64-deep k-chunk of each with the weights' (48 KB a
+//      stage), and a block takes 4 hidden blocks of one tile (grid: tiles x
+//      hidden groups); the same products, epilogue and db1 slots (one per
+//      128-token tile). The tile's xn and dyc are read from L2 once per
+//      hidden block instead of once.
 //   4. gemm_run (sm90_gemm.cuh), split over tokens (ops/swin_block.py
 //      split_k_plan): dW2 = dyc^T gc and dW1 = dh1c^T xn as per-slot f32
 //      partials, both operands read MN-major as they lie.
@@ -42,7 +50,9 @@
 // recomputed; fc2's output is not needed); the passes move about 72*C
 // bytes per token (xn, dyc, gc and dh1c, each written once and read once
 // or twice, dxn in f32, x, dy and dx), so at C <= 256 their bytes
-// outweigh the products on this card. The dual product keeps h1 and the
+// outweigh the products on this card (at C = 512 the products, 40 C^2 =
+// 10.5 M operations a token, and the bytes, 36.9 KB, are about even). The
+// dual product keeps h1 and the
 // f32 dh1 on chip; its epilogue stages gc and dh1c in shared memory for
 // 16-byte row stores, and each block starts at its own hidden block, so
 // that the SMs do not all read one weight chunk from L2 at once.
@@ -95,6 +105,80 @@ struct DualArgs {
   int T, Ch;
 };
 
+// The dual product's epilogue of one hidden block n0 .. n0 + 63 of the
+// 128-token tile at m0 (warpgroup wg's 64 rows; `buf` alternates the
+// column-sum buffer between hidden blocks): element 4 i + e at row rl +
+// 8 (e / 2) of the warpgroup, column 8 i + c0 + e % 2 of the block
+// (sm90_common.cuh acc_to_a). gc and dh1c go through shared memory, so
+// that a row's 64 units leave as 16-byte stores. Rows >= T read zero dyc,
+// so their dh1 is 0 and adds nothing to db1; they are not stored.
+template <class Smem>
+__device__ __forceinline__ void dual_epilogue(Smem& s, const DualArgs& a,
+                                              const float (&a1)[kDualN / 2],
+                                              const float (&a2)[kDualN / 2],
+                                              int wg, int buf, int n0,
+                                              int m0) {
+  const int tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
+  const int c0 = 2 * (lane & 3);
+  float* cs = s.colsum[buf][wg * 4 + warp];
+  bf16* og = s.out[wg][0];
+  bf16* od = s.out[wg][1];
+  const int rl = warp * 16 + (lane >> 2);  // r0's row in the warpgroup
+#pragma unroll
+  for (int i = 0; i < kDualN / 8; ++i) {
+    const int col = 8 * i + c0;
+    const float bias[2] = {a.b1[n0 + col], a.b1[n0 + col + 1]};
+    float g[4], d[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float grad;
+      g[e] = gelu_tanh(a1[4 * i + e] + bias[e & 1], &grad);
+      d[e] = grad * a2[4 * i + e];
+    }
+    store_bf16x2(og + rl * kDualLdO + col, g[0], g[1]);
+    store_bf16x2(od + rl * kDualLdO + col, d[0], d[1]);
+    store_bf16x2(og + (rl + 8) * kDualLdO + col, g[2], g[3]);
+    store_bf16x2(od + (rl + 8) * kDualLdO + col, d[2], d[3]);
+    // the warp's 16 rows of the two columns: rows g, g + 8, then the 8
+    // row groups by a butterfly over lanes 4 apart
+    float s0 = d[0] + d[2], s1 = d[1] + d[3];
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    if (lane < 4) {
+      cs[col] = s0;
+      cs[col + 1] = s1;
+    }
+  }
+  wg_bar(wg);
+  // 64 rows x 128 bytes of each: 8 threads a row, 16 bytes each
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = q * 16 + tid / 8, c = 8 * (tid % 8);
+    const int m = m0 + wg * 64 + r;
+    if (m < a.T) {
+      const long long o = static_cast<long long>(m) * a.Ch + n0 + c;
+      *reinterpret_cast<uint4*>(a.gc + o) =
+          *reinterpret_cast<const uint4*>(og + r * kDualLdO + c);
+      *reinterpret_cast<uint4*>(a.dh1c + o) =
+          *reinterpret_cast<const uint4*>(od + r * kDualLdO + c);
+    }
+  }
+  // the 8 warps' partials of this block, added in row order (the buffer
+  // alternates, so one barrier a block keeps writers off unread sums and
+  // unread staged outputs)
+  asm volatile("bar.sync 3, %0;\n" ::"n"(2 * kWgThreads) : "memory");
+  if (threadIdx.x < kDualN) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += s.colsum[buf][w][threadIdx.x];
+    a.p_b1[static_cast<long long>(blockIdx.x) * a.Ch + n0 + threadIdx.x] =
+        t;
+  }
+}
+
 template <int KC>
 __global__ void __launch_bounds__(DualRoles::kThreads, 1)
     mlp_dual_sm90(const __grid_constant__ CUtensorMap txn,
@@ -136,8 +220,6 @@ __global__ void __launch_bounds__(DualRoles::kThreads, 1)
     return;
   }
   // consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of the tile
-  const int tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
-  const int c0 = 2 * (lane & 3);
   mbar_wait_warp(&s.tile, 0);
   for (int j = 0; j < nj; ++j) {
     const int n0 = ((j + j0) % nj) * kDualN;
@@ -168,68 +250,7 @@ __global__ void __launch_bounds__(DualRoles::kThreads, 1)
     fence_regs(a1);
     fence_regs(a2);
 
-    // Epilogue, element 4 i + e at row rl + 8 (e / 2) of the warpgroup,
-    // column 8 i + c0 + e % 2 of the block (sm90_common.cuh acc_to_a). gc and dh1c go
-    // through shared memory, so that a row's 64 units leave as 16-byte
-    // stores. Rows >= T read zero dyc, so their dh1 is 0 and adds nothing
-    // to db1; they are not stored.
-    float* cs = s.colsum[j & 1][wg * 4 + warp];
-    bf16* og = s.out[wg][0];
-    bf16* od = s.out[wg][1];
-    const int rl = warp * 16 + (lane >> 2);  // r0's row in the warpgroup
-#pragma unroll
-    for (int i = 0; i < kDualN / 8; ++i) {
-      const int col = 8 * i + c0;
-      const float bias[2] = {a.b1[n0 + col], a.b1[n0 + col + 1]};
-      float g[4], d[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float grad;
-        g[e] = gelu_tanh(a1[4 * i + e] + bias[e & 1], &grad);
-        d[e] = grad * a2[4 * i + e];
-      }
-      store_bf16x2(og + rl * kDualLdO + col, g[0], g[1]);
-      store_bf16x2(od + rl * kDualLdO + col, d[0], d[1]);
-      store_bf16x2(og + (rl + 8) * kDualLdO + col, g[2], g[3]);
-      store_bf16x2(od + (rl + 8) * kDualLdO + col, d[2], d[3]);
-      // the warp's 16 rows of the two columns: rows g, g + 8, then the 8
-      // row groups by a butterfly over lanes 4 apart
-      float s0 = d[0] + d[2], s1 = d[1] + d[3];
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-      }
-      if (lane < 4) {
-        cs[col] = s0;
-        cs[col + 1] = s1;
-      }
-    }
-    wg_bar(wg);
-    // 64 rows x 128 bytes of each: 8 threads a row, 16 bytes each
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = q * 16 + tid / 8, c = 8 * (tid % 8);
-      const int m = m0 + wg * 64 + r;
-      if (m < a.T) {
-        const long long o = static_cast<long long>(m) * a.Ch + n0 + c;
-        *reinterpret_cast<uint4*>(a.gc + o) =
-            *reinterpret_cast<const uint4*>(og + r * kDualLdO + c);
-        *reinterpret_cast<uint4*>(a.dh1c + o) =
-            *reinterpret_cast<const uint4*>(od + r * kDualLdO + c);
-      }
-    }
-    // the 8 warps' partials of this block, added in row order (the buffer
-    // alternates, so one barrier a block keeps writers off unread sums and
-    // unread staged outputs)
-    asm volatile("bar.sync 3, %0;\n" ::"n"(2 * kWgThreads) : "memory");
-    if (threadIdx.x < kDualN) {
-      float t = 0.f;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) t += s.colsum[j & 1][w][threadIdx.x];
-      a.p_b1[static_cast<long long>(blockIdx.x) * a.Ch + n0 + threadIdx.x] =
-          t;
-    }
+    dual_epilogue(s, a, a1, a2, wg, j & 1, n0, m0);
   }
 }
 
@@ -243,6 +264,107 @@ int launch_dual(const CUtensorMap& txn, const CUtensorMap& tdy,
                            dual_smem_bytes<KC>()));
   mlp_dual_sm90<KC><<<(a.T + kDualM - 1) / kDualM, DualRoles::kThreads,
                       dual_smem_bytes<KC>(), s>>>(txn, tdy, tw1, tw2, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the dual product above C = 256: xn and dyc through the ring too ------
+struct DualStreamSmem {  // at the 1024-aligned start of dynamic shared memory
+  bf16 xn[kDualStages][kDualM * 64];  // the tile's k-chunk of xn and dyc
+  bf16 dy[kDualStages][kDualM * 64];
+  bf16 w1[kDualStages][kDualN * 64];  // as DualSmem
+  bf16 w2[kDualStages][64 * kDualN];
+  float colsum[2][8][kDualN];
+  bf16 out[2][2][64 * kDualLdO];
+  uint64_t full[kDualStages], empty[kDualStages];
+};
+constexpr int kDualStreamSmemBytes =
+    static_cast<int>(sizeof(DualStreamSmem)) + 1024;
+constexpr uint32_t kDualStreamStageBytes =
+    kDualStageBytes + 2 * kDualM * 64 * 2;
+constexpr int kDualStreamJ = 4;  // hidden blocks a block (grid.y groups)
+
+// Block (x, y): the 128-token tile x, hidden blocks 4 y .. 4 y + 3 (fewer
+// at the end); each hidden block takes KC = ceil(C / 64) stages, each one
+// k-chunk of the tile's xn and dyc (128 x 64, rows >= T and columns >= C
+// read as zeros) and of W1's and W2's block.
+__global__ void __launch_bounds__(DualRoles::kThreads, 1)
+    mlp_dual_stream_sm90(const __grid_constant__ CUtensorMap txn,
+                         const __grid_constant__ CUtensorMap tdy,
+                         const __grid_constant__ CUtensorMap tw1,
+                         const __grid_constant__ CUtensorMap tw2,
+                         DualArgs a, int KC) {
+  DualStreamSmem& s = *reinterpret_cast<DualStreamSmem*>(smem_base_1k());
+  const int m0 = blockIdx.x * kDualM;
+  const int nj = a.Ch / kDualN, jb = blockIdx.y * kDualStreamJ;
+  const int nb = min(nj - jb, kDualStreamJ);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kDualStages; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], DualRoles::kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = warpgroup_index();
+  if (wg == 2) {  // the producer warp
+    if (threadIdx.x == DualRoles::kProducerThread) {
+      for (int i = 0; i < nb * KC; ++i) {
+        const int st = i % kDualStages, n0 = (jb + i / KC) * kDualN,
+                  k0 = (i % KC) * 64;
+        mbar_wait(&s.empty[st], ((i / kDualStages) & 1) ^ 1);
+        mbar_expect_tx(&s.full[st], kDualStreamStageBytes);
+        tma_load_2d(s.xn[st], &txn, &s.full[st], k0, m0);
+        tma_load_2d(s.dy[st], &tdy, &s.full[st], k0, m0);
+        tma_load_2d(s.w1[st], &tw1, &s.full[st], k0, n0);
+        tma_load_2d(s.w2[st], &tw2, &s.full[st], n0, k0);
+      }
+    }
+    return;
+  }
+  // consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of the tile
+  for (int j = 0; j < nb; ++j) {
+    const int n0 = (jb + j) * kDualN;
+    // A1 = xn W1_j^T, A2 = dyc W2_j (64 x 64 each, K = C), as mlp_dual_sm90
+    float a1[kDualN / 2], a2[kDualN / 2];
+    for (int kc = 0; kc < KC; ++kc) {
+      const int i = j * KC + kc, st = i % kDualStages;
+      mbar_wait_warp(&s.full[st], (i / kDualStages) & 1);
+      const uint64_t dx = sw128_desc(s.xn[st] + wg * 64 * 64),
+                     dd = sw128_desc(s.dy[st] + wg * 64 * 64),
+                     d1 = sw128_desc(s.w1[st]), d2 = sw128_desc(s.w2[st]);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        Wg<kDualN>::ss<0, 0>(a1, dx + ks * kDescKStep, d1 + ks * kDescKStep,
+                             kc > 0 || ks > 0);
+        Wg<kDualN>::ss<0, 1>(a2, dd + ks * kDescKStep, d2 + ks * kDescRows16,
+                             kc > 0 || ks > 0);
+      }
+      wg_commit();
+      wg_wait<1>();  // chunk kc - 1's products are done: hand its stage back
+      if (kc > 0) warp_arrive(&s.empty[(i - 1) % kDualStages]);
+    }
+    wg_wait<0>();
+    warp_arrive(&s.empty[(j * KC + KC - 1) % kDualStages]);
+    fence_regs(a1);
+    fence_regs(a2);
+
+    dual_epilogue(s, a, a1, a2, wg, j & 1, n0, m0);
+  }
+}
+
+int launch_dual_stream(const CUtensorMap& txn, const CUtensorMap& tdy,
+                       const CUtensorMap& tw1, const CUtensorMap& tw2,
+                       const DualArgs& a, int KC, cudaStream_t s) {
+  static std::atomic<unsigned long long> smem_set{0};
+  SWIN_TRY(smem_limit_once(
+      smem_set, reinterpret_cast<const void*>(mlp_dual_stream_sm90),
+      kDualStreamSmemBytes));
+  const int nj = a.Ch / kDualN;
+  const dim3 grid((a.T + kDualM - 1) / kDualM,
+                  (nj + kDualStreamJ - 1) / kDualStreamJ);
+  mlp_dual_stream_sm90<<<grid, DualRoles::kThreads, kDualStreamSmemBytes,
+                         s>>>(txn, tdy, tw1, tw2, a, KC);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -392,7 +514,8 @@ int run_mlp_bwd_bf16(const MlpBwdArgs& a, int kchunk_w1, int kchunk_w2,
   SWIN_TRY(KC == 1   ? launch_dual<1>(txn, tdy, tw1, tw2, da, s)
            : KC == 2 ? launch_dual<2>(txn, tdy, tw1, tw2, da, s)
            : KC == 3 ? launch_dual<3>(txn, tdy, tw1, tw2, da, s)
-                     : launch_dual<4>(txn, tdy, tw1, tw2, da, s));
+           : KC == 4 ? launch_dual<4>(txn, tdy, tw1, tw2, da, s)
+                     : launch_dual_stream(txn, tdy, tw1, tw2, da, KC, s));
   SWIN_TRY((gemm_run<true, true, K2b>(w.dyc, C, w.gc, Ch, C, Ch, T_,
                                       kchunk_w2, EpiSlot{w.p_w2, C, Ch},
                                       s)));
@@ -412,14 +535,17 @@ int run_mlp_bwd_bf16(const MlpBwdArgs& a, int kchunk_w1, int kchunk_w2,
 }
 
 // what each version takes: f32 C <= 1024; bf16 the widths K2f takes too
-// (C % 32 == 0 up to 256: a tile's xn and dyc in shared memory, as
-// ops/swin_block.py mlp_kernel_dims says), whole hidden blocks
-// (Ch % 64 == 0), int token indices, and split-K chunks of whole k-steps
+// (C % 32 == 0 up to 256: a tile's xn and dyc in shared memory; C = 384,
+// 512, 768: streamed; as ops/swin_block.py mlp_kernel_dims says), whole
+// hidden blocks (Ch % 64 == 0), int token indices, and split-K chunks of
+// whole k-steps
 bool mlp_bwd_dims_ok(long long T, int C, int Ch, int is_bf16, int kchunk_w1,
                      int kchunk_w2) {
   if (T < 1 || C < 1 || Ch < 1 || C > 32 * kMaxLane) return false;
   if (!is_bf16) return true;
-  return C % 32 == 0 && C <= 4 * 64 && Ch % kDualN == 0 && T < (1LL << 31) &&
+  return ((C % 32 == 0 && C <= 4 * 64) || mlp_wide_c(C)) &&
+         Ch % kDualN == 0 &&
+         T < (1LL << 31) &&
          kchunk_w1 >= kGemmK && kchunk_w1 % kGemmK == 0 &&
          kchunk_w2 >= kGemmK && kchunk_w2 % kGemmK == 0;
 }

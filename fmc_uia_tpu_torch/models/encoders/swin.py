@@ -8,13 +8,17 @@ LayerNorm (in ``ln_dtype``) -> pad -> roll -> window partition -> qkv ->
 scores + rel-pos bias + shift/pad mask -> softmax -> .v -> proj ->
 unpartition -> unroll -> crop -> ``x + drop_path(y)``, the scores, bias,
 mask and softmax in bf16 under ``softmax_bf16`` with a bf16 ``dtype``
-(else f32). The MLP half runs through the fused MLP branch where
-``fused_mlp`` is on and C <= the gate (256, or ``FMC_FUSED_MLP_MAX_C``
-below it) and otherwise as LayerNorm -> Linear -> tanh-GELU -> Linear, as
-in the JAX package. The port has no scan: every block is its own module
-``stage{s}_block{b}``, which is also the JAX tree's name for an unrolled
-block (``utils/convert.py`` unstacks the scanned stages onto it); both
-attention paths share one param tree.
+(else f32). The MLP half follows the JAX package's gate: where
+``fused_mlp`` is on and C <= ``FMC_FUSED_MLP_MAX_C`` (default 256) it runs
+through the fused MLP branch (the K2 kernels), except at widths whose
+weights overflow the JAX kernel's VMEM budget (C = 1024, 1536), where the
+JAX branch computes ``_mlp_math`` under XLA and the port the same math as
+PyTorch ops (``mlp_branch_reference``, differentiated by autograd);
+otherwise it is LayerNorm -> Linear -> tanh-GELU -> Linear. The port has
+no scan: every block is its own module ``stage{s}_block{b}``, which is
+also the JAX tree's name for an unrolled block (``utils/convert.py``
+unstacks the scanned stages onto it); both attention paths share one
+param tree.
 
 The roll, the padding and the rel-pos table expansion stay outside the
 kernel, as on the TPU; so the rel-pos table's gradient flows through the
@@ -46,11 +50,17 @@ from fmc_uia_tpu_torch.models.layers import (
     layer_norm,
     trunc_normal_,
 )
-from fmc_uia_tpu_torch.ops.swin_block import attention_branch, mlp_branch
+from fmc_uia_tpu_torch.ops.swin_block import (
+    MLP_WIDE_C,
+    attention_branch,
+    mlp_branch,
+    mlp_branch_reference,
+    mlp_fits_jax_kernel,
+)
 from fmc_uia_tpu_torch.parallel.sharding import tp_mlp
 
-# the fused MLP branch serves the blocks with C <= 256 (stages 0 and 1 of
-# swin_b), the gate of the JAX package; its kernels take no wider C
+# the JAX package's default gate of the fused MLP branch (C <= 256: stages
+# 0 and 1 of swin_b); ``FMC_FUSED_MLP_MAX_C`` moves it either way
 FUSED_MLP_MAX_C = 256
 
 
@@ -136,9 +146,17 @@ class SwinBlock(nn.Module):
         # scores, bias, mask and softmax of the unfused attention
         self.score_dtype = (torch.bfloat16 if softmax_bf16
                             and dtype == torch.bfloat16 else torch.float32)
-        self.fused_mlp = fused_mlp and dim <= min(fused_mlp_max_c,
-                                                  FUSED_MLP_MAX_C)
         hidden = int(dim * mlp_ratio)
+        # JAX's fused branch: the Pallas kernel (here K2) where its weights
+        # fit the kernel's budget, else _mlp_math under XLA (here the
+        # plain version); chosen by shape, once
+        gated = fused_mlp and dim <= fused_mlp_max_c
+        self.fused_mlp = gated and mlp_fits_jax_kernel(dim, hidden)
+        self.mlp_math = gated and not self.fused_mlp
+        if self.fused_mlp and dim > 256 and dim not in MLP_WIDE_C:
+            raise NotImplementedError(
+                f"fused MLP at C={dim}: the port's K2 kernels take C <= 256 "
+                f"and {MLP_WIDE_C} (ROADMAP queue 2b item 3)")
         self.norm1 = _LN(dim)
         self.attn = _Attn(dim, num_heads, window_size)
         self.norm2 = _LN(dim)
@@ -258,12 +276,12 @@ class SwinBlock(nn.Module):
                 y = y[:, :H, :W, :]
             x = y.contiguous()  # residual is inside the branch
 
-        if self.fused_mlp:
-            return mlp_branch(x.to(self.dtype), self.norm2.scale,
-                              self.norm2.bias, self.mlp_fc1.kernel,
-                              self.mlp_fc1.bias, self.mlp_fc2.kernel,
-                              self.mlp_fc2.bias,
-                              dp=self._dp(x, train, generator))
+        if self.fused_mlp or self.mlp_math:
+            fn = mlp_branch if self.fused_mlp else mlp_branch_reference
+            return fn(x.to(self.dtype), self.norm2.scale, self.norm2.bias,
+                      self.mlp_fc1.kernel, self.mlp_fc1.bias,
+                      self.mlp_fc2.kernel, self.mlp_fc2.bias,
+                      dp=self._dp(x, train, generator))
         dt = self.dtype
         y = layer_norm(x, self.norm2.scale, self.norm2.bias, 1e-6,
                        self.ln_dtype)
@@ -397,10 +415,10 @@ def build_swin(name: str, config=None, dtype=torch.float32) -> SwinEncoder:
     ``fused_stages`` (None: every stage; the stages left out run the
     unfused attention), ``softmax_bf16`` (bf16 scores in the unfused
     attention) and ``fused_mlp`` (default on: the fused MLP branch at C <=
-    256). ``FMC_FUSED_MLP_MAX_C``, read here, narrows that gate as the
-    JAX package's does; a value above 256 raises
-    ``NotImplementedError`` while the fused MLP is on (the fused MLP
-    kernels take C <= 256)."""
+    256). ``FMC_FUSED_MLP_MAX_C``, read here, moves that gate as the JAX
+    package's does, either way: above 256 the K2 kernels take C = 384,
+    512 and 768 and C = 1024 / 1536 run JAX's XLA-branch math (see
+    ``SwinBlock``)."""
     if name not in _SWIN_VARIANTS:
         raise ValueError(
             f"Unknown swin variant {name!r}; have {sorted(_SWIN_VARIANTS)}")
@@ -418,11 +436,6 @@ def build_swin(name: str, config=None, dtype=torch.float32) -> SwinEncoder:
         softmax_bf16 = bool(config.get("model.encoder.softmax_bf16", False))
         fused_mlp = bool(config.get("model.encoder.fused_mlp", True))
     max_c = int(os.environ.get("FMC_FUSED_MLP_MAX_C", FUSED_MLP_MAX_C))
-    if fused_mlp and max_c > FUSED_MLP_MAX_C:
-        raise NotImplementedError(
-            f"FMC_FUSED_MLP_MAX_C={max_c}: the port's fused MLP kernels "
-            f"take C <= {FUSED_MLP_MAX_C} only, the JAX package's default "
-            "gate (ROADMAP queue 2b item 3, K2f/K2b)")
     return SwinEncoder(window_size=window, ln_bf16=ln_bf16,
                        fused_mlp=fused_mlp, drop_path_rate=drop_path,
                        fused_block=fused_block, fused_stages=fused_stages,

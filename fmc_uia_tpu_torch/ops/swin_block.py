@@ -29,8 +29,9 @@ here, where the CPU tests hold it: the window box of the [B, Hp, Wp, C]
 tensor maps (``window_tma_layout``), the head groups of the window
 kernels (``head_groups``), the token slots of K1b's and K2b's split-K
 weight gradients (``split_k_plan``), K2b's launch plan and workspace
-(``mlp_bwd_plan``) and the widths the MLP kernels take
-(``mlp_kernel_dims``).
+(``mlp_bwd_plan``), the widths the MLP kernels take
+(``mlp_kernel_dims``) and the JAX package's rule for the widths its MLP
+kernel takes at all (``mlp_fits_jax_kernel``).
 """
 
 from __future__ import annotations
@@ -507,19 +508,42 @@ def mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
 
 # K2b's dual product takes 128-token tiles: one db1 slot a tile
 MLP_TILE = 128
+# the bf16 kernels' instances above C = 256 (csrc/swin_mlp_fwd.cu
+# mlp_fwd_wide_sm90, csrc/swin_mlp_bwd.cu mlp_dual_stream_sm90): the Swin
+# widths the JAX package fuses under FMC_FUSED_MLP_MAX_C (swin_t / swin_s
+# stages 2-3, swin_b stage 2, swin_l stages 1-2)
+MLP_WIDE_C = (384, 512, 768)
+# The JAX kernel's scoped-VMEM budget, copied from
+# fmc_uia_tpu/ops/swin_block_pallas.py:652-670 (_MLP_VMEM_LIMIT and the
+# 0.72 share _pick_mlp_tile leaves the working set): the f32 weight pair
+# and its bf16 casts alone take 12 C Ch bytes of it.
+MLP_VMEM_LIMIT = 64 * 1024 * 1024
+MLP_VMEM_SHARE = 0.72
+
+
+def mlp_fits_jax_kernel(C: int, Ch: int) -> bool:
+    """Whether the JAX package's Pallas MLP kernel takes widths (C, Ch) at
+    all: False where the weights alone, 12 C Ch bytes, exceed
+    int(MLP_VMEM_LIMIT * MLP_VMEM_SHARE), so that ``_pick_mlp_tile``
+    finds no tile at any token count and ``fused_mlp_branch`` runs
+    ``_mlp_math`` under XLA instead (C = 1024 and 1536 at Ch = 4C)."""
+    return 12 * C * Ch <= int(MLP_VMEM_LIMIT * MLP_VMEM_SHARE)
 
 
 def mlp_kernel_dims(C: int, Ch: int, dtype) -> None:
     """Raise ``ValueError`` on widths the MLP kernels do not take. bf16:
-    C % 32 == 0 and C <= 256 (K2f keeps y, 64 x C in f32 a warpgroup, in
-    registers, with wgmma widths that sum to C; K2b keeps a tile's xn and
-    dyc in shared memory) and Ch % 64 == 0 (whole hidden chunks). f32:
-    C <= 1024 (the pullback's rows of 32 lanes)."""
+    Ch % 64 == 0 (whole hidden chunks) and C % 32 == 0 up to 256 (K2f
+    keeps y, 64 x C in f32 a warpgroup, in registers, with wgmma widths
+    that sum to C; K2b keeps a tile's xn and dyc in shared memory) or C
+    in ``MLP_WIDE_C`` (K2f: two warpgroups share 64 tokens, C / 2 columns
+    of y each; K2b streams xn and dyc with the weights). f32: C <= 1024
+    (the pullback's rows of 32 lanes)."""
     if dtype == torch.bfloat16:
-        if C % 32 or not 32 <= C <= 256 or Ch % 64 or Ch < 64:
+        if (Ch % 64 or Ch < 64
+                or not (C % 32 == 0 and 32 <= C <= 256 or C in MLP_WIDE_C)):
             raise ValueError(f"bf16 MLP kernels: C={C}, Ch={Ch}: need C a "
-                             "multiple of 32 up to 256 and Ch a multiple "
-                             "of 64")
+                             "multiple of 32 up to 256 or one of "
+                             f"{MLP_WIDE_C}, and Ch a multiple of 64")
     elif not 1 <= C <= 1024 or Ch < 1:
         raise ValueError(f"f32 MLP kernels: C={C}, Ch={Ch}: need "
                          "1 <= C <= 1024")

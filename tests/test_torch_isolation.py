@@ -293,15 +293,29 @@ def test_fused_stages_all_or_none_builds_the_same_encoder():
         assert _structure(enc) == _structure(base)
 
 
-def test_fused_mlp_max_c_other_than_256_raises(monkeypatch):
-    """Above 256 (wider fused MLP kernels) still raises while the fused
-    MLP is on; below it the gate narrows, as the JAX package's does."""
+def test_fused_mlp_max_c_above_256_gates_as_jax(monkeypatch):
+    """Above 256 the gate widens as the JAX package's does: swin_b's
+    stages 0-2 (C = 128 to 512) run the fused kernels under 512, stage 3
+    (C = 1024, whose weights overflow the JAX kernel's budget) runs JAX's
+    XLA-branch math under 1024; 384 keeps stage 2 unfused. Below 256
+    the gate narrows."""
+    from fmc_uia_tpu_torch.models.encoders import swin
     from fmc_uia_tpu_torch.models.encoders.swin import build_swin
 
-    monkeypatch.setenv("FMC_FUSED_MLP_MAX_C", "512")
-    with pytest.raises(NotImplementedError,
-                       match="FMC_FUSED_MLP_MAX_C=512.*ROADMAP"):
-        build_swin("swin_nano", _swin_cfg())
+    # swin_b's widths at one block a stage
+    monkeypatch.setitem(swin._SWIN_VARIANTS, "swin_b", dict(
+        swin._SWIN_VARIANTS["swin_b"], depths=(1, 1, 1, 1)))
+    for max_c, fused, math in (("512", [1, 1, 1, 0], [0, 0, 0, 0]),
+                               ("1024", [1, 1, 1, 0], [0, 0, 0, 1]),
+                               ("384", [1, 1, 0, 0], [0, 0, 0, 0])):
+        monkeypatch.setenv("FMC_FUSED_MLP_MAX_C", max_c)
+        enc = build_swin("swin_b", _swin_cfg())
+        blocks = [getattr(enc, f"stage{s}_block0") for s in range(4)]
+        assert [int(b.fused_mlp) for b in blocks] == fused, max_c
+        assert [int(b.mlp_math) for b in blocks] == math, max_c
+    # a width in the JAX kernel's budget that no K2 instance takes
+    with pytest.raises(NotImplementedError, match="C=640.*ROADMAP"):
+        swin.SwinBlock(640, 20, 8, shift=0, fused_mlp_max_c=1024)
     # the gate only matters where the fused MLP is on, as in the JAX package
     build_swin("swin_nano", _swin_cfg(fused_mlp=False))
     monkeypatch.setenv("FMC_FUSED_MLP_MAX_C", "256")

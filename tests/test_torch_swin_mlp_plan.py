@@ -2,7 +2,8 @@
 the CPU: K2b's launch plan (``mlp_bwd_plan``: the split-K token slots of
 dW1 and dW2, db1's slots of one 128-token tile each, and the workspace
 bytes, carved as ``csrc/swin_mlp_bwd.cu`` carves them), db1 summed the way
-K2b sums it, and the widths the kernels refuse (``mlp_kernel_dims``).
+K2b sums it, and the widths the kernels take and refuse
+(``mlp_kernel_dims``: C = 384, 512 and 768 above 256).
 
 db1 is held against ``_mlp_pullback``'s from the JAX package with
 ``test_torch_swin_bwd``'s tolerances: f32 1e-5 of its largest magnitude
@@ -141,7 +142,8 @@ def test_db1_tile_partials_in_index_order(C, dt):
 
 
 @pytest.mark.parametrize("C, Ch", [(32, 128), (96, 384), (128, 512),
-                                   (160, 640), (192, 768), (256, 1024)])
+                                   (160, 640), (192, 768), (256, 1024),
+                                   (384, 1536), (512, 2048), (768, 3072)])
 def test_widths_the_kernels_take(C, Ch):
     sb.mlp_kernel_dims(C, Ch, torch.bfloat16)
     sb.mlp_kernel_dims(C, Ch, torch.float32)
@@ -150,8 +152,8 @@ def test_widths_the_kernels_take(C, Ch):
 @pytest.mark.parametrize("C, Ch, dtype", [
     (16, 64, torch.bfloat16),    # below one 32-wide piece
     (48, 192, torch.bfloat16),   # not a multiple of 32
-    (288, 1152, torch.bfloat16),  # y would not fit a warpgroup's registers
-    (512, 2048, torch.bfloat16),  # stage 2: the unfused MLP's width
+    (288, 1152, torch.bfloat16),  # above 256 and not a wide instance
+    (1024, 4096, torch.bfloat16),  # swin_b stage 3: JAX's XLA branch
     (32, 96, torch.bfloat16),    # a partial hidden chunk
     (2048, 8192, torch.float32),  # beyond the f32 pullback's rows
 ])
