@@ -329,17 +329,22 @@ pass):
    part runs; a failed one fails the phase at its end. The multi-rank
    times share one card: smoke timings, not a parallel speed.
 15. the fused Swin MLP above C = 256 (``FMC_FUSED_MLP_MAX_C``, set before
-   each model is built). (a) K2f and K2b at C = 384, 512 and 768 (Ch =
-   4C, the wide instances) against their plain versions, f32 and bf16,
-   dp on, phases 2 and 2b's rules: C = 512 at the flagship's stage 2
-   (32² x 512; K2f at B = 8, K2b at B = 24), 384 and 768 at swin_t
-   512²'s stages 2 and 3 (32² x 384, 16² x 768), and untimed 147 tokens
-   at 384 and 768 (the last 64-token block holds 19, dp changes inside
-   the first block); K2b's workspace against
+   each model is built). (a) K2f and K2b above C = 256 (Ch = 4C; C at
+   run time: K2f's two products, K2b's ``mlp_dual_wide_sm90``) against
+   their plain versions, f32 and bf16, dp on, phases 2 and 2b's rules:
+   C = 512 at the flagship's stage 2 (32² x 512; K2f at B = 8, K2b at
+   B = 24), 384 and 768 at swin_t 512²'s stages 2 and 3 (32² x 384, 16² x
+   768), and untimed 147 tokens at 384, 768, 640, 960 and 288 (the last
+   128-token tile holds 19, dp changes inside the first tile); K2f's
+   workspace against ``mlp_fwd_plan``'s and K2b's against
    ``mlp_bwd_plan``'s; per case one call's ms, the plain version's, the
    library chain's (``k2_chain``; its autograd backward alone for K2b;
    information only) and the bound (16 T C² operations forward, 40 T C²
-   backward, or the bytes). (b) the flagship under the knob at 512, K3
+   backward, or the bytes); in bf16 also each kernel's device ms a call
+   by name (``kernel_split``, a profiler trace of 3 calls). The build
+   step fails on any ptxas spill in K2f's products or
+   ``mlp_dual_wide_sm90`` (``check_k2_spills``). (b) the flagship under
+   the knob at 512, K3
    on: phase 13a's ``Predictor`` checks (B = 8, one task of each type,
    launches exact: K1f 24, K2f 22 a forward; bf16 against f32 on the
    card within 0.1 of the largest, decoded ids equal but at near ties;
@@ -350,7 +355,8 @@ pass):
    a warm-up round then P15_ROUNDS timed round-robin rounds (synced),
    under 512 and then under 256 from the same seed: finite losses,
    launches exact (K1f/K1b 24, K2f/K2b 22 and 4, K3 1 a step), img/s and
-   peak GiB (smoke timings). (c) under 1024: one counted ``Predictor``
+   peak GiB (smoke timings), and 512's img/s over 256's. (c) under
+   1024: one counted ``Predictor``
    forward and a warm-up and a timed round of steps, launches as 512's.
    (d) phase 5's f32 grad check of the segmentation
    step, card vs CPU at B = 1, 256², under 512 (the f32 wide kernels on
@@ -409,7 +415,14 @@ builds the kernels and runs phase 14 alone, one JSON line.
     python3 chip_smoke.py --phase15
 
 builds the kernels (printing the K2 libraries' ptxas lines and checking
-the SASS as phase 1 does) and runs phase 15 alone, one JSON line.
+the SASS and K2's spills as phase 1 does) and runs phase 15 alone, one
+JSON line.
+
+    python3 chip_smoke.py --k2-wide
+
+builds the K2 libraries and runs phase 15a's timed cases alone, one
+JSON line of their bf16 times and per-kernel splits; copied into the
+root of another tree of the port it times that tree's K2 the same way.
 """
 
 from __future__ import annotations
@@ -528,8 +541,8 @@ def check_branch(out, ref, x, dtype, what):
 # TMA, and their libraries hold no WMMA / mma.sync product
 K1_PRODUCTS = {"swin_attn_fwd": ("qkv_window_attn", "gemm_sm90"),
                "swin_attn_bwd": ("attn_core_bwd_sm90", "gemm_sm90")}
-K2_PRODUCTS = {"swin_mlp_fwd": ("mlp_fwd_sm90", "mlp_fwd_wide_sm90"),
-               "swin_mlp_bwd": ("mlp_dual_sm90", "mlp_dual_stream_sm90",
+K2_PRODUCTS = {"swin_mlp_fwd": ("mlp_fwd_sm90", "gemm_sm90"),
+               "swin_mlp_bwd": ("mlp_dual_sm90", "mlp_dual_wide_sm90",
                                 "gemm_sm90")}
 PRODUCTS = {**K1_PRODUCTS, **K2_PRODUCTS}
 
@@ -577,6 +590,32 @@ def check_sass(build):
                 fail(f"{k}: no {p} kernel in its SASS")
     counts.update(check_k3_sass(build, tool))
     return counts
+
+
+def check_k2_spills(build):
+    """ptxas (-v) of the K2 functions above C = 256, K2f's two products
+    and K2b's dxn (gemm_sm90, with K2b's other products) and
+    mlp_dual_wide_sm90: a spill store or load in any of them fails, and
+    so does finding none."""
+    seen = 0
+    for k in ("swin_mlp_fwd", "swin_mlp_bwd"):
+        fn = None
+        for line in build.ptxas_report(k).splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if not (m and fn and ("mlp_dual_wide_sm90" in fn
+                                  or "gemm_sm90" in fn)):
+                continue
+            seen += 1
+            if int(m.group(1)) or int(m.group(2)):
+                fail(f"ptxas {k} {fn}: {line.strip()}")
+    if not seen:
+        fail("ptxas: no report of K2f's products or mlp_dual_wide_sm90")
+    log(f"  ptxas: no spills in the {seen} K2 functions above C = 256")
 
 
 def check_k3_sass(build, tool):
@@ -5530,12 +5569,16 @@ def phase14_main() -> int:
 P15_KNOB = "FMC_FUSED_MLP_MAX_C"
 # (label, C, grid, K2f's B, K2b's B) of 15a: at 512², swin_b's stage 2
 # (the flagship's) and swin_t's stages 2 and 3, timed; then untimed,
-# 147 tokens (the last 64-token block holds 19; dp changes inside the
-# first block) at both other widths
+# 147 tokens (the last 128-token tile holds 19; dp changes inside the
+# first tile) at both other widths and at 640, 960 and 288, widths no
+# Swin variant has that the run-time-C kernels take (288: the last
+# 64-deep k-chunk half zeros)
 P15_CASES = (("c512_swin_b_s2", 512, 32, BATCH, TRAIN_BATCH),
              ("c384_swin_t_s2", 384, 32, BATCH, TRAIN_BATCH),
              ("c768_swin_t_s3", 768, 16, BATCH, TRAIN_BATCH),
-             ("c384_ragged", 384, 7, 3, 3), ("c768_ragged", 768, 7, 3, 3))
+             ("c384_ragged", 384, 7, 3, 3), ("c768_ragged", 768, 7, 3, 3),
+             ("c640_ragged", 640, 7, 3, 3), ("c960_ragged", 960, 7, 3, 3),
+             ("c288_ragged", 288, 7, 3, 3))
 P15_ROUNDS = 2       # timed round-robin rounds of 15b, each knob
 
 
@@ -5571,9 +5614,92 @@ def p15_per_step(knob, train=True):
     return out
 
 
-def p15_kernels(smi):
+def kernel_key(name: str) -> str:
+    """A profiler kernel name, demangled ("void ns::fn<args>(params)") or
+    mangled ("_ZN2ns2fnI...E..."), without namespaces, parameters and
+    template arguments; gemm_sm90 keeps its epilogue, which tells K2f's
+    two products and K2b's dxn from the split-K weight products."""
+    if name.startswith("_Z"):
+        i, parts = (3 if name.startswith("_ZN") else 2), []
+        while i < len(name) and name[i].isdigit():
+            j = i
+            while name[j].isdigit():
+                j += 1
+            n = int(name[i:j])
+            parts.append(name[j:j + n])
+            i = j + n
+        key = parts[-1] if parts else name
+        m = re.search(r"(\d+)Epi", name[i:])
+        if key == "gemm_sm90" and m:
+            start = i + m.start() + len(m.group(1))
+            key += f"[{name[start:start + int(m.group(1))]}]"
+        return key
+    base = name.split("(")[0]
+    if base.startswith("void "):
+        base = base[5:]
+    head, _, targs = base.partition("<")
+    key = head.split("::")[-1].strip()
+    if key == "gemm_sm90":
+        args = [t.strip() for t in targs.rstrip(">").split(",")]
+        if len(args) > 2:
+            key += f"[{args[2].split('::')[-1]}]"
+    return key
+
+
+def kernel_split(fn, calls: int = 3):
+    """The device ms a call of each kernel that ``fn`` launches, by
+    ``kernel_key``, from a torch.profiler trace of ``calls`` calls after a
+    warm-up: {key: {"ms": ms a call, "n": launches a call}}, largest
+    first. A trace that holds no kernel's device time is taken again (a
+    short one came back empty, once in a whole run after phase 14's
+    process groups and once alone); after three such traces the split
+    is not measured: {} (it is information, not a check)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            # kernels only (as profile_train_round): not the ops around
+            # them, whose self device time counts their kernels again
+            us = float(getattr(e, "self_device_time_total", 0.0)
+                       or getattr(e, "self_cuda_time_total", 0.0))
+            if us <= 0 or not str(getattr(e, "device_type", "")).endswith(
+                    "CUDA"):
+                continue
+            d = out.setdefault(kernel_key(e.key), {"ms": 0.0, "n": 0.0})
+            d["ms"] += us / 1e3 / calls
+            d["n"] += e.count / calls
+        if out:
+            return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
+    return {}
+
+
+def split_text(split) -> str:
+    if not split:
+        return "; kernels: not measured (three traces held no kernel)"
+    total = sum(v["ms"] for v in split.values())
+    return (f"; kernels {total:.3f} ms: " + ", ".join(
+        f"{k} {v['ms']:.4f}" + (f" ({v['n']:g}x)" if v["n"] != 1 else "")
+        for k, v in split.items()))
+
+
+def p15_kernels(smi, cases=P15_CASES):
     """15a: K2f and K2b at the wide widths against their plain versions,
-    f32 and bf16, dp on (phases 2 and 2b's rules), and their times."""
+    f32 and bf16, dp on (phases 2 and 2b's rules), and their times, with
+    each bf16 kernel's device time a call by name (``kernel_split``).
+    A width this tree's kernels refuse is skipped with a line: here the
+    f32 forward beyond its shared memory (C = 960; ``MLP_F32_MAX_C``),
+    and in another tree, with ``--k2-wide`` copied into it, whatever it
+    refuses (the CPU tests hold every bf16 case's width to this tree's
+    ``mlp_kernel_dims``). ``cases``: a subset of P15_CASES."""
     import torch
 
     from fmc_uia_tpu_torch.ops import build
@@ -5581,6 +5707,7 @@ def p15_kernels(smi):
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(15)
+    fwd_plan = getattr(sb, "mlp_fwd_plan", None)  # K2f's mirror
     recs = []
 
     def timed(rec, fn, ref_fn, chain, flops, nbytes, dtype, reps):
@@ -5593,14 +5720,32 @@ def p15_kernels(smi):
         rec["bound_ms"] = 1e3 * max(flops / peak, nbytes / HBM_BPS)
         rec["bound_by"] = ("operations" if flops / peak >= nbytes / HBM_BPS
                            else "bytes")
-        return (f"  {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f}, chain "
-                f"{rec['chain_ms']:.3f}, bound {rec['bound_ms']:.4f} "
-                f"{rec['bound_by']})")
+        out = (f"  {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f}, chain "
+               f"{rec['chain_ms']:.3f}, bound {rec['bound_ms']:.4f} "
+               f"{rec['bound_by']})")
+        if dtype == torch.bfloat16:
+            # per call of BURST_CALLS back-to-back calls (the host's launch
+            # gaps hidden where the card is the slower), and each kernel's
+            # own device time a call
+            rec["ms_10"] = cuda_ms(fn, reps=5, warmup=1, calls=BURST_CALLS)
+            rec["split"] = kernel_split(fn)
+            if rec["split"]:
+                rec["device_ms"] = sum(v["ms"]
+                                       for v in rec["split"].values())
+            out += (f", {rec['ms_10']:.3f} ms of {BURST_CALLS}"
+                    + split_text(rec["split"]))
+        return out
 
-    for label, C, grid, bf, bb in P15_CASES:
+    for label, C, grid, bf, bb in cases:
         Ch = 4 * C
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype).split(".")[-1]
+            try:
+                sb.mlp_kernel_dims(C, Ch, dtype)
+            except ValueError as e:
+                log(f"[p15-a] {label} {dt}: skipped, this tree's kernels "
+                    f"refuse it ({e})")
+                continue
             x, w, dp = mlp_inputs(bf, grid, C, dtype, gen, dev)
             args = tuple(w[k] for k in ("ln_scale", "ln_bias", "w1", "b1",
                                         "w2", "b2"))
@@ -5610,6 +5755,13 @@ def p15_kernels(smi):
             T, esz = x.numel() // C, x.element_size()
             rec = dict(kernel="mlp_branch", case=label, dtype=dt,
                        shape=[bf, grid, grid, C], **chk)
+            if dtype == torch.bfloat16 and fwd_plan is not None:
+                got_ws = build.load("swin_mlp_fwd", "swin_mlp_fwd_workspace")(
+                    T, C, Ch, 1)
+                if got_ws != fwd_plan(T, C, Ch)["workspace"]:
+                    fail(f"[p15-a] K2f {label}: workspace {got_ws} bytes != "
+                         f"the plan's {fwd_plan(T, C, Ch)['workspace']}")
+                rec["workspace"] = got_ws
             fn, params = k2_chain(x, w, dp)
             times = timed(rec, lambda: sb.mlp_branch(x, *args, dp=dp),
                           lambda: sb.mlp_branch_reference(x, *args, dp=dp),
@@ -5802,6 +5954,11 @@ def phase15(name, smi, report):
     seconds["d"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     st = r["staged"]
+    r["staged_ratio"] = st[512]["img_s"] / st[256]["img_s"]
+    log(f"[p15-b] staged img/s under 512 over 256 (this run): "
+        f"{st[512]['img_s']:.2f} / {st[256]['img_s']:.2f} = "
+        f"{r['staged_ratio']:.3f}x; peak {st[512]['peak_gib']:.2f} / "
+        f"{st[256]['peak_gib']:.2f} GiB | {smi}")
     r.update(seconds=seconds, launches=totals,
              total_s=time.perf_counter() - t15)
     report["phase15"] = r
@@ -5835,6 +5992,7 @@ def phase15_main() -> int:
             if any(w in line for w in ("registers", "spill", "C7512",
                                        "C7515", "Compiling entry")):
                 log(f"  ptxas {k}: {line.strip()}")
+    check_k2_spills(build)
     report = {"sass": check_sass(build)}
     smi = nvidia_smi_line()
     launches = phase15(torch.cuda.get_device_name(0), smi, report)
@@ -5844,6 +6002,36 @@ def phase15_main() -> int:
         json.dump(report, f, indent=1, default=str)
     print(json.dumps({"phase15_s": report["phase15"]["total_s"],
                       "launches": launches, "card": smi}))
+    return 0
+
+
+def k2_wide_main() -> int:
+    """``--k2-wide``: the K2 libraries' build and phase 15a's timed cases
+    alone (checked, then timed; the ragged ones are phase 15's), one JSON
+    line of their bf16 times and splits. Copied into the root of another
+    tree of the port it checks and times that tree's K2 the same way, so
+    two trees compare within one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from fmc_uia_tpu_torch.ops import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    spent = build.build(["swin_mlp_fwd", "swin_mlp_bwd"])
+    log(f"[build] {time.perf_counter() - t0:.1f} s wall; per library "
+        f"{ {k: round(v, 1) for k, v in spent.items()} }")
+    smi = nvidia_smi_line()
+    recs = p15_kernels(smi, [c for c in P15_CASES if "ragged" not in c[0]])
+    keys = ("kernel", "case", "ms", "ms_10", "device_ms", "plain_ms",
+            "chain_ms", "bound_ms", "floor_ms", "split")
+    print(json.dumps({"k2_wide": [{k: r[k] for k in keys if k in r}
+                                  for r in recs if r["dtype"] == "bfloat16"
+                                  and "ms" in r],
+                      "card": smi}))
     return 0
 
 
@@ -5937,6 +6125,8 @@ def main() -> int:
         return phase14_main()
     if sys.argv[1:] == ["--phase15"]:
         return phase15_main()
+    if sys.argv[1:] == ["--k2-wide"]:
+        return k2_wide_main()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; nothing to drive",
               file=sys.stderr)
@@ -5983,6 +6173,7 @@ def main() -> int:
                     (k in PRODUCTS or k == "preprocess_fwd")
                     and "Compiling entry" in line):
                 log(f"  ptxas {k}: {line.strip()}")
+    check_k2_spills(build)
     report["sass"] = check_sass(build)
 
     # -- 2. kernels ------------------------------------------------------------

@@ -10,13 +10,14 @@
 //   A(m, k) = A_MN ? A[k * lda + m] : A[m * lda + k]   (MN- or K-major)
 //   B(k, n) = B_MN ? B[k * ldb + n] : B[n * ldb + k]
 //
-// Design. A block computes a kGemmM x kGemmN (128 x 128) tile of C over
+// Design. A block computes a kGemmM x BN (128 x 128; 96 or 64 where
+// gemm_pick_bn finds a narrower tile fills the card better) tile of C over
 // one slot of K (split-K: slot z covers [z kchunk, (z + 1) kchunk), kchunk
 // a whole number of 64-deep chunks). One producer warp keeps a ring of
 // kGemmStages A and B chunks in flight by TMA (128-byte swizzle, out-of-
 // bounds rows and columns read as zeros), with a full and an empty
 // mbarrier per stage; two consumer warpgroups, 64 rows of the tile each,
-// run wgmma m64n128k16 from shared memory with f32 accumulators, keep one
+// run wgmma m64nBNk16 from shared memory with f32 accumulators, keep one
 // chunk's products in flight while the previous stage is handed back, and
 // run the epilogue on the accumulator fragment. Operand majors (see
 // sm90_common.cuh): a K-major operand is one box of 64 k x 128 rows; an
@@ -29,6 +30,7 @@
 #pragma once
 
 #include <atomic>
+#include <initializer_list>
 
 #include "sm90_common.cuh"
 
@@ -83,6 +85,49 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- thread block clusters ---------------------------------------------------
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of the cluster that has not exited arrives, then waits for
+// the others (release, then acquire: barrier inits and shared-memory work
+// before it are visible to the cluster's blocks after it).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n"
+               "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// One arrival on the mbarrier at bar's offset in the cluster's block cta
+// (this block's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// tma_load_2d into dst's offset of every block in `mask` (bit r: rank r),
+// counted on the mbarrier at bar's offset in each of them.
+__device__ __forceinline__ void tma_load_2d_mc(void* dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int c0, int c1,
+                                               uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar)), "h"(mask)
       : "memory");
 }
 
@@ -194,6 +239,30 @@ struct Wg<64> {
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
+  }
+};
+
+template <>
+struct Wg<96> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[48], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
@@ -319,40 +388,61 @@ struct Wg<192> {
   }
 };
 // ---- the GEMM ----------------------------------------------------------------
+// The tile is kGemmM x BN: BN = kGemmN (128) but where a product's output
+// tiles would leave most of the last wave's SMs idle (gemm_pick_bn: K2f's
+// fc2 at C = 384 and 768), 96 or 64.
 constexpr int kGemmM = 128, kGemmN = 128, kGemmK = 64;
 constexpr int kGemmStages = 4;
 using GemmRoles = WarpRoles<2>;
-constexpr uint32_t kGemmStageBytes = (kGemmM + kGemmN) * kGemmK * 2;
 
+// An N-first product (NF) runs two blocks an SM with 3 stages each, so
+// that one block's prologue and epilogue overlap the other's products;
+// the others one block an SM with kGemmStages.
+__host__ __device__ constexpr int gemm_stages(bool nf) {
+  return nf ? 3 : kGemmStages;
+}
+
+template <int BN, int S>
 struct GemmSmem {  // at the 1024-aligned start of dynamic shared memory
-  bf16_t a[kGemmStages][kGemmM * kGemmK];
-  bf16_t b[kGemmStages][kGemmN * kGemmK];
-  uint64_t full[kGemmStages], empty[kGemmStages];
+  bf16_t a[S][kGemmM * kGemmK];
+  bf16_t b[S][BN * kGemmK];
+  uint64_t full[S], empty[S];
+  static constexpr uint32_t kStageBytes = (kGemmM + BN) * kGemmK * 2;
+  // f32 pitch of the epilogue's staging tile (64 rows a warpgroup), padded
+  // against bank conflicts; two of them fit in the stages
+  static constexpr int kLdE = BN + 8;
+  static_assert(2 * 64 * kLdE * 4 <= S * kStageBytes,
+                "the epilogue's staging tiles must fit in the stages");
 };
-constexpr int kGemmSmemBytes = static_cast<int>(sizeof(GemmSmem)) + 1024;
-// f32 pitch of the epilogue's staging tile (64 rows a warpgroup), padded
-// against bank conflicts; two of them fit in the stages
-constexpr int kGemmLdE = kGemmN + 8;
-static_assert(2 * 64 * kGemmLdE * 4 <= kGemmStages * kGemmStageBytes,
-              "the epilogue's staging tiles must fit in the stages");
+template <int BN, bool NF = false>
+constexpr int gemm_smem_bytes() {
+  return static_cast<int>(sizeof(GemmSmem<BN, gemm_stages(NF)>)) + 1024;
+}
 
 struct GemmDims {
   int M, N, K, kchunk;  // kchunk: depth of a slot, a multiple of kGemmK
 };
 
-// Tag names the pass that launches it (a profile tells them apart).
-template <bool A_MN, bool B_MN, class Epi, class Tag>
-__global__ void __launch_bounds__(GemmRoles::kThreads, 1)
+// Tag names the pass that launches it (a profile tells them apart). NF:
+// blockIdx.x walks the N tiles of the M tile blockIdx.y, two blocks an SM
+// (else blockIdx.x walks the M tiles, one block an SM).
+template <bool A_MN, bool B_MN, class Epi, class Tag, int BN = kGemmN,
+          bool NF = false>
+__global__ void __launch_bounds__(GemmRoles::kThreads, NF ? 2 : 1)
     gemm_sm90(const __grid_constant__ CUtensorMap ta,
               const __grid_constant__ CUtensorMap tb, GemmDims g, Epi epi) {
-  GemmSmem& s = *reinterpret_cast<GemmSmem*>(smem_base_1k());
-  const int m0 = blockIdx.x * kGemmM, n0 = blockIdx.y * kGemmN;
+  static_assert(!B_MN || BN == kGemmN, "an MN-major B takes 128-wide tiles");
+  constexpr int kStages = gemm_stages(NF);  // this instance's ring
+  using Smem = GemmSmem<BN, kStages>;
+  Smem& s = *reinterpret_cast<Smem*>(smem_base_1k());
+  const int m0 = (NF ? blockIdx.y : blockIdx.x) * kGemmM;
+  const int n0 = (NF ? blockIdx.x : blockIdx.y) * BN;
   const int z = blockIdx.z;
   const int kb = z * g.kchunk;
   const int ke = min(g.K, kb + g.kchunk);
   const int nk = (ke - kb + kGemmK - 1) / kGemmK;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kGemmStages; ++i) {
+    for (int i = 0; i < kStages; ++i) {
       mbar_init(&s.full[i], 1);
       mbar_init(&s.empty[i], GemmRoles::kConsumerWarps);
     }
@@ -363,9 +453,9 @@ __global__ void __launch_bounds__(GemmRoles::kThreads, 1)
   if (wg == 2) {  // the producer warp
     if (threadIdx.x == GemmRoles::kProducerThread) {
       for (int i = 0; i < nk; ++i) {
-        const int st = i % kGemmStages, k0 = kb + i * kGemmK;
-        mbar_wait(&s.empty[st], ((i / kGemmStages) & 1) ^ 1);
-        mbar_expect_tx(&s.full[st], kGemmStageBytes);
+        const int st = i % kStages, k0 = kb + i * kGemmK;
+        mbar_wait(&s.empty[st], ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(&s.full[st], Smem::kStageBytes);
         if (A_MN) {
           tma_load_2d(s.a[st], &ta, &s.full[st], m0, k0);
           tma_load_2d(s.a[st] + 64 * kGemmK, &ta, &s.full[st], m0 + 64, k0);
@@ -388,21 +478,21 @@ __global__ void __launch_bounds__(GemmRoles::kThreads, 1)
   // No other instruction touches acc until the last wait (the first
   // product ignores its old value): one that did would make the compiler
   // serialise the wgmmas.
-  float acc[kGemmN / 2];
+  float acc[BN / 2];
   for (int i = 0; i < nk; ++i) {
-    const int st = i % kGemmStages;
-    mbar_wait_warp(&s.full[st], (i / kGemmStages) & 1);
+    const int st = i % kStages;
+    mbar_wait_warp(&s.full[st], (i / kStages) & 1);
     const uint64_t da = sw128_desc(s.a[st] + wg * 64 * kGemmK);
     const uint64_t db = B_MN ? sw128_desc_lbo(s.b[st], 64 * kGemmK * 2)
                              : sw128_desc(s.b[st]);
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < kGemmK / 16; ++ks)
-      Wg<kGemmN>::ss<A_MN, B_MN>(acc, da + ks * kAStep, db + ks * kBStep,
-                                 i > 0 || ks > 0);
+      Wg<BN>::template ss<A_MN, B_MN>(acc, da + ks * kAStep,
+                                      db + ks * kBStep, i > 0 || ks > 0);
     wg_commit();
     wg_wait<1>();  // chunk i - 1's products are done: hand its stage back
-    if (i > 0) warp_arrive(&s.empty[(i - 1) % kGemmStages]);
+    if (i > 0) warp_arrive(&s.empty[(i - 1) % kStages]);
   }
   wg_wait<0>();
   fence_regs(acc);
@@ -410,27 +500,28 @@ __global__ void __launch_bounds__(GemmRoles::kThreads, 1)
   // Epilogue: the fragment goes through shared memory (the stages, free
   // once both warpgroups' products are done), so that each thread hands
   // the functor 8 neighbouring columns of a row and the stores are 16- or
-  // 32-byte vectors, a row's 128 columns by 16 neighbouring threads.
+  // 32-byte vectors, a row's BN columns by BN / 8 neighbouring threads.
   asm volatile("bar.sync 3, %0;\n" ::"n"(2 * kWgThreads) : "memory");
-  float* stage = reinterpret_cast<float*>(&s) + wg * 64 * kGemmLdE;
+  constexpr int kLdE = Smem::kLdE, kRowThreads = BN / 8;
+  float* stage = reinterpret_cast<float*>(&s) + wg * 64 * kLdE;
   const int tid = threadIdx.x % kWgThreads, lane = tid & 31;
   const int fr = (tid >> 5) * 16 + (lane >> 2), fc = 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < kGemmN / 8; ++i) {
-    *reinterpret_cast<float2*>(stage + fr * kGemmLdE + 8 * i + fc) =
+  for (int i = 0; i < BN / 8; ++i) {
+    *reinterpret_cast<float2*>(stage + fr * kLdE + 8 * i + fc) =
         make_float2(acc[4 * i], acc[4 * i + 1]);
-    *reinterpret_cast<float2*>(stage + (fr + 8) * kGemmLdE + 8 * i + fc) =
+    *reinterpret_cast<float2*>(stage + (fr + 8) * kLdE + 8 * i + fc) =
         make_float2(acc[4 * i + 2], acc[4 * i + 3]);
   }
   wg_bar(wg);
-  const int col = 8 * (tid % 16), n = n0 + col;
 #pragma unroll 4
-  for (int r = tid / 16; r < 64; r += kWgThreads / 16) {
-    const int m = m0 + wg * 64 + r;
+  for (int q = tid; q < 64 * kRowThreads; q += kWgThreads) {
+    const int r = q / kRowThreads, col = 8 * (q % kRowThreads);
+    const int m = m0 + wg * 64 + r, n = n0 + col;
     if (m >= g.M || n >= g.N) continue;
-    const float4 lo = *reinterpret_cast<const float4*>(stage + r * kGemmLdE +
+    const float4 lo = *reinterpret_cast<const float4*>(stage + r * kLdE +
                                                        col);
-    const float4 hi = *reinterpret_cast<const float4*>(stage + r * kGemmLdE +
+    const float4 hi = *reinterpret_cast<const float4*>(stage + r * kLdE +
                                                        col + 4);
     const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
     epi(m, n, z, v);
@@ -513,9 +604,14 @@ inline int gemm_slots(long long K, int kchunk) {
 }
 
 // C = A B into epi over M x N, K split into slots of kchunk (kchunk >= K:
-// one slot). A and B are bf16 with 16-byte aligned bases and pitches. Tag:
-// the launching pass, in the kernel's name only.
-template <bool A_MN, bool B_MN, class Tag = void, class Epi>
+// one slot), in tiles of kGemmM x BN. A and B are bf16 with 16-byte
+// aligned bases and pitches. Tag: the launching pass, in the kernel's
+// name only. NF (N-first) for a product whose A, token rows, is larger
+// than L2 and whose B, weights, is small: neighbouring blocks take the N
+// tiles of one M tile and share A's rows (M-first, an A larger than L2
+// is read from device memory once per N tile).
+template <bool A_MN, bool B_MN, class Tag = void, int BN = kGemmN,
+          bool NF = false, class Epi>
 int gemm_run(const bf16_t* A, long long lda, const bf16_t* B, long long ldb,
              int M, int N, int K, int kchunk, Epi epi, cudaStream_t stream) {
   if (M < 1 || N < 1 || K < 1 || N % 8 || kchunk % kGemmK ||
@@ -527,20 +623,59 @@ int gemm_run(const bf16_t* A, long long lda, const bf16_t* B, long long ldb,
                 : make_map_2d(&ta, A, K, M, lda, kGemmM);
   if (rc == 0)
     rc = B_MN ? make_map_2d(&tb, B, N, K, ldb, 64)
-              : make_map_2d(&tb, B, K, N, ldb, kGemmN);
+              : make_map_2d(&tb, B, K, N, ldb, BN);
   static std::atomic<unsigned long long> smem_set{0};
   if (rc == 0)
     rc = smem_limit_once(
         smem_set,
-        reinterpret_cast<const void*>(gemm_sm90<A_MN, B_MN, Epi, Tag>),
-        kGemmSmemBytes);
+        reinterpret_cast<const void*>(gemm_sm90<A_MN, B_MN, Epi, Tag, BN, NF>),
+        gemm_smem_bytes<BN, NF>());
   if (rc != 0) return rc;
-  const dim3 grid((M + kGemmM - 1) / kGemmM, (N + kGemmN - 1) / kGemmN,
-                  gemm_slots(K, kchunk));
-  gemm_sm90<A_MN, B_MN, Epi, Tag><<<grid, GemmRoles::kThreads,
-                                    kGemmSmemBytes, stream>>>(
+  const unsigned mt = (M + kGemmM - 1) / kGemmM, nt = (N + BN - 1) / BN;
+  if ((NF ? mt : nt) > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(NF ? nt : mt, NF ? mt : nt, gemm_slots(K, kchunk));
+  gemm_sm90<A_MN, B_MN, Epi, Tag, BN, NF><<<grid, GemmRoles::kThreads,
+                                            gemm_smem_bytes<BN, NF>(),
+                                            stream>>>(
       ta, tb, GemmDims{M, N, K, kchunk}, epi);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The SMs of the current device (asked once a process; 132 on an H100 SXM).
+inline int device_sms() {
+  static std::atomic<int> sms{0};
+  int n = sms.load(std::memory_order_relaxed);
+  if (n > 0) return n;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || n < 1) {
+    cudaGetLastError();
+    n = 132;
+  }
+  sms.store(n, std::memory_order_relaxed);
+  return n;
+}
+
+// The N tile of an M x N product (one slot, one block an SM) that leaves
+// the least idle: the columns a block runs in its wave count, summed over
+// the waves, ceil(tiles / SMs) x BN, the least of BN = 128, 96, 64 (ties
+// to the wider tile, which reads A fewer times). At C = 768 and 2,048
+// tokens, fc2's 16 x 6 tiles of 128 fill 96 of 132 SMs; 16 x 8 of 96 fill
+// 128 in one wave of three quarters the work.
+inline int gemm_pick_bn(long long M, long long N) {
+  const long long sms = device_sms(), mt = (M + kGemmM - 1) / kGemmM;
+  int best = kGemmN;
+  long long cost = -1;
+  for (int bn : {128, 96, 64}) {
+    const long long tiles = mt * ((N + bn - 1) / bn);
+    const long long c = (tiles + sms - 1) / sms * bn;
+    if (cost < 0 || c < cost) {
+      cost = c;
+      best = bn;
+    }
+  }
+  return best;
 }
 
 // ---- epilogues (8 neighbouring columns n .. n + 7 of row m) ------------------

@@ -32,9 +32,24 @@ struct K1b {};
 struct K2f {};
 struct K2b {};
 
-// The MLP widths above 256 that K2 takes (K2f mlp_fwd_wide_sm90, K2b
-// mlp_dual_stream_sm90; ops/swin_block.py MLP_WIDE_C).
-inline bool mlp_wide_c(int C) { return C == 384 || C == 512 || C == 768; }
+// The widths the bf16 MLP kernels take: C % 32 == 0 up to the widest the
+// JAX package's kernel fuses, whose weights (12 C 4C bytes) fit 0.72 of
+// its 64 MiB budget (ops/swin_block.py MLP_MAX_C, mlp_fits_jax_kernel).
+// Up to 256 each C has its own instance; above, C comes in at run time
+// (K2f's two products, K2b's mlp_dual_wide_sm90).
+constexpr int kMlpMaxC = 1003;
+inline bool mlp_bf16_c(int C) {
+  return C % 32 == 0 && C >= 32 && C <= kMlpMaxC;
+}
+
+// tanh(u) = 1 - 2 / (1 + e^(2u)) on the special-function unit (ex2 and
+// rcp): within a few 1e-7 of tanhf in a handful of instructions against
+// its twenty, which the GELU epilogues of K2 above C = 256 run once or
+// twice an element of the 4C-wide hidden activation (the result is
+// rounded to bf16 before any product reads it)
+__device__ __forceinline__ float tanh_fast(float u) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * u));
+}
 
 #define SWIN_TRY(expr)          \
   do {                          \
@@ -169,9 +184,9 @@ int launch_colsum_bf16(const bf16* a, float* part, float* out,
   return err ? err : launch_reduce<Pass>(part, out, slots, N, s);
 }
 
-// ln_rows in vectors: f32 LayerNorm statistics (flax's fast variance) and
-// xn rounded to bf16, one warp per row, 4 channels a lane at 4 (lane +
-// 32 k), k < CPL.
+// ln_rows in vectors: f32 LayerNorm statistics (flax's fast variance;
+// mu and rstd written unless null) and xn rounded to bf16, one warp per
+// row, 4 channels a lane at 4 (lane + 32 k), k < CPL.
 template <class Pass, int CPL>
 __global__ void __launch_bounds__(kThreads)
     ln_rows_bf16(const bf16* __restrict__ x, const float* __restrict__ ln_s,
@@ -209,7 +224,7 @@ __global__ void __launch_bounds__(kThreads)
   s2 = warp_sum(s2);
   const float m = s / C;
   const float r = 1.f / sqrtf(s2 / C - m * m + kLnEps);
-  if (lane == 0) {
+  if (lane == 0 && mu != nullptr) {  // K2f keeps no statistics
     mu[t] = m;
     rstd[t] = r;
   }

@@ -10,7 +10,7 @@
 // VMEM, pulls it back, and carries the weight-gradient sums across its
 // sequential grid. Hopper blocks run in parallel, so the pullback runs as
 // passes over all tokens (Ch = 4C hidden units, Ch % 64 == 0; C % 32 == 0
-// up to 256, or C = 384, 512, 768):
+// up to kMlpMaxC, C at run time above 256):
 //
 //   1. cast_weights: W1 and W2 rounded to bf16 once a call (TMA reads
 //      bf16; the port's params are f32).
@@ -27,13 +27,11 @@
 //      and dh1c = round(dh1), stores gc and dh1c, and writes db1's column
 //      partial of the f32 dh1 over the tile's 128 rows: one slot a tile.
 //      No T x 4C f32 buffer exists.
-//      Above C = 256 a tile's xn and dyc no longer fit beside the ring
-//      (2 x 128 KB at C = 512), so mlp_dual_stream_sm90 brings them through
-//      the ring too, a 64-deep k-chunk of each with the weights' (48 KB a
-//      stage), and a block takes 4 hidden blocks of one tile (grid: tiles x
-//      hidden groups); the same products, epilogue and db1 slots (one per
-//      128-token tile). The tile's xn and dyc are read from L2 once per
-//      hidden block instead of once.
+//      Above C = 256 (mlp_dual_wide_sm90) a tile's xn and dyc stream
+//      through the ring with the weights; a block-step takes 128 hidden
+//      units (m64n128), and a cluster of two blocks, neighbouring hidden
+//      groups of one tile, shares each k-chunk of xn and dyc by TMA
+//      multicast; the same epilogue and db1 slots (one per tile).
 //   4. gemm_run (sm90_gemm.cuh), split over tokens (ops/swin_block.py
 //      split_k_plan): dW2 = dyc^T gc and dW1 = dh1c^T xn as per-slot f32
 //      partials, both operands read MN-major as they lie.
@@ -68,11 +66,23 @@ namespace swin {
 constexpr float kGeluK = 0.7978845608028654f;  // sqrt(2 / pi)
 
 // jax.nn.gelu (approximate=True): x * 0.5 * (1 + tanh(k (x + 0.044715 x^3)))
-__device__ __forceinline__ float gelu_tanh(float h, float* grad) {
-  const float t = tanhf(kGeluK * (h + 0.044715f * (h * h * h)));
+// and its derivative from t = that tanh
+__device__ __forceinline__ float gelu_from_tanh(float h, float t,
+                                                float* grad) {
   *grad = 0.5f * (1.f + t) +
           0.5f * h * (1.f - t * t) * kGeluK * (1.f + 3.f * 0.044715f * h * h);
   return h * (0.5f * (1.f + t));
+}
+
+__device__ __forceinline__ float gelu_tanh(float h, float* grad) {
+  return gelu_from_tanh(h, tanhf(kGeluK * (h + 0.044715f * (h * h * h))),
+                        grad);
+}
+
+// the same with tanh_fast (mlp_dual_wide_sm90)
+__device__ __forceinline__ float gelu_tanh_fast(float h, float* grad) {
+  return gelu_from_tanh(
+      h, tanh_fast(kGeluK * (h + 0.044715f * (h * h * h))), grad);
 }
 
 // ---- the dual product (bf16) ------------------------------------------------
@@ -267,104 +277,232 @@ int launch_dual(const CUtensorMap& txn, const CUtensorMap& tdy,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the dual product above C = 256: xn and dyc through the ring too ------
-struct DualStreamSmem {  // at the 1024-aligned start of dynamic shared memory
-  bf16 xn[kDualStages][kDualM * 64];  // the tile's k-chunk of xn and dyc
-  bf16 dy[kDualStages][kDualM * 64];
-  bf16 w1[kDualStages][kDualN * 64];  // as DualSmem
-  bf16 w2[kDualStages][64 * kDualN];
-  float colsum[2][8][kDualN];
-  bf16 out[2][2][64 * kDualLdO];
-  uint64_t full[kDualStages], empty[kDualStages];
-};
-constexpr int kDualStreamSmemBytes =
-    static_cast<int>(sizeof(DualStreamSmem)) + 1024;
-constexpr uint32_t kDualStreamStageBytes =
-    kDualStageBytes + 2 * kDualM * 64 * 2;
-constexpr int kDualStreamJ = 4;  // hidden blocks a block (grid.y groups)
+// ---- the dual product above C = 256 ------------------------------------------
+// A tile's xn and dyc no longer fit beside the ring (2 x 128 KB at C =
+// 512), so they stream through it with the weights, a 64-deep k-chunk of
+// each a stage. Then every stage is read from L2 for its products alone,
+// and L2, not the tensor cores, bounds the product: a stage of 128 tokens
+// x n hidden units feeds 2 x 2 x 128 n 64 operations. So a block-step
+// takes n = 128 units (two m64n128 accumulators a warpgroup, 128
+// registers a thread), and the two blocks of a cluster take neighbouring
+// hidden groups of one token tile: rank 0 brings the tile's xn chunk and
+// rank 1 its dyc chunk, each multicast by TMA into both blocks. A block's
+// stage is then 48 KB from L2 (its weights' 32 KB and one 16 KB chunk)
+// for 4.2 M operations: 87 a byte, against 43 for 64 units a step
+// without the cluster. (On the H100 neither the cluster nor a 2 x 2 one
+// that also shares the weights moved the product's time: L2 does not
+// bind it; the epilogue takes about a fifth, and the products run near
+// the rate at which a stage's 64 KB is written into shared memory and
+// read by its 16 wgmmas.) The ring holds three 64 KB stages; the
+// epilogue stages gc and dh1c 32 columns at a time (20 KB).
+constexpr int kWideN = 128;      // hidden units a block-step
+constexpr int kWideStages = 3;
+constexpr int kWideJ = 2;        // hidden blocks of kWideN a block
+constexpr int kWideCluster = 2;  // blocks sharing a token tile's chunks
+constexpr int kWideQ = 32;       // epilogue columns staged at a time
+constexpr int kWideLdO = kWideQ + 8;
+using WideRoles = WarpRoles<2>;
 
-// Block (x, y): the 128-token tile x, hidden blocks 4 y .. 4 y + 3 (fewer
-// at the end); each hidden block takes KC = ceil(C / 64) stages, each one
-// k-chunk of the tile's xn and dyc (128 x 64, rows >= T and columns >= C
-// read as zeros) and of W1's and W2's block.
-__global__ void __launch_bounds__(DualRoles::kThreads, 1)
-    mlp_dual_stream_sm90(const __grid_constant__ CUtensorMap txn,
-                         const __grid_constant__ CUtensorMap tdy,
-                         const __grid_constant__ CUtensorMap tw1,
-                         const __grid_constant__ CUtensorMap tw2,
-                         DualArgs a, int KC) {
-  DualStreamSmem& s = *reinterpret_cast<DualStreamSmem*>(smem_base_1k());
-  const int m0 = blockIdx.x * kDualM;
-  const int nj = a.Ch / kDualN, jb = blockIdx.y * kDualStreamJ;
-  const int nb = min(nj - jb, kDualStreamJ);
+struct DualWideSmem {  // at the 1024-aligned start of dynamic shared memory
+  bf16 xn[kWideStages][kDualM * 64];  // the tile's k-chunk of xn and dyc
+  bf16 dy[kWideStages][kDualM * 64];
+  bf16 w1[kWideStages][kWideN * 64];  // W1 rows n0 .. + 127, 64 k: K-major
+  bf16 w2[kWideStages][64 * kWideN];  // W2 rows k0 .. + 63 x 128 units:
+                                      // MN-major, two 64-unit atoms
+  float colsum[2][8][kWideN];  // db1 partials of the 8 consumer warps
+  bf16 out[2][2][64 * kWideLdO];  // a quarter of gc, dh1c a warpgroup
+  uint64_t full[kWideStages], empty[kWideStages];
+};
+constexpr int kDualWideSmemBytes =
+    static_cast<int>(sizeof(DualWideSmem)) + 1024;
+constexpr uint32_t kDualWideStageBytes = (2 * kDualM + 2 * kWideN) * 64 * 2;
+
+// A consumer warp's release of a stage: one arrival on its empty barrier
+// in every block of the cluster (each block's producer refills its own
+// copy of the stage, and rank 0's and 1's copies also land in the other).
+__device__ __forceinline__ void wide_release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int r = 0; r < kWideCluster; ++r) mbar_arrive_cluster(bar, r);
+}
+
+// dual_epilogue for a hidden block of 128 units (tanh on the special-
+// function unit: tanh_fast), in four quarters of 32
+// columns (element 4 i + e of a1 / a2 at row rl + 8 (e / 2), column
+// 8 i + c0 + e % 2). Units >= Ch (the last group's padding) read zero
+// weights; they are neither stored nor summed.
+__device__ __forceinline__ void dual_wide_epilogue(
+    DualWideSmem& s, const DualArgs& a, const float (&a1)[kWideN / 2],
+    const float (&a2)[kWideN / 2], int wg, int buf, int n0, int m0,
+    long long tile) {
+  const int tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
+  const int c0 = 2 * (lane & 3);
+  float* cs = s.colsum[buf][wg * 4 + warp];
+  bf16* og = s.out[wg][0];
+  bf16* od = s.out[wg][1];
+  const int rl = warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int q = 0; q < kWideN / kWideQ; ++q) {
+#pragma unroll
+    for (int ii = 0; ii < kWideQ / 8; ++ii) {
+      const int i = q * (kWideQ / 8) + ii;
+      const int col = 8 * i + c0, lc = 8 * ii + c0;
+      const bool live = n0 + col < a.Ch;  // Ch % 64 == 0: all 8 or none
+      const float bias[2] = {live ? a.b1[n0 + col] : 0.f,
+                             live ? a.b1[n0 + col + 1] : 0.f};
+      float g[4], d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float grad;
+        g[e] = gelu_tanh_fast(a1[4 * i + e] + bias[e & 1], &grad);
+        d[e] = grad * a2[4 * i + e];
+      }
+      store_bf16x2(og + rl * kWideLdO + lc, g[0], g[1]);
+      store_bf16x2(od + rl * kWideLdO + lc, d[0], d[1]);
+      store_bf16x2(og + (rl + 8) * kWideLdO + lc, g[2], g[3]);
+      store_bf16x2(od + (rl + 8) * kWideLdO + lc, d[2], d[3]);
+      float s0 = d[0] + d[2], s1 = d[1] + d[3];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (lane < 4) {
+        cs[col] = s0;
+        cs[col + 1] = s1;
+      }
+    }
+    wg_bar(wg);
+    // 64 rows x 64 bytes of each: 4 threads a row, 16 bytes each
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int r = p * 32 + tid / 4, c = 8 * (tid % 4);
+      const int m = m0 + wg * 64 + r, n = n0 + q * kWideQ + c;
+      if (m < a.T && n < a.Ch) {
+        const long long o = static_cast<long long>(m) * a.Ch + n;
+        *reinterpret_cast<uint4*>(a.gc + o) =
+            *reinterpret_cast<const uint4*>(og + r * kWideLdO + c);
+        *reinterpret_cast<uint4*>(a.dh1c + o) =
+            *reinterpret_cast<const uint4*>(od + r * kWideLdO + c);
+      }
+    }
+    wg_bar(wg);  // read before the next quarter overwrites it
+  }
+  // the 8 warps' partials of this block, added in row order (colsum
+  // alternates between blocks, as dual_epilogue's)
+  asm volatile("bar.sync 3, %0;\n" ::"n"(2 * kWgThreads) : "memory");
+  if (threadIdx.x < kWideN && n0 + threadIdx.x < a.Ch) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += s.colsum[buf][w][threadIdx.x];
+    a.p_b1[tile * a.Ch + n0 + threadIdx.x] = t;
+  }
+}
+
+// Block b: the 128-token tile b / G and hidden group b % G (G even: a
+// cluster's two blocks take neighbouring groups of one tile), i.e. hidden
+// blocks (b % G) J .. + J - 1 of 128 units (the last group's units >= Ch
+// read zero weights and are dropped); each takes KC = ceil(C / 64)
+// stages, each one k-chunk of the tile's xn and dyc (128 x 64, rows >= T
+// and columns >= C read as zeros) and of W1's and W2's block. A tile's G
+// blocks run in a row, so its xn and dyc leave device memory about once
+// while the weights stay in L2.
+__global__ void __cluster_dims__(kWideCluster, 1, 1)
+    __launch_bounds__(WideRoles::kThreads, 1)
+    mlp_dual_wide_sm90(const __grid_constant__ CUtensorMap txn,
+                       const __grid_constant__ CUtensorMap tdy,
+                       const __grid_constant__ CUtensorMap tw1,
+                       const __grid_constant__ CUtensorMap tw2, DualArgs a,
+                       int KC, int G) {
+  static_assert(kWideCluster == 2, "rank 0 brings xn, rank 1 dyc");
+  DualWideSmem& s = *reinterpret_cast<DualWideSmem*>(smem_base_1k());
+  const long long tile = blockIdx.x / G;
+  const int grp = blockIdx.x % G, m0 = static_cast<int>(tile) * kDualM;
+  const int steps = kWideJ * KC;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kDualStages; ++i) {
+    for (int i = 0; i < kWideStages; ++i) {
       mbar_init(&s.full[i], 1);
-      mbar_init(&s.empty[i], DualRoles::kConsumerWarps);
+      mbar_init(&s.empty[i], kWideCluster * WideRoles::kConsumerWarps);
     }
     fence_barrier_init();
   }
-  __syncthreads();
+  // both blocks' barriers are set before a copy or an arrival reaches one
+  cluster_sync();
   const int wg = warpgroup_index();
   if (wg == 2) {  // the producer warp
-    if (threadIdx.x == DualRoles::kProducerThread) {
-      for (int i = 0; i < nb * KC; ++i) {
-        const int st = i % kDualStages, n0 = (jb + i / KC) * kDualN,
-                  k0 = (i % KC) * 64;
-        mbar_wait(&s.empty[st], ((i / kDualStages) & 1) ^ 1);
-        mbar_expect_tx(&s.full[st], kDualStreamStageBytes);
-        tma_load_2d(s.xn[st], &txn, &s.full[st], k0, m0);
-        tma_load_2d(s.dy[st], &tdy, &s.full[st], k0, m0);
+    if (threadIdx.x == WideRoles::kProducerThread) {
+      const uint32_t rank = cluster_rank();
+      for (int i = 0; i < steps; ++i) {
+        const int st = i % kWideStages, k0 = (i % KC) * 64;
+        const int n0 = (grp * kWideJ + i / KC) * kWideN;
+        mbar_wait(&s.empty[st], ((i / kWideStages) & 1) ^ 1);
+        mbar_expect_tx(&s.full[st], kDualWideStageBytes);
+        if (rank == 0)
+          tma_load_2d_mc(s.xn[st], &txn, &s.full[st], k0, m0, 0x3);
+        else
+          tma_load_2d_mc(s.dy[st], &tdy, &s.full[st], k0, m0, 0x3);
         tma_load_2d(s.w1[st], &tw1, &s.full[st], k0, n0);
         tma_load_2d(s.w2[st], &tw2, &s.full[st], n0, k0);
+        tma_load_2d(s.w2[st] + 64 * 64, &tw2, &s.full[st], n0 + 64, k0);
       }
+      // stay until every stage's last use is released by both blocks'
+      // consumers: the other block's arrivals land in this block's
+      // shared memory, which lives as long as one of its threads
+      for (int i = steps; i < steps + kWideStages; ++i)
+        mbar_wait(&s.empty[i % kWideStages], ((i / kWideStages) & 1) ^ 1);
     }
     return;
   }
   // consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of the tile
-  for (int j = 0; j < nb; ++j) {
-    const int n0 = (jb + j) * kDualN;
-    // A1 = xn W1_j^T, A2 = dyc W2_j (64 x 64 each, K = C), as mlp_dual_sm90
-    float a1[kDualN / 2], a2[kDualN / 2];
+  for (int j = 0; j < kWideJ; ++j) {
+    const int n0 = (grp * kWideJ + j) * kWideN;
+    // A1 = xn W1_j^T, A2 = dyc W2_j (64 x 128 each, K = C), as
+    // mlp_dual_sm90
+    float a1[kWideN / 2], a2[kWideN / 2];
     for (int kc = 0; kc < KC; ++kc) {
-      const int i = j * KC + kc, st = i % kDualStages;
-      mbar_wait_warp(&s.full[st], (i / kDualStages) & 1);
+      const int i = j * KC + kc, st = i % kWideStages;
+      mbar_wait_warp(&s.full[st], (i / kWideStages) & 1);
       const uint64_t dx = sw128_desc(s.xn[st] + wg * 64 * 64),
                      dd = sw128_desc(s.dy[st] + wg * 64 * 64),
-                     d1 = sw128_desc(s.w1[st]), d2 = sw128_desc(s.w2[st]);
+                     d1 = sw128_desc(s.w1[st]),
+                     d2 = sw128_desc_lbo(s.w2[st], 64 * 64 * 2);
       wg_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        Wg<kDualN>::ss<0, 0>(a1, dx + ks * kDescKStep, d1 + ks * kDescKStep,
+        Wg<kWideN>::ss<0, 0>(a1, dx + ks * kDescKStep, d1 + ks * kDescKStep,
                              kc > 0 || ks > 0);
-        Wg<kDualN>::ss<0, 1>(a2, dd + ks * kDescKStep, d2 + ks * kDescRows16,
-                             kc > 0 || ks > 0);
+        Wg<kWideN>::ss<0, 1>(a2, dd + ks * kDescKStep,
+                             d2 + ks * kDescRows16, kc > 0 || ks > 0);
       }
       wg_commit();
-      wg_wait<1>();  // chunk kc - 1's products are done: hand its stage back
-      if (kc > 0) warp_arrive(&s.empty[(i - 1) % kDualStages]);
+      wg_wait<1>();  // chunk kc - 1's products are done: release its stage
+      if (kc > 0) wide_release(&s.empty[(i - 1) % kWideStages]);
     }
     wg_wait<0>();
-    warp_arrive(&s.empty[(j * KC + KC - 1) % kDualStages]);
+    wide_release(&s.empty[(j * KC + KC - 1) % kWideStages]);
     fence_regs(a1);
     fence_regs(a2);
 
-    dual_epilogue(s, a, a1, a2, wg, j & 1, n0, m0);
+    dual_wide_epilogue(s, a, a1, a2, wg, j & 1, n0, m0, tile);
   }
 }
 
-int launch_dual_stream(const CUtensorMap& txn, const CUtensorMap& tdy,
-                       const CUtensorMap& tw1, const CUtensorMap& tw2,
-                       const DualArgs& a, int KC, cudaStream_t s) {
+int launch_dual_wide(const CUtensorMap& txn, const CUtensorMap& tdy,
+                     const CUtensorMap& tw1, const CUtensorMap& tw2,
+                     const DualArgs& a, int KC, cudaStream_t s) {
   static std::atomic<unsigned long long> smem_set{0};
   SWIN_TRY(smem_limit_once(
-      smem_set, reinterpret_cast<const void*>(mlp_dual_stream_sm90),
-      kDualStreamSmemBytes));
-  const int nj = a.Ch / kDualN;
-  const dim3 grid((a.T + kDualM - 1) / kDualM,
-                  (nj + kDualStreamJ - 1) / kDualStreamJ);
-  mlp_dual_stream_sm90<<<grid, DualRoles::kThreads, kDualStreamSmemBytes,
-                         s>>>(txn, tdy, tw1, tw2, a, KC);
+      smem_set, reinterpret_cast<const void*>(mlp_dual_wide_sm90),
+      kDualWideSmemBytes));
+  // hidden groups of kWideJ blocks, rounded up to whole clusters
+  const int groups = ((a.Ch + kWideN * kWideJ - 1) / (kWideN * kWideJ) +
+                      kWideCluster - 1) / kWideCluster * kWideCluster;
+  const long long blocks =
+      static_cast<long long>((a.T + kDualM - 1) / kDualM) * groups;
+  mlp_dual_wide_sm90<<<static_cast<unsigned>(blocks), WideRoles::kThreads,
+                       kDualWideSmemBytes, s>>>(txn, tdy, tw1, tw2, a, KC,
+                                                groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -508,23 +646,30 @@ int run_mlp_bwd_bf16(const MlpBwdArgs& a, int kchunk_w1, int kchunk_w2,
   CUtensorMap txn, tdy, tw1, tw2;
   SWIN_TRY(make_map_2d(&txn, w.xn, C, T_, C, kDualM));
   SWIN_TRY(make_map_2d(&tdy, w.dyc, C, T_, C, kDualM));
-  SWIN_TRY(make_map_2d(&tw1, w.w1b, C, Ch, C, kDualN));
+  // W1's boxes are a step's hidden units: 64 up to C = 256, 128 above
+  SWIN_TRY(make_map_2d(&tw1, w.w1b, C, Ch, C, C > 256 ? kWideN : kDualN));
   SWIN_TRY(make_map_2d(&tw2, w.w2b, Ch, C, Ch, 64));
   const DualArgs da{w.gc, w.dh1c, w.p_b1, a.b1, T_, Ch};
   SWIN_TRY(KC == 1   ? launch_dual<1>(txn, tdy, tw1, tw2, da, s)
            : KC == 2 ? launch_dual<2>(txn, tdy, tw1, tw2, da, s)
            : KC == 3 ? launch_dual<3>(txn, tdy, tw1, tw2, da, s)
            : KC == 4 ? launch_dual<4>(txn, tdy, tw1, tw2, da, s)
-                     : launch_dual_stream(txn, tdy, tw1, tw2, da, KC, s));
+                     : launch_dual_wide(txn, tdy, tw1, tw2, da, KC, s));
   SWIN_TRY((gemm_run<true, true, K2b>(w.dyc, C, w.gc, Ch, C, Ch, T_,
                                       kchunk_w2, EpiSlot{w.p_w2, C, Ch},
                                       s)));
   SWIN_TRY((gemm_run<true, true, K2b>(w.dh1c, Ch, w.xn, C, Ch, C, T_,
                                       kchunk_w1, EpiSlot{w.p_w1, Ch, C},
                                       s)));
-  SWIN_TRY((gemm_run<false, true, K2b>(w.dh1c, Ch, w.w1b, C, T_, C, Ch,
-                                       (Ch + kGemmK - 1) / kGemmK * kGemmK,
-                                       EpiOutF32{w.dxn, C}, s)));
+  // dxn = dh1c W1; above C = 256 two blocks an SM, neighbouring blocks on
+  // one token tile (dh1c, T x 4C, is read from device memory once)
+  const int kfull = (Ch + kGemmK - 1) / kGemmK * kGemmK;
+  SWIN_TRY((C > 256 ? gemm_run<false, true, K2b, 128, true>(
+                          w.dh1c, Ch, w.w1b, C, T_, C, Ch, kfull,
+                          EpiOutF32{w.dxn, C}, s)
+                    : gemm_run<false, true, K2b>(w.dh1c, Ch, w.w1b, C, T_,
+                                                 C, Ch, kfull,
+                                                 EpiOutF32{w.dxn, C}, s)));
   SWIN_TRY(launch_ln_bwd_rows<K2b>(x, dy, w.dxn, w.mu, w.rstd, a.ln_s,
                                    static_cast<bf16*>(a.dx), w.p_g, w.p_b,
                                    a.dln_s, a.dln_b, T_, C, s));
@@ -535,15 +680,15 @@ int run_mlp_bwd_bf16(const MlpBwdArgs& a, int kchunk_w1, int kchunk_w2,
 }
 
 // what each version takes: f32 C <= 1024; bf16 the widths K2f takes too
-// (C % 32 == 0 up to 256: a tile's xn and dyc in shared memory; C = 384,
-// 512, 768: streamed; as ops/swin_block.py mlp_kernel_dims says), whole
+// (C % 32 == 0 up to 256: a tile's xn and dyc in shared memory; above, up
+// to kMlpMaxC: streamed; as ops/swin_block.py mlp_kernel_dims says), whole
 // hidden blocks (Ch % 64 == 0), int token indices, and split-K chunks of
 // whole k-steps
 bool mlp_bwd_dims_ok(long long T, int C, int Ch, int is_bf16, int kchunk_w1,
                      int kchunk_w2) {
   if (T < 1 || C < 1 || Ch < 1 || C > 32 * kMaxLane) return false;
   if (!is_bf16) return true;
-  return ((C % 32 == 0 && C <= 4 * 64) || mlp_wide_c(C)) &&
+  return mlp_bf16_c(C) &&
          Ch % kDualN == 0 &&
          T < (1LL << 31) &&
          kchunk_w1 >= kGemmK && kchunk_w1 % kGemmK == 0 &&

@@ -25,41 +25,41 @@
 // Every C % 32 == 0 up to 256 has its own instance (the widths of y's
 // wgmma sum to C: 192 + 64, 128 + 32, ...).
 //
-// Wider C (bf16, mlp_fwd_wide_sm90; C = 384, 512, 768, the Swin widths
-// the JAX package fuses under FMC_FUSED_MLP_MAX_C). Four limits bind the
-// design above there: y's C / 2 registers a thread (256 at C = 512), a TMA
-// box of at most 256 rows (W2's chunk is C rows), the 227 KB of shared
-// memory (the chunk's weights alone are 256 C bytes: 192 KB at C = 768,
-// beside a 128-row xn tile) and 168 registers a thread beside a producer
-// warp. So a block takes 64 tokens and two warpgroups share them, each
-// owning C / 2 columns of y (C / 4 registers a thread, 192 at C = 768),
-// with no producer warp (255 registers a thread):
-//   * xn, 64 x C, stays in shared memory (96 KB at C = 768); the weights
-//     stream by TMA in 64 x 64 boxes (8 KB), two a step through a ring of
-//     up to 8 steps: a hidden chunk of 64 units is C / 128 steps of W1
-//     (k-columns 128 t .. + 127 of the chunk's 64 rows), then C / 128
-//     steps of W2 (output rows 64 q .. of warpgroup 0's half and of
-//     warpgroup 1's).
-//   * W1 steps: each warpgroup takes 32 of the chunk's hidden units, S =
-//     xn W1^T (m64n32, K = C); after the last, + b1, tanh-GELU, rounded to
-//     bf16 into one shared 64 x 64 tile h (128-byte swizzle).
-//   * W2 steps: each warpgroup y[:, its 64 q .. + 63] += h W2^T (m64n64,
-//     K = 64, A and B from shared memory).
-//   * Every step ends in a block barrier, after which thread 0 refills the
-//     slot the step before used (its products are done: wgmma.wait 1):
-//     the barrier replaces a producer's empty barriers, and h is written
-//     only after a barrier that follows the last read of the one before.
-//   * Epilogue as above, over the whole block.
+// Wider C (bf16, every C % 32 == 0 in (256, kMlpMaxC]: the widths the JAX
+// package fuses under FMC_FUSED_MLP_MAX_C; C comes in at run time). y no
+// longer fits in registers beside a 128-token tile, nor a hidden chunk's
+// weights in shared memory beside xn, so the branch runs as three passes:
+//   1. ln_rows_bf16 (swin_attn_sm90.cuh): xn = LN2(x), f32 statistics,
+//      rounded, into a [T, C] workspace.
+//   2. gemm_run (sm90_gemm.cuh): xn W1^T; its epilogue adds b1, applies
+//      the tanh-GELU and rounds h into a [T, Ch] workspace (EpiGeluBf16).
+//   3. gemm_run: h W2^T; its epilogue rounds y + b2, scales by dp of the
+//      token's sample, adds the residual and stores 16 bytes a thread
+//      (EpiResidualBf16).
+// _mlp_math rounds h to bf16 at exactly that point, so h's round trip
+// through device memory changes no value. Both products run 128-token
+// tiles with a producer warp feeding a TMA ring (full / empty barriers)
+// and two consumer warpgroups on wgmma, so each block reads its weight
+// slice once per 128 tokens and copies overlap the products. fc2 has
+// only C / 128 column tiles: at C = 768 and 2,048
+// tokens (swin_t 512^2 stage 3) 96 blocks of 128 x 128 would leave a
+// quarter of the 132 SMs idle, so gemm_pick_bn narrows the tile to 96
+// (128 blocks, one wave). Split-K was not taken: its f32 partials and
+// their ordered sum would move more bytes than the idle SMs cost, and a
+// 64-row tile leaves the same last wave (192 blocks of half the work).
 //
-// The f32 version (mlp_fwd<TM, HC>) runs the same dataflow on the CUDA
-// cores, y in shared memory: 64 tokens and 32 hidden units a step up to
-// C = 256 (203 KB at C = 256), 16 and 16 above it (199 KB at C = 768);
+// The f32 version (mlp_fwd<TM, HC>) runs the dataflow of the narrow bf16
+// kernel on the CUDA cores, y in shared memory: 64 tokens and 32 hidden
+// units a step up to C = 256 (203 KB at C = 256), 16 and 16 above it
+// (199 KB at C = 768; C <= 875 fits: ops/swin_block.py MLP_F32_MAX_C);
 // it is off the bf16 main path and held against the same plain version.
 //
 // What bounds it: 16*T*C^2 operations on 2*T*C*sizeof(T) bytes, so
-// operations; the GELU's tanhf runs on the CUDA cores beside them. The
-// wide design reads all of W1 and W2 (16 C^2 bytes) from L2 once a 64-token
-// block, twice as often a token as the narrow one.
+// operations; the GELU's tanhf runs on the CUDA cores beside them. Above
+// C = 256, xn and h add 4*T*C + 16*T*C bytes of round trips (h's time is
+// at most 295 / C of the operation bound: 0.58 at C = 512), and each
+// product reads its weights from L2 once per 128-token tile (8 C^2
+// bytes).
 //
 // Rounding points (as _mlp_math): xn after the f32 LN, h after the
 // tanh-GELU of the f32 fc1 + b1, y after the fc2 bias, dp * y, and the
@@ -99,6 +99,12 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   // jax.nn.gelu(approximate=True)
   const float inner = 0.7978845608028654f * (v + 0.044715f * (v * v * v));
   return v * (0.5f * (1.f + tanhf(inner)));
+}
+
+// the same with tanh_fast (K2f above C = 256)
+__device__ __forceinline__ float gelu_tanh_fast(float v) {
+  const float inner = 0.7978845608028654f * (v + 0.044715f * (v * v * v));
+  return v * (0.5f * (1.f + tanh_fast(inner)));
 }
 
 template <int TM, int HC>
@@ -503,296 +509,105 @@ int launch_fwd_sm90(const CUtensorMap& tw1, const CUtensorMap& tw2,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, C = 384, 512, 768: two warpgroups share 64 tokens, no producer warp
+// bf16 above C = 256: LN rows, then fc1 and fc2 as two products
 // ---------------------------------------------------------------------------
-constexpr int kWideM = 64;                      // tokens a block
-constexpr int kWideThreads = 2 * kWgThreads;    // both warpgroups consume
-constexpr int kPiece = 64 * 128;                // a 64 x 64 bf16 TMA box
-constexpr int kWideStep = 2 * kPiece;           // two boxes a step
-
-template <int C>
-struct WideCfg {
-  static_assert(C % 128 == 0 && C > 256 && C <= 768,
-                "C % 128 == 0, 256 < C <= 768");
-  static constexpr int KC = C / 64;       // xn atoms; steps a hidden chunk
-  static constexpr int kHalf = KC / 2;    // W1 steps, then as many W2 steps
-  static constexpr int kXnBytes = KC * kPiece;  // xn, 64 x C
-  static constexpr int kFit =
-      (227 * 1024 - 1024 - kXnBytes - kPiece - 64) / kWideStep;
-  static constexpr int kStages = kFit > 8 ? 8 : kFit;
-  static constexpr int kRingBytes = kStages * kWideStep;
-  static constexpr int kLdY = C + 4;  // f32 pitch of the epilogue's tile
-  static constexpr int kSmemBytes =
-      kXnBytes + kPiece + kRingBytes + 8 * kStages + 1024;
-  // h is rewritten after the barrier of the chunk's first W1 step, which
-  // follows both warpgroups' last reads of the h before
-  static_assert(kHalf >= 2, "at least two W1 steps a chunk");
-  static_assert(kStages >= 3, "a ring of at least three steps");
-  static_assert(64 * kLdY * 4 <= kXnBytes + kPiece + kRingBytes,
-                "the epilogue's tile must fit in xn, h and the ring");
+// fc1's epilogue: h[m, n .. n + 7] = round(gelu_tanh(v + b1[n])), tanh on
+// the special-function unit (tanh_fast)
+struct EpiGeluBf16 {
+  bf16* h;
+  int ld;
+  const float* b1;
+  __device__ void operator()(int m, int n, int, const float (&v)[8]) const {
+    const float4 c0 = ldf4(b1 + n), c1 = ldf4(b1 + n + 4);
+    const float bv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = gelu_tanh_fast(v[e] + bv[e]);
+    store8(h + static_cast<long long>(m) * ld + n, o);
+  }
 };
 
-// Step s of a block: hidden chunk s / KC (from the block's first chunk
-// j0), pair t = s % KC of its boxes: W1's chunk rows x k-columns 128 t ..
-// + 127 for t < KC / 2, else W2's rows 64 q .. + 63 and C / 2 + 64 q ..
-// (q = t - KC / 2: each warpgroup's output columns) x the chunk's 64
-// columns.
-template <int C>
-__device__ __forceinline__ void wide_load(const CUtensorMap* tw1,
-                                          const CUtensorMap* tw2,
-                                          unsigned char* ring,
-                                          uint64_t* full, int s, int steps,
-                                          int nj, int j0) {
-  using K = WideCfg<C>;
-  if (s >= steps) return;
-  const int st = s % K::kStages, t = s % K::KC;
-  const int jc = ((s / K::KC + j0) % nj) * 64;
-  unsigned char* p = ring + st * kWideStep;
-  mbar_expect_tx(&full[st], kWideStep);
-  if (t < K::kHalf) {
-    tma_load_2d(p, tw1, &full[st], 128 * t, jc);
-    tma_load_2d(p + kPiece, tw1, &full[st], 128 * t + 64, jc);
-  } else {
-    const int q = t - K::kHalf;
-    tma_load_2d(p, tw2, &full[st], jc, 64 * q);
-    tma_load_2d(p + kPiece, tw2, &full[st], jc, C / 2 + 64 * q);
-  }
-}
-
-template <int C>
-__global__ void __launch_bounds__(kWideThreads, 1)
-    mlp_fwd_wide_sm90(const __grid_constant__ CUtensorMap tw1,
-                      const __grid_constant__ CUtensorMap tw2, FwdArgs a) {
-  using K = WideCfg<C>;
-  unsigned char* sm = smem_base_1k();
-  unsigned char* xn = sm;                      // KC atoms of 64 x 128 bytes
-  unsigned char* hs = sm + K::kXnBytes;        // the GELU'd chunk, 64 x 64
-  unsigned char* ring = hs + kPiece;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + K::kRingBytes);
-  const int t0 = blockIdx.x * kWideM;
-  // hidden chunks, from a block-dependent first one (as mlp_fwd_sm90)
-  const int nj = a.Ch / 64, j0 = blockIdx.x % nj, steps = nj * K::KC;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < K::kStages; ++i) mbar_init(&full[i], 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0)  // the ring's first steps load beside the LN
-    for (int s = 0; s < K::kStages - 1; ++s)
-      wide_load<C>(&tw1, &tw2, ring, full, s, steps, nj, j0);
-  const int wg = warpgroup_index();
-  const int tid = threadIdx.x % kWgThreads, warp = tid >> 5, lane = tid & 31;
-
-  // 1. LN of the 64 rows (8 a warp), f32 statistics, xn rounded into the
-  //    swizzled tile; lane l holds channels 8 l + 256 g .. + 7
-  {
-    constexpr int G = (C + 255) / 256;
-    float sc[G][8], bi[G][8];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const int c = 8 * lane + 256 * g;
-      if (c >= C) continue;
-      const float4 s0 = ldf4(a.ln_s + c), s1 = ldf4(a.ln_s + c + 4);
-      const float4 b0 = ldf4(a.ln_b + c), b1 = ldf4(a.ln_b + c + 4);
-      const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        sc[g][e] = sv[e];
-        bi[g][e] = bv[e];
-      }
-    }
-    const int rw = (threadIdx.x >> 5) * 8;
-    uint4 raw[8][G];
-#pragma unroll
-    for (int rr = 0; rr < 8; ++rr)
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const int c = 8 * lane + 256 * g;
-        raw[rr][g] =
-            c < C && t0 + rw + rr < a.T
-                ? ld16(a.x + static_cast<long long>(t0 + rw + rr) * C + c)
-                : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
-      const int r = rw + rr;
-      float v[G][8];
-      float s = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        unpack8(raw[rr][g], v[g]);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          s += v[g][e];
-          s2 += v[g][e] * v[g][e];
-        }
-      }
-      s = warp_sum(s);
-      s2 = warp_sum(s2);
-      const float m = s / C;
-      const float rs = 1.f / sqrtf(s2 / C - m * m + kLnEps);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const int c = 8 * lane + 256 * g;
-        if (c >= C) continue;
-        float o[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          o[e] = t0 + r < a.T ? (v[g][e] - m) * rs * sc[g][e] + bi[g][e]
-                              : 0.f;
-        store8(reinterpret_cast<bf16*>(xn + (c >> 6) * kPiece +
-                                       sw128_off(r, c & 63)),
-               o);
-      }
-    }
-  }
-  fence_async_smem();
-  __syncthreads();
-
-  // 2. the hidden chunks; no instruction but wgmma touches y until the end
-  const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
-  float y[K::kHalf][32];
-  int s = 0;
-  for (int j = 0; j < nj; ++j) {
-    const int jc = ((j + j0) % nj) * 64;
-    float sacc[16];
-#pragma unroll
-    for (int t = 0; t < K::kHalf; ++t, ++s) {
-      // S = xn W1^T for hidden units jc + 32 wg .. + 31 (64 x 32), the
-      // k-columns 128 t .. + 127 of this step
-      const int st = s % K::kStages;
-      unsigned char* p = ring + st * kWideStep + wg * 32 * 128;
-      mbar_wait_warp(&full[st], (s / K::kStages) & 1);
-      wg_fence();
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          Wg<32>::ss<0, 0>(
-              sacc, sw128_desc(xn + (2 * t + h) * kPiece) + ks * kDescKStep,
-              sw128_desc(p + h * kPiece) + ks * kDescKStep,
-              t > 0 || h > 0 || ks > 0);
-      wg_commit();
-      if (t + 1 < K::kHalf) {
-        wg_wait<1>();  // the step before is done: its slot is refilled
-      } else {
-        wg_wait<0>();
-        fence_regs(sacc);
-        // + b1, tanh-GELU; rounded to bf16 into this warpgroup's 32
-        // columns of the shared chunk
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = wg * 32 + 8 * i + c0;
-          const float b0 = a.b1[jc + col], b1 = a.b1[jc + col + 1];
-          store_bf16x2(reinterpret_cast<bf16*>(hs + sw128_off(r0, col)),
-                       gelu_tanh(sacc[4 * i] + b0),
-                       gelu_tanh(sacc[4 * i + 1] + b1));
-          store_bf16x2(reinterpret_cast<bf16*>(hs + sw128_off(r0 + 8, col)),
-                       gelu_tanh(sacc[4 * i + 2] + b0),
-                       gelu_tanh(sacc[4 * i + 3] + b1));
-        }
-        fence_async_smem();
-      }
-      __syncthreads();
-      if (threadIdx.x == 0)
-        wide_load<C>(&tw1, &tw2, ring, full, s + K::kStages - 1, steps, nj,
-                      j0);
-    }
-#pragma unroll
-    for (int q = 0; q < K::kHalf; ++q, ++s) {
-      // y[:, wg C / 2 + 64 q .. + 63] += h W2^T (K = the chunk's 64 units)
-      const int st = s % K::kStages;
-      unsigned char* p = ring + st * kWideStep + wg * kPiece;
-      mbar_wait_warp(&full[st], (s / K::kStages) & 1);
-      wg_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        Wg<64>::ss<0, 0>(y[q], sw128_desc(hs) + ks * kDescKStep,
-                         sw128_desc(p) + ks * kDescKStep, j > 0 || ks > 0);
-      wg_commit();
-      wg_wait<1>();
-      __syncthreads();
-      if (threadIdx.x == 0)
-        wide_load<C>(&tw1, &tw2, ring, full, s + K::kStages - 1, steps, nj,
-                      j0);
-    }
-  }
-  wg_wait<0>();
-#pragma unroll
-  for (int q = 0; q < K::kHalf; ++q) fence_regs(y[q]);
-
-  // 3. epilogue: every product and load is done; the f32 tile of the 64
-  //    rows over xn, h and the ring; a row's 8 neighbouring columns a thread
-  __syncthreads();
-  float* yt = reinterpret_cast<float*>(sm);
-#pragma unroll
-  for (int q = 0; q < K::kHalf; ++q)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int col = wg * (C / 2) + 64 * q + 8 * i + c0;
-      *reinterpret_cast<float2*>(yt + r0 * K::kLdY + col) =
-          make_float2(y[q][4 * i], y[q][4 * i + 1]);
-      *reinterpret_cast<float2*>(yt + (r0 + 8) * K::kLdY + col) =
-          make_float2(y[q][4 * i + 2], y[q][4 * i + 3]);
-    }
-  __syncthreads();
-  for (int q = threadIdx.x; q < kWideM * (C / 8); q += kWideThreads) {
-    const int r = q / (C / 8), c = (q % (C / 8)) * 8;
-    const int tok = t0 + r;
-    if (tok >= a.T) continue;
-    const float dpv = round_bf16(a.dp ? a.dp[tok / a.hw] : 1.f);
-    const long long idx = static_cast<long long>(tok) * C + c;
-    const float4 lo = *reinterpret_cast<const float4*>(yt + r * K::kLdY + c);
-    const float4 hi =
-        *reinterpret_cast<const float4*>(yt + r * K::kLdY + c + 4);
-    const float yv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    const float4 b0 = ldf4(a.b2 + c), b1 = ldf4(a.b2 + c + 4);
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+// fc2's epilogue, the residual: out[m, n .. n + 7] = x + round(round(dp)
+// round(v + b2[n])), dp of token m's sample (a tile may cross samples)
+struct EpiResidualBf16 {
+  const bf16* x;
+  bf16* out;
+  const float *b2, *dp;
+  long long hw;
+  int C;
+  __device__ void operator()(int m, int n, int, const float (&v)[8]) const {
+    const float dpv = round_bf16(dp ? dp[m / hw] : 1.f);
+    const long long idx = static_cast<long long>(m) * C + n;
+    const float4 c0 = ldf4(b2 + n), c1 = ldf4(b2 + n + 4);
+    const float bv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
     float xs[8], o[8];
-    unpack8(ld16(a.x + idx), xs);
+    unpack8(ld16(x + idx), xs);
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      o[e] = xs[e] + round_bf16(dpv * round_bf16(yv[e] + bv[e]));
-    store8(a.out + idx, o);
+      o[e] = xs[e] + round_bf16(dpv * round_bf16(v[e] + bv[e]));
+    store8(out + idx, o);
+  }
+};
+
+// A K2f product over its whole depth K (one slot), both operands K-major
+// as they lie, in the N tile gemm_pick_bn chooses for M x N. Two blocks an
+// SM: fc1's depth is only C (8 k-chunks at C = 512), so a block's prologue
+// and GELU epilogue last about as long as its products and are hidden
+// behind the other block's. Neighbouring blocks take the N tiles of one
+// token tile: the weights stay in L2 and each token tile of xn or h is
+// read from device memory once.
+template <class Epi>
+int k2f_product(const bf16* A, int lda, const bf16* B, int ldb, int M,
+                int N, int K, Epi epi, cudaStream_t s) {
+  const int kchunk = (K + kGemmK - 1) / kGemmK * kGemmK;
+  switch (gemm_pick_bn(M, N)) {
+    case 96:
+      return gemm_run<false, false, K2f, 96, true>(A, lda, B, ldb, M, N,
+                                                   K, kchunk, epi, s);
+    case 64:
+      return gemm_run<false, false, K2f, 64, true>(A, lda, B, ldb, M, N,
+                                                   K, kchunk, epi, s);
+    default:
+      return gemm_run<false, false, K2f, 128, true>(A, lda, B, ldb, M, N,
+                                                    K, kchunk, epi, s);
   }
 }
 
-template <int C>
-int launch_fwd_wide_sm90(const CUtensorMap& tw1, const CUtensorMap& tw2,
-                         const FwdArgs& a, cudaStream_t s) {
-  static std::atomic<unsigned long long> smem_set{0};
-  SWIN_TRY(smem_limit_once(
-      smem_set, reinterpret_cast<const void*>(mlp_fwd_wide_sm90<C>),
-      WideCfg<C>::kSmemBytes));
-  mlp_fwd_wide_sm90<C><<<(a.T + kWideM - 1) / kWideM, kWideThreads,
-                         WideCfg<C>::kSmemBytes, s>>>(tw1, tw2, a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the bf16 workspace: the bf16 copies of W1 and W2
+// the bf16 workspace, carved in one order for measuring and for use (the
+// same order as ops/swin_block.py mlp_fwd_plan): the bf16 copies of W1
+// and W2; above C = 256 also xn [T, C] and h [T, Ch]
 struct FwdWork {
-  bf16 *w1b, *w2b;
-  FwdWork(Carver& cv, int C, int Ch) {
+  bf16 *w1b, *w2b, *xn = nullptr, *h = nullptr;
+  FwdWork(Carver& cv, long long T, int C, int Ch) {
     w1b = cv.take<bf16>(static_cast<size_t>(Ch) * C);
     w2b = cv.take<bf16>(static_cast<size_t>(C) * Ch);
+    if (C > 256) {
+      xn = cv.take<bf16>(static_cast<size_t>(T) * C);
+      h = cv.take<bf16>(static_cast<size_t>(T) * Ch);
+    }
   }
 };
 
 int launch_mlp_bf16(const MlpArgs& a, void* work, cudaStream_t s) {
-  const int C = a.C, Ch = a.Ch;
+  const int C = a.C, Ch = a.Ch, T = static_cast<int>(a.T);
   Carver cv{static_cast<char*>(work)};
-  const FwdWork w(cv, C, Ch);
+  const FwdWork w(cv, T, C, Ch);
   const long long nw = static_cast<long long>(Ch) * C;
   SWIN_TRY(launch_cast_weights<K2f>(a.w1, nw, a.w2, nw, w.w1b, w.w2b, s));
-  const bool wide = mlp_wide_c(C);
+  const bf16* x = static_cast<const bf16*>(a.x);
+  bf16* out = static_cast<bf16*>(a.out);
+  if (C > 256) {
+    SWIN_TRY(launch_ln_rows_bf16<K2f>(x, a.ln_s, a.ln_b, w.xn, nullptr,
+                                      nullptr, T, C, s));
+    SWIN_TRY(k2f_product(w.xn, C, w.w1b, C, T, Ch, C,
+                         EpiGeluBf16{w.h, Ch, a.b1}, s));
+    return k2f_product(w.h, Ch, w.w2b, Ch, T, C, Ch,
+                       EpiResidualBf16{x, out, a.b2, a.dp, a.hw, C}, s);
+  }
   CUtensorMap tw1, tw2;
   SWIN_TRY(make_map_2d(&tw1, w.w1b, C, Ch, C, kFwdJ));
-  // the wide kernel takes W2's chunk in boxes of 64 rows, the other whole
-  SWIN_TRY(make_map_2d(&tw2, w.w2b, Ch, C, Ch, wide ? 64 : C));
-  const FwdArgs fa{static_cast<const bf16*>(a.x), static_cast<bf16*>(a.out),
-                   a.ln_s, a.ln_b, a.b1, a.b2, a.dp,
-                   static_cast<int>(a.T), Ch, a.hw};
+  SWIN_TRY(make_map_2d(&tw2, w.w2b, Ch, C, Ch, C));
+  const FwdArgs fa{x, out, a.ln_s, a.ln_b, a.b1, a.b2, a.dp, T, Ch, a.hw};
   switch (C) {
     case 32: return launch_fwd_sm90<32>(tw1, tw2, fa, s);
     case 64: return launch_fwd_sm90<64>(tw1, tw2, fa, s);
@@ -802,9 +617,6 @@ int launch_mlp_bf16(const MlpArgs& a, void* work, cudaStream_t s) {
     case 192: return launch_fwd_sm90<192>(tw1, tw2, fa, s);
     case 224: return launch_fwd_sm90<224>(tw1, tw2, fa, s);
     case 256: return launch_fwd_sm90<256>(tw1, tw2, fa, s);
-    case 384: return launch_fwd_wide_sm90<384>(tw1, tw2, fa, s);
-    case 512: return launch_fwd_wide_sm90<512>(tw1, tw2, fa, s);
-    case 768: return launch_fwd_wide_sm90<768>(tw1, tw2, fa, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -831,31 +643,37 @@ int launch_mlp_f32(const MlpArgs& a, cudaStream_t stream) {
                     : launch_mlp_f32_tile<16, 16>(a, stream);
 }
 
-// what the bf16 kernel takes: C % 32 == 0 up to 256 or mlp_wide_c, whole
-// hidden chunks, int token indices (f32: whatever fits its shared memory,
-// checked at launch)
+// what the bf16 kernels take: C % 32 == 0 up to kMlpMaxC (the narrow
+// instances up to 256, the two products above), whole hidden chunks, int
+// token indices (f32: whatever fits its shared memory, checked at launch)
 bool mlp_fwd_dims_ok(long long T, int C, int Ch, int is_bf16) {
   if (T < 1 || C < 1 || Ch < 1) return false;
-  return !is_bf16 || (((C % 32 == 0 && C <= 256) || mlp_wide_c(C)) &&
-                      Ch % kFwdJ == 0 && T < (1LL << 31));
+  return !is_bf16 ||
+         (mlp_bf16_c(C) && Ch % kFwdJ == 0 && T < (1LL << 31));
 }
 
 }  // namespace swin
 
-extern "C" long long swin_mlp_fwd_workspace(int C, int Ch, int is_bf16) {
-  if (!swin::mlp_fwd_dims_ok(1, C, Ch, is_bf16) || !is_bf16) return 0;
+// Bytes of the workspace (0 in f32 and for widths the kernels do not
+// take). The host sizes it with its own mirror (ops/swin_block.py
+// mlp_fwd_plan); the launch refuses a buffer smaller than this.
+extern "C" long long swin_mlp_fwd_workspace(long long T, int C, int Ch,
+                                            int is_bf16) {
+  if (!swin::mlp_fwd_dims_ok(T, C, Ch, is_bf16) || !is_bf16) return 0;
   swin::Carver cv{nullptr};
-  swin::FwdWork w(cv, C, Ch);
+  swin::FwdWork w(cv, T, C, Ch);
   return static_cast<long long>(cv.off);
 }
 
 extern "C" int swin_mlp_fwd(const void* x, void* out, void* work,
-                            const float* ln_s, const float* ln_b,
-                            const float* w1, const float* b1,
-                            const float* w2, const float* b2,
-                            const float* dp, long long T, int C, int Ch,
-                            int hw, int is_bf16, void* stream) {
-  if (!swin::mlp_fwd_dims_ok(T, C, Ch, is_bf16))
+                            long long work_bytes, const float* ln_s,
+                            const float* ln_b, const float* w1,
+                            const float* b1, const float* w2,
+                            const float* b2, const float* dp, long long T,
+                            int C, int Ch, int hw, int is_bf16,
+                            void* stream) {
+  if (!swin::mlp_fwd_dims_ok(T, C, Ch, is_bf16) ||
+      work_bytes < swin_mlp_fwd_workspace(T, C, Ch, is_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   swin::MlpArgs a{x, out, ln_s, ln_b, w1, b1, w2, b2, dp, T, C, Ch, hw};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

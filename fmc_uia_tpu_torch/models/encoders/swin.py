@@ -51,7 +51,6 @@ from fmc_uia_tpu_torch.models.layers import (
     trunc_normal_,
 )
 from fmc_uia_tpu_torch.ops.swin_block import (
-    MLP_WIDE_C,
     attention_branch,
     mlp_branch,
     mlp_branch_reference,
@@ -153,10 +152,6 @@ class SwinBlock(nn.Module):
         gated = fused_mlp and dim <= fused_mlp_max_c
         self.fused_mlp = gated and mlp_fits_jax_kernel(dim, hidden)
         self.mlp_math = gated and not self.fused_mlp
-        if self.fused_mlp and dim > 256 and dim not in MLP_WIDE_C:
-            raise NotImplementedError(
-                f"fused MLP at C={dim}: the port's K2 kernels take C <= 256 "
-                f"and {MLP_WIDE_C} (ROADMAP queue 2b item 3)")
         self.norm1 = _LN(dim)
         self.attn = _Attn(dim, num_heads, window_size)
         self.norm2 = _LN(dim)
@@ -416,9 +411,10 @@ def build_swin(name: str, config=None, dtype=torch.float32) -> SwinEncoder:
     unfused attention), ``softmax_bf16`` (bf16 scores in the unfused
     attention) and ``fused_mlp`` (default on: the fused MLP branch at C <=
     256). ``FMC_FUSED_MLP_MAX_C``, read here, moves that gate as the JAX
-    package's does, either way: above 256 the K2 kernels take C = 384,
-    512 and 768 and C = 1024 / 1536 run JAX's XLA-branch math (see
-    ``SwinBlock``)."""
+    package's does, either way: above 256 the K2 kernels take every width
+    the JAX kernel fuses (C % 32 == 0 up to 1003: swin_t / swin_s stages
+    2-3, swin_b stage 2, swin_l stages 1-2) and C = 1024 / 1536 run JAX's
+    XLA-branch math (see ``SwinBlock``)."""
     if name not in _SWIN_VARIANTS:
         raise ValueError(
             f"Unknown swin variant {name!r}; have {sorted(_SWIN_VARIANTS)}")

@@ -42,8 +42,8 @@ _U8P, _IP = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "swin_attn_fwd": [_VP] * 12 + [ctypes.c_float] + [_I] * 7 + [_VP],
     "swin_attn_fwd_workspace": [_I] * 7,
-    "swin_mlp_fwd": [_VP] * 10 + [_LL] + [_I] * 4 + [_VP],
-    "swin_mlp_fwd_workspace": [_I] * 3,
+    "swin_mlp_fwd": [_VP] * 3 + [_LL] + [_VP] * 7 + [_LL] + [_I] * 4 + [_VP],
+    "swin_mlp_fwd_workspace": [_LL] + [_I] * 3,
     "swin_attn_bwd": [_VP] * 20 + [ctypes.c_float] + [_I] * 9 + [_VP],
     "swin_attn_bwd_workspace": [_I] * 9,
     "swin_mlp_bwd": [_VP] * 17 + [_LL, _LL] + [_I] * 6 + [_VP],

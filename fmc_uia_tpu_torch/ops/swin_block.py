@@ -28,8 +28,9 @@ The bf16 kernels run on Hopper's TMA and wgmma (``csrc/sm90_gemm.cuh``,
 here, where the CPU tests hold it: the window box of the [B, Hp, Wp, C]
 tensor maps (``window_tma_layout``), the head groups of the window
 kernels (``head_groups``), the token slots of K1b's and K2b's split-K
-weight gradients (``split_k_plan``), K2b's launch plan and workspace
-(``mlp_bwd_plan``), the widths the MLP kernels take
+weight gradients (``split_k_plan``), K2f's workspace (``mlp_fwd_plan``),
+K2b's launch plan and workspace (``mlp_bwd_plan``), the widths the MLP
+kernels take
 (``mlp_kernel_dims``) and the JAX package's rule for the widths its MLP
 kernel takes at all (``mlp_fits_jax_kernel``).
 """
@@ -508,17 +509,20 @@ def mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
 
 # K2b's dual product takes 128-token tiles: one db1 slot a tile
 MLP_TILE = 128
-# the bf16 kernels' instances above C = 256 (csrc/swin_mlp_fwd.cu
-# mlp_fwd_wide_sm90, csrc/swin_mlp_bwd.cu mlp_dual_stream_sm90): the Swin
-# widths the JAX package fuses under FMC_FUSED_MLP_MAX_C (swin_t / swin_s
-# stages 2-3, swin_b stage 2, swin_l stages 1-2)
-MLP_WIDE_C = (384, 512, 768)
 # The JAX kernel's scoped-VMEM budget, copied from
 # fmc_uia_tpu/ops/swin_block_pallas.py:652-670 (_MLP_VMEM_LIMIT and the
 # 0.72 share _pick_mlp_tile leaves the working set): the f32 weight pair
 # and its bf16 casts alone take 12 C Ch bytes of it.
 MLP_VMEM_LIMIT = 64 * 1024 * 1024
 MLP_VMEM_SHARE = 0.72
+# the widest C whose Ch = 4C weights fit that budget (1003): the bf16
+# kernels' limit (csrc/swin_attn_sm90.cuh kMlpMaxC)
+MLP_MAX_C = math.isqrt(int(MLP_VMEM_LIMIT * MLP_VMEM_SHARE) // 48)
+# the f32 forward's widest C (875): above C = 256 a block keeps 16 tokens'
+# xn and y and a 16-unit chunk of W1 and W2 in shared memory, 66 C + 336
+# floats (csrc/swin_mlp_fwd.cu mlp_smem_floats<16, 16>), within the
+# 232,448 bytes a block may use
+MLP_F32_MAX_C = (232448 // 4 - 336) // 66
 
 
 def mlp_fits_jax_kernel(C: int, Ch: int) -> bool:
@@ -532,21 +536,23 @@ def mlp_fits_jax_kernel(C: int, Ch: int) -> bool:
 
 def mlp_kernel_dims(C: int, Ch: int, dtype) -> None:
     """Raise ``ValueError`` on widths the MLP kernels do not take. bf16:
-    Ch % 64 == 0 (whole hidden chunks) and C % 32 == 0 up to 256 (K2f
-    keeps y, 64 x C in f32 a warpgroup, in registers, with wgmma widths
-    that sum to C; K2b keeps a tile's xn and dyc in shared memory) or C
-    in ``MLP_WIDE_C`` (K2f: two warpgroups share 64 tokens, C / 2 columns
-    of y each; K2b streams xn and dyc with the weights). f32: C <= 1024
-    (the pullback's rows of 32 lanes)."""
+    Ch % 64 == 0 (whole hidden chunks) and C % 32 == 0 up to MLP_MAX_C,
+    every width the JAX kernel fuses at Ch = 4C. Up to C = 256 K2f keeps
+    y, 64 x C in f32 a warpgroup, in registers (an instance per C, wgmma
+    widths that sum to C) and K2b a tile's xn and dyc in shared memory;
+    above, C comes in at run time: K2f runs two products through device
+    memory (``mlp_fwd_plan``) and K2b streams xn and dyc with the
+    weights. f32: C <= MLP_F32_MAX_C (the forward's shared memory; the
+    pullback's rows of 32 lanes take up to 1024)."""
     if dtype == torch.bfloat16:
         if (Ch % 64 or Ch < 64
-                or not (C % 32 == 0 and 32 <= C <= 256 or C in MLP_WIDE_C)):
+                or not (C % 32 == 0 and 32 <= C <= MLP_MAX_C)):
             raise ValueError(f"bf16 MLP kernels: C={C}, Ch={Ch}: need C a "
-                             "multiple of 32 up to 256 or one of "
-                             f"{MLP_WIDE_C}, and Ch a multiple of 64")
-    elif not 1 <= C <= 1024 or Ch < 1:
+                             f"multiple of 32 up to {MLP_MAX_C} and Ch a "
+                             "multiple of 64")
+    elif not 1 <= C <= MLP_F32_MAX_C or Ch < 1:
         raise ValueError(f"f32 MLP kernels: C={C}, Ch={Ch}: need "
-                         "1 <= C <= 1024")
+                         f"1 <= C <= {MLP_F32_MAX_C}")
 
 
 def _rows_per_slot(rows: int, least: int) -> int:
@@ -590,6 +596,20 @@ def mlp_bwd_plan(T: int, C: int, Ch: int):
                 workspace=workspace)
 
 
+@functools.lru_cache(maxsize=None)
+def mlp_fwd_plan(T: int, C: int, Ch: int):
+    """K2f's bf16 workspace over T tokens, as ``csrc/swin_mlp_fwd.cu``
+    carves it (``FwdWork``): the bf16 copies of W1 and W2 and, above
+    C = 256, xn [T, C] and the GELU'd hidden activation h [T, Ch] between
+    its two products. The wrapper allocates these bytes, and the launch
+    refuses a buffer smaller than its own carving. Cached per shape: read
+    it, do not change it."""
+    pieces = [(Ch * C, 2), (C * Ch, 2)]  # W1, W2 in bf16
+    if C > 256:
+        pieces += [(T * C, 2), (T * Ch, 2)]  # xn, h
+    return dict(workspace=_carve(pieces))
+
+
 def _mlp_kernel_args(x, ln_scale, ln_bias, w1, b1, w2, b2, dp):
     _check_x(x, 4)
     B, H, W, C = x.shape
@@ -613,14 +633,14 @@ def _mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, dp=None):
     Ch = w1.shape[0]
     bf = int(x.dtype == torch.bfloat16)
     out = torch.empty_like(x)
-    # bf16: the bf16 copies of W1 and W2 that TMA reads
-    work = torch.empty(_workspace("swin_mlp_fwd", C, Ch, bf),
-                       dtype=torch.uint8, device=x.device)
-    # an f32 C whose block would need more shared memory than the card
-    # allows fails in the launcher (cudaFuncSetAttribute) and raises below
+    T = B * H * W
+    # bf16: the plan's bytes (the bf16 weights TMA reads; above C = 256
+    # also xn and h); the launch refuses fewer than it carves. f32: none
+    nbytes = mlp_fwd_plan(T, C, Ch)["workspace"] if bf else 0
+    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     rc = build.load("swin_mlp_fwd")(
-        x.data_ptr(), out.data_ptr(), work.data_ptr(),
-        *[t.data_ptr() for t in args], _ptr(dp), B * H * W, C, Ch, H * W,
+        x.data_ptr(), out.data_ptr(), work.data_ptr(), nbytes,
+        *[t.data_ptr() for t in args], _ptr(dp), T, C, Ch, H * W,
         bf, _stream(x))
     if rc != 0:
         raise RuntimeError(f"swin_mlp_fwd launch failed: CUDA error {rc}")

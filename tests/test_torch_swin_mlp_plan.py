@@ -3,11 +3,15 @@ the CPU: K2b's launch plan (``mlp_bwd_plan``: the split-K token slots of
 dW1 and dW2, db1's slots of one 128-token tile each, and the workspace
 bytes, carved as ``csrc/swin_mlp_bwd.cu`` carves them), db1 summed the way
 K2b sums it, and the widths the kernels take and refuse
-(``mlp_kernel_dims``: C = 384, 512 and 768 above 256).
+(``mlp_kernel_dims``: every C % 32 == 0 up to 1003), and K2f's workspace
+(``mlp_fwd_plan``: the bf16 weights, and above C = 256 xn and h between
+its two products, carved as ``csrc/swin_mlp_fwd.cu`` carves them).
 
 db1 is held against ``_mlp_pullback``'s from the JAX package with
 ``test_torch_swin_bwd``'s tolerances: f32 1e-5 of its largest magnitude
 (the same f32 terms added in another order), bf16 2 bf16 ulps of it."""
+
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -143,20 +147,61 @@ def test_db1_tile_partials_in_index_order(C, dt):
 
 @pytest.mark.parametrize("C, Ch", [(32, 128), (96, 384), (128, 512),
                                    (160, 640), (192, 768), (256, 1024),
-                                   (384, 1536), (512, 2048), (768, 3072)])
+                                   (288, 1152), (384, 1536), (512, 2048),
+                                   (640, 2560), (768, 3072), (992, 3968)])
 def test_widths_the_kernels_take(C, Ch):
     sb.mlp_kernel_dims(C, Ch, torch.bfloat16)
-    sb.mlp_kernel_dims(C, Ch, torch.float32)
+    if C <= sb.MLP_F32_MAX_C:  # the f32 forward's shared memory
+        sb.mlp_kernel_dims(C, Ch, torch.float32)
 
 
 @pytest.mark.parametrize("C, Ch, dtype", [
     (16, 64, torch.bfloat16),    # below one 32-wide piece
     (48, 192, torch.bfloat16),   # not a multiple of 32
-    (288, 1152, torch.bfloat16),  # above 256 and not a wide instance
+    (272, 1088, torch.bfloat16),  # above 256, not a multiple of 32
     (1024, 4096, torch.bfloat16),  # swin_b stage 3: JAX's XLA branch
+    (1056, 4224, torch.bfloat16),  # wider than the JAX kernel takes
     (32, 96, torch.bfloat16),    # a partial hidden chunk
     (2048, 8192, torch.float32),  # beyond the f32 pullback's rows
+    (992, 3968, torch.float32),  # beyond the f32 forward's shared memory
 ])
 def test_widths_the_kernels_refuse(C, Ch, dtype):
     with pytest.raises(ValueError, match="MLP kernels"):
         sb.mlp_kernel_dims(C, Ch, dtype)
+
+
+@pytest.mark.parametrize("T, C, Ch, wide", [(200, 32, 128, False),
+                                            (8192, 256, 1024, False),
+                                            (147, 640, 2560, True),
+                                            (2048, 768, 3072, True)])
+def test_fwd_workspace_counts_each_piece(T, C, Ch, wide):
+    """K2f's carving, piece by piece (256-byte starts): W1 and W2 in bf16,
+    whatever the tokens; above C = 256 also xn [T, C] and h [T, Ch]."""
+    pieces = [Ch * C * 2, C * Ch * 2]
+    if wide:
+        pieces += [T * C * 2, T * Ch * 2]
+    off = 0
+    for p in pieces:
+        off = -(-off // 256) * 256 + p
+    assert sb.mlp_fwd_plan(T, C, Ch)["workspace"] == off
+
+
+def test_f32_forward_widest_c_fits_shared_memory():
+    """MLP_F32_MAX_C: the widest C whose 16-token f32 forward block
+    (mlp_smem_floats<16, 16>) fits the 232,448 bytes a block may use."""
+    def smem(C, TM=16, HC=16):
+        return 4 * (2 * TM + C * (TM + 1) + TM * (C + 1) + C * (HC + 1)
+                    + HC * (C + 1) + HC * (TM + 1))
+    assert smem(sb.MLP_F32_MAX_C) <= 232448 < smem(sb.MLP_F32_MAX_C + 1)
+    assert 768 <= sb.MLP_F32_MAX_C < 896
+
+
+def test_widest_c_matches_the_kernels():
+    """MLP_MAX_C, the widest C whose 4C-wide weights fit the JAX kernel's
+    budget, is the C side's kMlpMaxC."""
+    src = (Path(sb.__file__).resolve().parent.parent / "csrc"
+           / "swin_attn_sm90.cuh").read_text()
+    assert f"constexpr int kMlpMaxC = {sb.MLP_MAX_C};" in src
+    assert sb.mlp_fits_jax_kernel(sb.MLP_MAX_C, 4 * sb.MLP_MAX_C)
+    assert not sb.mlp_fits_jax_kernel(sb.MLP_MAX_C + 1,
+                                      4 * (sb.MLP_MAX_C + 1))

@@ -1,9 +1,10 @@
 """The fused Swin MLP branch above C = 256, on the CPU, against the JAX
-package: the widths it fuses under ``FMC_FUSED_MLP_MAX_C`` (C = 384, 512,
-768: the port's K2 kernels, held against these plain versions on the card
-by chip_smoke.py phase 15) and the widths whose weights overflow its
-Pallas kernel's budget (C = 1024, 1536: ``_mlp_math`` under XLA, the
-port's plain version under autograd).
+package: the widths it fuses under ``FMC_FUSED_MLP_MAX_C`` (C % 32 == 0
+up to 1003, here 320, 384, 512, 640, 768 and 960: the port's K2 kernels,
+held against these plain versions on the card by chip_smoke.py phase 15)
+and the widths whose weights overflow its Pallas kernel's budget (C =
+1024, 1536: ``_mlp_math`` under XLA, the port's plain version under
+autograd).
 
 - the plain forward against ``_mlp_math``, the plain pullback against
   ``_mlp_pullback`` (what K2b computes) and autograd through the plain
@@ -12,11 +13,12 @@ port's plain version under autograd).
   tolerances (f32 1e-5 of the largest magnitude, 4e-5 for dx; bf16 2 bf16
   ulps of it);
 - the wrappers against ``fused_mlp_branch`` itself (Pallas in interpret
-  mode) at C = 512, B = 1 on an 8 x 8 grid (``_pick_mlp_tile`` picks 64),
-  forward and VJP, f32;
+  mode) at C = 512 and 640, B = 1 on an 8 x 8 grid (``_pick_mlp_tile``
+  picks 64), forward and VJP, f32;
 - the port's gate (``mlp_fits_jax_kernel``) against ``_pick_mlp_tile``
   finding no tile at any token count, at every width of the JAX Swin
-  variants;
+  variants and every C % 32 == 0 in (256, 1024]; a ``SwinBlock`` at
+  C = 640 under a gate of 1003 runs the fused branch;
 - a swin_b-width encoder, depths (1, 1, 2, 1) at 64², window 8, under the
   knob at 512 and 1024 with the fused MLP on: f32 features within 2e-5
   and grads within 1e-4 of their largest magnitude, bf16 features within
@@ -62,7 +64,7 @@ from torch_port_utils import (
 )
 
 KEYS = ("ln_scale", "ln_bias", "w1", "b1", "w2", "b2")
-WIDE = (384, 512, 768)
+WIDE = (320, 384, 512, 640, 768, 960)
 # swin_b's widths (128, 256, 512, 1024) at a depth the CPU runs in seconds
 SWIN_B_CUT = dict(embed_dim=128, depths=(1, 1, 2, 1),
                   num_heads=(4, 8, 16, 32))
@@ -141,11 +143,20 @@ def test_plain_autograd_matches_vjp_of_mlp_math(C, dt):
 def test_wrappers_match_pallas_interpret_c512():
     """``mlp_branch`` / ``mlp_branch_backward`` (their plain versions on
     CPU tensors) against the Pallas kernel pair at C = 512, f32."""
-    x, w = _rows(512, 5)
-    T, C = x.size // 512, 512
+    _check_wrappers_against_pallas(512, 5)
+
+
+def test_wrappers_match_pallas_interpret_c640():
+    """The same at C = 640, a width only the run-time-C kernels take."""
+    _check_wrappers_against_pallas(640, 7)
+
+
+def _check_wrappers_against_pallas(C, seed):
+    x, w = _rows(C, seed)
+    T = x.size // C
     assert _pick_mlp_tile(T, C, 4 * C, bwd=False) == 64
     assert _pick_mlp_tile(T, C, 4 * C, bwd=True) == 64
-    dy = np.random.RandomState(6).standard_normal(x.shape).astype(
+    dy = np.random.RandomState(seed + 1).standard_normal(x.shape).astype(
         np.float32)
     dp = np.array([0.5], np.float32)
 
@@ -172,22 +183,53 @@ TOKENS = sorted({b * g * g for b in (1, 8, 24, 64)
 
 
 def test_gate_matches_pick_mlp_tile():
-    """At every width of the JAX Swin variants (Ch = 4C): the port sends a
-    block to K2 exactly where ``_pick_mlp_tile`` finds a tile at some
-    token count, and K2 takes every such width."""
-    widths = sorted({v["embed_dim"] * 2 ** s
-                     for v in jax_swin._SWIN_VARIANTS.values()
-                     for s in range(4)})
-    assert {384, 512, 768, 1024, 1536} <= set(widths)
+    """At every width of the JAX Swin variants and every C % 32 == 0 in
+    (256, 1024] (Ch = 4C): the port sends a block to K2 exactly where
+    ``_pick_mlp_tile`` finds a tile at some token count, and K2 takes
+    every such width and no other above 256."""
+    variants = {v["embed_dim"] * 2 ** s
+                for v in jax_swin._SWIN_VARIANTS.values() for s in range(4)}
+    assert {384, 512, 768, 1024, 1536} <= variants
+    widths = sorted(variants | set(range(288, 1025, 32)))
     for C in widths:
         some_tile = any(_pick_mlp_tile(T, C, 4 * C, bwd=bwd) > 0
                         for T in TOKENS for bwd in (False, True))
         assert sb.mlp_fits_jax_kernel(C, 4 * C) == some_tile, C
         if some_tile:
-            for dtype in (torch.float32, torch.bfloat16):
-                sb.mlp_kernel_dims(C, 4 * C, dtype)
+            sb.mlp_kernel_dims(C, 4 * C, torch.bfloat16)
+            if C <= sb.MLP_F32_MAX_C:
+                sb.mlp_kernel_dims(C, 4 * C, torch.float32)
+        else:
+            with pytest.raises(ValueError, match="MLP kernels"):
+                sb.mlp_kernel_dims(C, 4 * C, torch.bfloat16)
     assert not sb.mlp_fits_jax_kernel(1024, 4096)
-    assert sb.mlp_fits_jax_kernel(768, 3072)
+    assert sb.mlp_fits_jax_kernel(992, 3968)
+    assert sb.MLP_MAX_C == 1003
+
+
+def test_swin_block_c640_routes_to_the_fused_branch(monkeypatch):
+    """A block at C = 640 under a gate of 1003 builds, takes the fused
+    branch (K2 on the card, its plain version here) and not the XLA-branch
+    math, and its output is the branch's."""
+    blk = port_swin.SwinBlock(640, 20, 8, 0, fused_mlp=True,
+                              fused_mlp_max_c=1003)
+    assert blk.fused_mlp and not blk.mlp_math
+    g = torch.Generator().manual_seed(64)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return sb.mlp_branch(*args, **kw)
+
+    monkeypatch.setattr(port_swin, "mlp_branch", counted)
+    monkeypatch.setattr(port_swin, "mlp_branch_reference", None)
+    x = torch.randn(1, 8, 8, 640, generator=g)
+    out = blk(x)
+    assert calls == [torch.Size([1, 8, 8, 640])]
+    assert out.shape == x.shape and torch.isfinite(out).all()
 
 
 def _encoder_pair(max_c, dtype, monkeypatch):
