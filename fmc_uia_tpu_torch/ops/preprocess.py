@@ -28,6 +28,7 @@ import torch
 
 from fmc_uia_tpu_torch.ops import build
 from fmc_uia_tpu_torch.parallel import comm
+from fmc_uia_tpu_torch.utils.profiling import span
 
 _M = (0xD2511F53, 0xCD9E8D57)          # Philox4x32 multipliers
 _W = (0x9E3779B9, 0xBB67AE85)          # Philox4x32 key increments
@@ -125,51 +126,54 @@ def augment_normalize(images: torch.Tensor, scalars: torch.Tensor,
                       ) -> torch.Tensor:
     """K3 on given per-image parameters (see
     ``augment_normalize_reference``). A CPU tensor takes the plain version;
-    a CUDA tensor launches ``preprocess_fwd`` or raises. Counts its
-    launches in ``.launches``, and in ``.launches_by_kernel`` by the kernel
+    a CUDA tensor launches ``preprocess_fwd`` or raises, in span
+    ``kernel.K3`` while spans are recorded. Counts its launches in
+    ``.launches``, and in ``.launches_by_kernel`` by the kernel
     that ``preprocess_fwd`` chose: ``vector``, the 16-byte chunk kernel
     (P % 16 == 0, C <= 16, the images and the output 16-byte aligned), or
     ``edge``, the per-pair kernel for anything else."""
     if images.device.type == "cpu":
         return augment_normalize_reference(images, scalars, seeds, mean, std,
                                            dtype)
-    if images.dtype != torch.uint8 or images.dim() != 4:
-        raise ValueError(f"images: need uint8 [B, H, W, C], got "
-                         f"{images.dtype} {tuple(images.shape)}")
-    B, C = images.shape[0], images.shape[-1]
-    if not images.is_contiguous():
-        raise ValueError("images must be contiguous")
-    if dtype not in _OUT_DTYPES:
-        raise ValueError(f"output dtype {dtype}: need f32 or bf16")
-    dev = images.device
-    for t, shape, dt, what in ((scalars, (B, 3), torch.float32, "scalars"),
-                               (seeds, (B,), torch.int32, "seeds")):
-        if (t.device != dev or tuple(t.shape) != shape or t.dtype != dt
-                or not t.is_contiguous()):
-            raise ValueError(f"{what}: need contiguous {dt} {shape} on {dev}"
-                             f", got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-    mean255, inv_std = _device_stats(tuple(map(float, mean)),
-                                     tuple(map(float, std)), dev)
-    if mean255.shape != (C,) or inv_std.shape != (C,):
-        raise ValueError(f"mean/std need {C} entries, one per channel")
-    P = images[0].numel()
-    if P >= 2 ** 31:
-        raise ValueError(f"{P} elements per image: the kernels index an "
-                         "image in 32 bits (P < 2^31)")
-    out = torch.empty(images.shape, dtype=dtype, device=dev)
-    vector = ctypes.c_int(0)
-    rc = build.load("preprocess_fwd")(
-        images.data_ptr(), out.data_ptr(), scalars.data_ptr(),
-        seeds.data_ptr(), mean255.data_ptr(), inv_std.data_ptr(), B, C, P,
-        int(dtype == torch.bfloat16), ctypes.byref(vector),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"preprocess_fwd launch failed: CUDA error {rc}")
-    augment_normalize.launches += 1
-    augment_normalize.launches_by_kernel[
-        "vector" if vector.value else "edge"] += 1
-    return out
+    with span("kernel.K3"):
+        if images.dtype != torch.uint8 or images.dim() != 4:
+            raise ValueError(f"images: need uint8 [B, H, W, C], got "
+                             f"{images.dtype} {tuple(images.shape)}")
+        B, C = images.shape[0], images.shape[-1]
+        if not images.is_contiguous():
+            raise ValueError("images must be contiguous")
+        if dtype not in _OUT_DTYPES:
+            raise ValueError(f"output dtype {dtype}: need f32 or bf16")
+        dev = images.device
+        for t, shape, dt, what in ((scalars, (B, 3), torch.float32, "scalars"),
+                                   (seeds, (B,), torch.int32, "seeds")):
+            if (t.device != dev or tuple(t.shape) != shape or t.dtype != dt
+                    or not t.is_contiguous()):
+                raise ValueError(f"{what}: need contiguous {dt} {shape} on "
+                                 f"{dev}, got {t.dtype} {tuple(t.shape)} "
+                                 f"on {t.device}")
+        mean255, inv_std = _device_stats(tuple(map(float, mean)),
+                                         tuple(map(float, std)), dev)
+        if mean255.shape != (C,) or inv_std.shape != (C,):
+            raise ValueError(f"mean/std need {C} entries, one per channel")
+        P = images[0].numel()
+        if P >= 2 ** 31:
+            raise ValueError(f"{P} elements per image: the kernels index an "
+                             "image in 32 bits (P < 2^31)")
+        out = torch.empty(images.shape, dtype=dtype, device=dev)
+        vector = ctypes.c_int(0)
+        rc = build.load("preprocess_fwd")(
+            images.data_ptr(), out.data_ptr(), scalars.data_ptr(),
+            seeds.data_ptr(), mean255.data_ptr(), inv_std.data_ptr(), B, C, P,
+            int(dtype == torch.bfloat16), ctypes.byref(vector),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError("preprocess_fwd launch failed: CUDA error "
+                               f"{rc}")
+        augment_normalize.launches += 1
+        augment_normalize.launches_by_kernel[
+            "vector" if vector.value else "edge"] += 1
+        return out
 
 
 augment_normalize.launches = 0

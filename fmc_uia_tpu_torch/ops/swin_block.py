@@ -17,7 +17,9 @@ expanded rel-pos bias; ``mask`` and ``dp`` get none. A wrapper given a CUDA
 tensor launches its kernel or raises; given a CPU tensor it runs the plain
 version (``*_reference``), which computes in f32 on values rounded to the
 compute dtype (``x.dtype``) at the same points as the JAX kernel. Each
-wrapper counts its launches in ``.launches``.
+wrapper counts its launches in ``.launches`` and, while spans are recorded,
+times each launch path in a span of the kernel's name (``kernel.K1f``,
+``kernel.K1b``, ``kernel.K2f``, ``kernel.K2b``).
 
 Weights are the port's f32 params in PyTorch layout (``[out, in]``); the
 kernels round them to the compute dtype themselves (bf16: into a bf16
@@ -45,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from fmc_uia_tpu_torch.ops import build
+from fmc_uia_tpu_torch.utils.profiling import span
 
 _LN_EPS = 1e-6
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -350,24 +353,25 @@ def _attention_forward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
         return attention_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv,
                                           wproj, bproj, bias_hnn, mask,
                                           num_heads, dp)
-    args, mask, dp = _attn_kernel_args(x, ln_scale, ln_bias, wqkv, bqkv,
-                                       wproj, bproj, bias_hnn, mask,
-                                       num_heads, dp)
-    B, Hp, Wp, C = x.shape
-    ws = math.isqrt(bias_hnn.shape[-1])
-    bf = int(x.dtype == torch.bfloat16)
-    out = torch.empty_like(x)
-    nbytes = _workspace("swin_attn_fwd", B, Hp, Wp, C, num_heads, ws, bf)
-    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-    rc = build.load("swin_attn_fwd")(
-        x.data_ptr(), out.data_ptr(), work.data_ptr(),
-        *[t.data_ptr() for t in args], _ptr(mask), _ptr(dp),
-        (C // num_heads) ** -0.5, B, Hp, Wp, C, num_heads, ws, bf,
-        _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"swin_attn_fwd launch failed: CUDA error {rc}")
-    attention_branch.launches += 1
-    return out
+    with span("kernel.K1f"):
+        args, mask, dp = _attn_kernel_args(x, ln_scale, ln_bias, wqkv, bqkv,
+                                           wproj, bproj, bias_hnn, mask,
+                                           num_heads, dp)
+        B, Hp, Wp, C = x.shape
+        ws = math.isqrt(bias_hnn.shape[-1])
+        bf = int(x.dtype == torch.bfloat16)
+        out = torch.empty_like(x)
+        nbytes = _workspace("swin_attn_fwd", B, Hp, Wp, C, num_heads, ws, bf)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        rc = build.load("swin_attn_fwd")(
+            x.data_ptr(), out.data_ptr(), work.data_ptr(),
+            *[t.data_ptr() for t in args], _ptr(mask), _ptr(dp),
+            (C // num_heads) ** -0.5, B, Hp, Wp, C, num_heads, ws, bf,
+            _stream(x))
+        if rc != 0:
+            raise RuntimeError(f"swin_attn_fwd launch failed: CUDA error {rc}")
+        attention_branch.launches += 1
+        return out
 
 
 def attention_branch_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
@@ -381,35 +385,36 @@ def attention_branch_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
         return attention_branch_backward_reference(
             x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias_hnn, mask,
             num_heads, dy, dp)
-    args, mask, dp = _attn_kernel_args(x, ln_scale, ln_bias, wqkv, bqkv,
-                                       wproj, bproj, bias_hnn, mask,
-                                       num_heads, dp)
-    dy = _check_dy(dy, x)
-    B, Hp, Wp, C = x.shape
-    N = bias_hnn.shape[-1]
-    ws = math.isqrt(N)
-    bf = int(x.dtype == torch.bfloat16)
-    dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    grads = [torch.empty(shape, **f32) for shape in (
-        (C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,),
-        (num_heads, N, N))]
-    dx = torch.empty_like(x)
-    T = B * Hp * Wp
-    kchunks = (split_k_plan(C, C, T)[0], split_k_plan(3 * C, C, T)[0])
-    nbytes = _workspace("swin_attn_bwd", B, Hp, Wp, C, num_heads, ws, bf,
-                        *kchunks)
-    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    rc = build.load("swin_attn_bwd")(
-        x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        *[t.data_ptr() for t in args], _ptr(mask), _ptr(dp),
-        *[g.data_ptr() for g in grads], work.data_ptr(),
-        (C // num_heads) ** -0.5, B, Hp, Wp, C, num_heads, ws, bf,
-        *kchunks, _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"swin_attn_bwd launch failed: CUDA error {rc}")
-    attention_branch_backward.launches += 1
-    return (dx, *grads)
+    with span("kernel.K1b"):
+        args, mask, dp = _attn_kernel_args(x, ln_scale, ln_bias, wqkv, bqkv,
+                                           wproj, bproj, bias_hnn, mask,
+                                           num_heads, dp)
+        dy = _check_dy(dy, x)
+        B, Hp, Wp, C = x.shape
+        N = bias_hnn.shape[-1]
+        ws = math.isqrt(N)
+        bf = int(x.dtype == torch.bfloat16)
+        dev = x.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        grads = [torch.empty(shape, **f32) for shape in (
+            (C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,),
+            (num_heads, N, N))]
+        dx = torch.empty_like(x)
+        T = B * Hp * Wp
+        kchunks = (split_k_plan(C, C, T)[0], split_k_plan(3 * C, C, T)[0])
+        nbytes = _workspace("swin_attn_bwd", B, Hp, Wp, C, num_heads, ws, bf,
+                            *kchunks)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        rc = build.load("swin_attn_bwd")(
+            x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            *[t.data_ptr() for t in args], _ptr(mask), _ptr(dp),
+            *[g.data_ptr() for g in grads], work.data_ptr(),
+            (C // num_heads) ** -0.5, B, Hp, Wp, C, num_heads, ws, bf,
+            *kchunks, _stream(x))
+        if rc != 0:
+            raise RuntimeError(f"swin_attn_bwd launch failed: CUDA error {rc}")
+        attention_branch_backward.launches += 1
+        return (dx, *grads)
 
 
 attention_branch_backward.launches = 0
@@ -628,24 +633,25 @@ def _mlp_kernel_args(x, ln_scale, ln_bias, w1, b1, w2, b2, dp):
 def _mlp_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, dp=None):
     if x.device.type == "cpu":
         return mlp_branch_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
-    args, dp = _mlp_kernel_args(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
-    B, H, W, C = x.shape
-    Ch = w1.shape[0]
-    bf = int(x.dtype == torch.bfloat16)
-    out = torch.empty_like(x)
-    T = B * H * W
-    # bf16: the plan's bytes (the bf16 weights TMA reads; above C = 256
-    # also xn and h); the launch refuses fewer than it carves. f32: none
-    nbytes = mlp_fwd_plan(T, C, Ch)["workspace"] if bf else 0
-    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-    rc = build.load("swin_mlp_fwd")(
-        x.data_ptr(), out.data_ptr(), work.data_ptr(), nbytes,
-        *[t.data_ptr() for t in args], _ptr(dp), T, C, Ch, H * W,
-        bf, _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"swin_mlp_fwd launch failed: CUDA error {rc}")
-    mlp_branch.launches += 1
-    return out
+    with span("kernel.K2f"):
+        args, dp = _mlp_kernel_args(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
+        B, H, W, C = x.shape
+        Ch = w1.shape[0]
+        bf = int(x.dtype == torch.bfloat16)
+        out = torch.empty_like(x)
+        T = B * H * W
+        # bf16: the plan's bytes (the bf16 weights TMA reads; above C = 256
+        # also xn and h); the launch refuses fewer than it carves. f32: none
+        nbytes = mlp_fwd_plan(T, C, Ch)["workspace"] if bf else 0
+        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        rc = build.load("swin_mlp_fwd")(
+            x.data_ptr(), out.data_ptr(), work.data_ptr(), nbytes,
+            *[t.data_ptr() for t in args], _ptr(dp), T, C, Ch, H * W,
+            bf, _stream(x))
+        if rc != 0:
+            raise RuntimeError(f"swin_mlp_fwd launch failed: CUDA error {rc}")
+        mlp_branch.launches += 1
+        return out
 
 
 def mlp_branch_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, dy, dp=None):
@@ -655,32 +661,33 @@ def mlp_branch_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, dy, dp=None):
     if x.device.type == "cpu":
         return mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1,
                                              w2, b2, dy, dp)
-    args, dp = _mlp_kernel_args(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
-    dy = _check_dy(dy, x)
-    B, H, W, C = x.shape
-    Ch = w1.shape[0]
-    bf = int(x.dtype == torch.bfloat16)
-    dev = x.device
-    grads = [torch.empty(shape, dtype=torch.float32, device=dev)
-             for shape in ((C,), (C,), (Ch, C), (Ch,), (C, Ch), (C,))]
-    dx = torch.empty_like(x)
-    T = B * H * W
-    # the split-K slots of dW1 and dW2 (bf16; ignored in f32)
-    plan = mlp_bwd_plan(T, C, Ch)
-    kchunks = (plan["kchunk_w1"], plan["kchunk_w2"])
-    # bf16: the plan's bytes; the launch refuses fewer than it carves
-    nbytes = (plan["workspace"] if bf
-              else _workspace("swin_mlp_bwd", T, C, Ch, bf, *kchunks))
-    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    rc = build.load("swin_mlp_bwd")(
-        x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        *[t.data_ptr() for t in args], _ptr(dp),
-        *[g.data_ptr() for g in grads], work.data_ptr(), nbytes,
-        T, C, Ch, H * W, bf, *kchunks, _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"swin_mlp_bwd launch failed: CUDA error {rc}")
-    mlp_branch_backward.launches += 1
-    return (dx, *grads)
+    with span("kernel.K2b"):
+        args, dp = _mlp_kernel_args(x, ln_scale, ln_bias, w1, b1, w2, b2, dp)
+        dy = _check_dy(dy, x)
+        B, H, W, C = x.shape
+        Ch = w1.shape[0]
+        bf = int(x.dtype == torch.bfloat16)
+        dev = x.device
+        grads = [torch.empty(shape, dtype=torch.float32, device=dev)
+                 for shape in ((C,), (C,), (Ch, C), (Ch,), (C, Ch), (C,))]
+        dx = torch.empty_like(x)
+        T = B * H * W
+        # the split-K slots of dW1 and dW2 (bf16; ignored in f32)
+        plan = mlp_bwd_plan(T, C, Ch)
+        kchunks = (plan["kchunk_w1"], plan["kchunk_w2"])
+        # bf16: the plan's bytes; the launch refuses fewer than it carves
+        nbytes = (plan["workspace"] if bf
+                  else _workspace("swin_mlp_bwd", T, C, Ch, bf, *kchunks))
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        rc = build.load("swin_mlp_bwd")(
+            x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            *[t.data_ptr() for t in args], _ptr(dp),
+            *[g.data_ptr() for g in grads], work.data_ptr(), nbytes,
+            T, C, Ch, H * W, bf, *kchunks, _stream(x))
+        if rc != 0:
+            raise RuntimeError(f"swin_mlp_bwd launch failed: CUDA error {rc}")
+        mlp_branch_backward.launches += 1
+        return (dx, *grads)
 
 
 mlp_branch_backward.launches = 0

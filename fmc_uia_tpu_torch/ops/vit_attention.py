@@ -23,7 +23,9 @@ but the test-size ``vit_nano``).
 
 A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
 tensor it runs the plain version (``*_reference``). Each wrapper counts
-its launches in ``.launches``. On the card the outputs and grads are laid
+its launches in ``.launches`` and, while spans are recorded, times each
+launch path in a span of its kernel's name (``kernel.K4f``,
+``kernel.K4b``). On the card the outputs and grads are laid
 out [B, N, H, dh] and returned as [B, H, N, dh] views, so the block's
 reshape back to [B, N, C] costs nothing; the inputs may be column slices
 of the qkv projection (any strides with a contiguous last axis and
@@ -39,6 +41,7 @@ from typing import Tuple
 import torch
 
 from fmc_uia_tpu_torch.ops import build
+from fmc_uia_tpu_torch.utils.profiling import span
 
 KERNEL_DH = 64
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -179,17 +182,18 @@ def global_attention_forward(q, k, v, sm_scale: float):
     ``global_attention.launches``."""
     if q.device.type == "cpu":
         return global_attention_reference(q, k, v, sm_scale)
-    q, k, v = _check_qkv(q, k, v)
-    B, H, N, dh = q.shape
-    o = _bnhd(q)
-    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    rc = build.load("vit_flash_fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), _strides(q, k, v, o), sm_scale, B, H, N, dh,
-        int(q.dtype == torch.bfloat16), _stream(q))
-    _raise_on(rc, "vit_flash_fwd")
-    global_attention.launches += 1
-    return o, lse
+    with span("kernel.K4f"):
+        q, k, v = _check_qkv(q, k, v)
+        B, H, N, dh = q.shape
+        o = _bnhd(q)
+        lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+        rc = build.load("vit_flash_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), _strides(q, k, v, o), sm_scale, B, H, N, dh,
+            int(q.dtype == torch.bfloat16), _stream(q))
+        _raise_on(rc, "vit_flash_fwd")
+        global_attention.launches += 1
+        return o, lse
 
 
 def global_attention_backward(q, k, v, o, lse, do, sm_scale: float):
@@ -199,26 +203,28 @@ def global_attention_backward(q, k, v, o, lse, do, sm_scale: float):
     if q.device.type == "cpu":
         return global_attention_backward_reference(q, k, v, o, lse, do,
                                                    sm_scale)
-    q, k, v = _check_qkv(q, k, v)
-    o = _kernel_view(o, q.shape, q.dtype, "o")
-    do = _kernel_view(do, q.shape, q.dtype, "do")
-    B, H, N, dh = q.shape
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, N):
-        raise ValueError(f"lse: {lse.dtype} {tuple(lse.shape)} != "
-                         f"float32 {(B, H, N)}")
-    lse = lse.contiguous()
-    # f32 workspace: lse * log2(e) and di = rowsum(o * do), rows padded
-    ws = torch.empty(build.load("vit_flash_bwd", "vit_flash_bwd_workspace")(
-        B, H, N) // 4, dtype=torch.float32, device=q.device)
-    dq, dk, dv = _bnhd(q), _bnhd(q), _bnhd(q)
-    rc = build.load("vit_flash_bwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
-        sm_scale, B, H, N, dh, int(q.dtype == torch.bfloat16), _stream(q))
-    _raise_on(rc, "vit_flash_bwd")
-    global_attention_backward.launches += 1
-    return dq, dk, dv
+    with span("kernel.K4b"):
+        q, k, v = _check_qkv(q, k, v)
+        o = _kernel_view(o, q.shape, q.dtype, "o")
+        do = _kernel_view(do, q.shape, q.dtype, "do")
+        B, H, N, dh = q.shape
+        if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, N):
+            raise ValueError(f"lse: {lse.dtype} {tuple(lse.shape)} != "
+                             f"float32 {(B, H, N)}")
+        lse = lse.contiguous()
+        # f32 workspace: lse * log2(e) and di = rowsum(o * do), rows padded
+        ws = torch.empty(build.load(
+            "vit_flash_bwd", "vit_flash_bwd_workspace")(B, H, N) // 4,
+            dtype=torch.float32, device=q.device)
+        dq, dk, dv = _bnhd(q), _bnhd(q), _bnhd(q)
+        rc = build.load("vit_flash_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
+            sm_scale, B, H, N, dh, int(q.dtype == torch.bfloat16), _stream(q))
+        _raise_on(rc, "vit_flash_bwd")
+        global_attention_backward.launches += 1
+        return dq, dk, dv
 
 
 global_attention_backward.launches = 0

@@ -14,7 +14,12 @@ Same design as the JAX service:
     the queued device work;
   * ``max_delay_ms`` bounds the added latency: a partial batch is flushed
     when its oldest request is that old;
-  * ``stats`` counts dispatches, pad images and dispatches by padded size.
+  * ``stats`` counts dispatches, pad images and dispatches by padded size;
+  * while spans are recorded (``utils/profiling.py``), each request gets
+    ``serve.request`` and ``serve.queue`` under its request id, each
+    dispatch ``serve.dispatch`` (with its ``serve.inflight_wait``) and
+    ``serve.flight`` under its dispatch id, and the dispatcher's waits for
+    work ``serve.idle``.
 
 Usage:
     svc = StreamingPredictor(model, registry, mean, std, image_size,
@@ -26,6 +31,7 @@ Usage:
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -37,6 +43,7 @@ import numpy as np
 
 from fmc_uia_tpu_torch.export import Predictor
 from fmc_uia_tpu_torch.tasks import TaskRegistry
+from fmc_uia_tpu_torch.utils.profiling import add_span, now_ns, span
 
 
 class StreamingPredictor:
@@ -65,6 +72,8 @@ class StreamingPredictor:
         self._queues: Dict[str, "queue.Queue"] = {
             tid: queue.Queue() for tid in registry.task_ids}
         self._wake = threading.Event()
+        self._request_ids = itertools.count()
+        self._dispatch_ids = itertools.count()
         self._closed = False
         self._inflight = threading.Semaphore(max(1, int(max_inflight)))
         self._done_q: "queue.Queue" = queue.Queue()
@@ -89,7 +98,9 @@ class StreamingPredictor:
             raise ValueError(f"image shape {image_u8.shape} != {want}; "
                              "resize on the client")
         fut: Future = Future()
-        self._queues[task_id].put((image_u8, fut, time.monotonic()))
+        # (image, future, enqueue time, request id, span start)
+        self._queues[task_id].put((image_u8, fut, time.monotonic(),
+                                   next(self._request_ids), now_ns()))
         self._wake.set()
         return fut
 
@@ -139,8 +150,9 @@ class StreamingPredictor:
                 if self._closed and all(
                         q.empty() for q in self._queues.values()):
                     return
-                self._wake.wait(timeout=self.max_delay_s / 2
-                                if self.max_delay_s > 0 else 0.001)
+                with span("serve.idle"):
+                    self._wake.wait(timeout=self.max_delay_s / 2
+                                    if self.max_delay_s > 0 else 0.001)
                 self._wake.clear()
                 if self._closed:
                     # drain whatever remains before exiting
@@ -160,28 +172,35 @@ class StreamingPredictor:
                     break
             if not items:
                 continue
+            for it in items:
+                add_span("serve.queue", it[4], request=it[3], task=tid)
             n_real = len(items)
-            images = np.stack([it[0] for it in items])
             if self.autoscale:
                 target = next(s for s in self._chain if s >= n_real)
             else:
                 target = self.max_batch
-            if n_real < target:
-                pad = np.repeat(images[-1:], target - n_real, axis=0)
-                images = np.concatenate([images, pad])
-            self.stats["dispatches"] += 1
-            self.stats["pad_images"] += target - n_real
-            self.stats["by_size"][target] += 1
-            self._inflight.acquire()
-            try:
-                dev = self.predictor.predict_device(images, tid)
-            except Exception as e:  # dispatch failure
-                self._inflight.release()
-                for _, fut, _ in items:
-                    if not fut.done():
-                        fut.set_exception(e)
-                continue
-            self._done_q.put((dev, items, n_real))
+            did = next(self._dispatch_ids)
+            with span("serve.dispatch", dispatch=did,
+                      requests=[it[3] for it in items], n_real=n_real,
+                      size=target):
+                images = np.stack([it[0] for it in items])
+                if n_real < target:
+                    pad = np.repeat(images[-1:], target - n_real, axis=0)
+                    images = np.concatenate([images, pad])
+                self.stats["dispatches"] += 1
+                self.stats["pad_images"] += target - n_real
+                self.stats["by_size"][target] += 1
+                with span("serve.inflight_wait", dispatch=did):
+                    self._inflight.acquire()
+                try:
+                    dev = self.predictor.predict_device(images, tid)
+                except Exception as e:  # dispatch failure
+                    self._inflight.release()
+                    for it in items:
+                        if not it[1].done():
+                            it[1].set_exception(e)
+                    continue
+            self._done_q.put((dev, items, n_real, did, now_ns()))
 
     def _completion_loop(self) -> None:
         """Bring device results to the host and fulfil futures, off the
@@ -190,14 +209,16 @@ class StreamingPredictor:
             entry = self._done_q.get()
             if entry is None:
                 return
-            dev, items, n_real = entry
+            dev, items, n_real, did, returned = entry
             try:
                 preds = dev[:n_real].cpu().numpy()
-                for (_, fut, _), pred in zip(items, preds):
-                    fut.set_result(np.asarray(pred))
+                add_span("serve.flight", returned, dispatch=did)
+                for it, pred in zip(items, preds):
+                    it[1].set_result(np.asarray(pred))
+                    add_span("serve.request", it[4], request=it[3])
             except Exception as e:  # device failure
-                for _, fut, _ in items:
-                    if not fut.done():
-                        fut.set_exception(e)
+                for it in items:
+                    if not it[1].done():
+                        it[1].set_exception(e)
             finally:
                 self._inflight.release()

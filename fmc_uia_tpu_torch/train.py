@@ -91,6 +91,7 @@ from fmc_uia_tpu_torch.tasks import (
     SEGMENTATION,
     TaskRegistry,
 )
+from fmc_uia_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -499,12 +500,20 @@ class Trainer:
 
     def _backward(self, batch: Dict) -> Dict:
         """Augment, forward in train mode, loss and backward: the step's
-        grads in ``.grad`` (zeroed first), unclipped; returns the logs."""
-        b = self.put_batch(batch)
-        torch._foreach_zero_([p.grad for p in self._params
-                              + self._adaptive_params])
-        with self._scope(b):
-            return self._forward_backward(b)
+        grads in ``.grad`` (zeroed first), unclipped; returns the logs.
+        Spans ``train.prep``, ``train.forward`` and ``train.backward``."""
+        with contextlib.ExitStack() as stack:
+            with span("train.prep"):
+                b = self.put_batch(batch)
+                torch._foreach_zero_([p.grad for p in self._params
+                                      + self._adaptive_params])
+                stack.enter_context(self._scope(b))
+                images, labels = self._prep(b)
+            with span("train.forward"):
+                total, logs = self._forward_loss(b, images, labels)
+            with span("train.backward"):
+                total.backward()
+        return logs
 
     def _scope(self, b: Dict):
         """Under a mesh: the batch scope (global loss sums, per-row
@@ -518,15 +527,19 @@ class Trainer:
             stack.enter_context(parametrize.cached())
         return stack
 
-    def _forward_backward(self, b: Dict) -> Dict:
-        task_type = b["task_type"]
-        task_index = self._index(b)
+    def _prep(self, b: Dict):
+        """The flips and the photometric prep: (model input, labels)."""
         images, labels = b["image"], b["label"]
         if self.flip_h > 0 or self.flip_v > 0:
-            images, labels = random_flips(images, labels, task_type,
+            images, labels = random_flips(images, labels, b["task_type"],
                                           self.flip_h, self.flip_v,
                                           generator=self.generator)
-        x = self.train_prep(images, generator=self.generator)
+        return self.train_prep(images, generator=self.generator), labels
+
+    def _forward_loss(self, b: Dict, x: torch.Tensor, labels):
+        """The train-mode forward and the loss: (total, the logs)."""
+        task_type = b["task_type"]
+        task_index = self._index(b)
         outputs, inter = self.model(x, task_type, task_index, train=True,
                                     generator=self.generator,
                                     return_intermediates=True)
@@ -547,9 +560,8 @@ class Trainer:
             for key in ("moe_importance", "moe_load"):
                 moe_logs[key] = torch.stack(inter[key]).float().mean(
                     0).detach()
-        total.backward()
-        return {"total_loss": total.detach(), "raw_loss": raw.detach(),
-                "task_weight": weight.detach(), **moe_logs}
+        return total, {"total_loss": total.detach(), "raw_loss": raw.detach(),
+                       "task_weight": weight.detach(), **moe_logs}
 
     def _gate_adaptive(self, epoch: int) -> None:
         """Zero the adaptive log-vars' grads in the warmup epochs."""
@@ -562,36 +574,47 @@ class Trainer:
         ``.grad`` (under ZeRO, the sharded leaves' reduced slices in
         ``zero_grads``) and returns the logs."""
         logs = self._backward(batch)
+        self._clip(logs, epoch)
+        return logs
+
+    def _clip(self, logs: Dict, epoch: int) -> None:
+        """The grads' reduction and clip (the norm into ``logs``), then
+        the adaptive gate."""
         norm = self._reduce_and_clip()
         if norm is not None:
             logs["grad_norm"] = norm
         self._gate_adaptive(epoch)
-        return logs
 
     def _accumulate(self, batch: Dict, epoch: int) -> Dict:
         """One micro-step of gradient accumulation (module docstring);
         under a mesh the summed micro-grads are reduced once, at the
         update."""
         logs = self._backward(batch)
-        self._gate_adaptive(epoch)
-        grads = [p.grad for p in self._params + self._adaptive_params]
-        torch._foreach_add_(self.grad_accum, torch._foreach_div(
-            grads, float(self.accum_steps)))
-        self._micro_step += 1
-        if self._micro_step % self.accum_steps == 0:
-            torch._foreach_copy_(grads, self.grad_accum)
-            self._reduce_and_clip()
-            self._optimizer_step()
-            torch._foreach_zero_(self.grad_accum)
+        with span("train.update"):
+            self._gate_adaptive(epoch)
+            grads = [p.grad for p in self._params + self._adaptive_params]
+            torch._foreach_add_(self.grad_accum, torch._foreach_div(
+                grads, float(self.accum_steps)))
+            self._micro_step += 1
+            if self._micro_step % self.accum_steps == 0:
+                torch._foreach_copy_(grads, self.grad_accum)
+                self._reduce_and_clip()
+                self._optimizer_step()
+                torch._foreach_zero_(self.grad_accum)
         return {k: logs[k] for k in ("total_loss", "raw_loss",
                                      "task_weight")}
 
     def train_batch(self, batch: Dict, epoch: int) -> Dict:
-        if self.accum_steps > 1:
-            logs = self._accumulate(batch, epoch)
-        else:
-            logs = self.compute_grads(batch, epoch)
-            self._optimizer_step()
+        """One step (or micro-step): span ``train.step`` over the phases'
+        spans (``utils/profiling.py``)."""
+        with span("train.step", step=self.host_step):
+            if self.accum_steps > 1:
+                logs = self._accumulate(batch, epoch)
+            else:
+                logs = self._backward(batch)
+                with span("train.update"):
+                    self._clip(logs, epoch)
+                    self._optimizer_step()
         self.host_step += 1
         return logs
 
